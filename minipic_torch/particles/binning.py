@@ -1,0 +1,103 @@
+"""Particle re-binning into fixed-capacity tile buckets, and box wrap.
+
+Particles are sorted by destination tile into a static (num_tiles,
+capacity) layout.  The JAX package does this with one multi-operand
+filler-key sort because gathers are slow on a TPU; on a GPU a stable
+argsort of the tile ids plus one index gather per channel is the natural
+form.  Live particles come out first in each bucket, in flat-index order,
+as in the JAX package; the dead slots after them are zeroed (w == 0).
+
+Overflow (more live particles for a tile than its capacity) is counted and
+the excess dropped: a bucket takes the first `capacity` arrivals by flat
+index.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..core.geometry import Tiling
+from ..core.state import ParticleState
+
+
+def wrap_positions(p: ParticleState, nx: int, ny: int,
+                   periodic: bool) -> ParticleState:
+    """Apply the box boundary to raw positions in cell units.
+
+    f32: remainder(a, n) can round to exactly n for a just below 0; the
+    == n edge is clamped to 0 so no live particle lands off the grid."""
+    if periodic:
+        x = torch.remainder(p.x, nx)
+        y = torch.remainder(p.y, ny)
+        x = torch.where(x >= nx, x - nx, x)
+        y = torch.where(y >= ny, y - ny, y)
+        return p._replace(x=x, y=y)
+    inside = (p.x >= 0) & (p.x < nx) & (p.y >= 0) & (p.y < ny)
+    return p._replace(
+        w=torch.where(inside, p.w, torch.zeros_like(p.w)),
+        x=torch.clamp(p.x, 0.0, nx - 1e-3),
+        y=torch.clamp(p.y, 0.0, ny - 1e-3),
+    )
+
+
+def rebin_flat(flat: ParticleState, *, tile_rows: int, tile_cols: int,
+               tile_nx: int, tile_ny: int, capacity: int, row0: int = 0,
+               col0: int = 0) -> Tuple[ParticleState, torch.Tensor]:
+    """Sort a flat slot pool into (tile_rows*tile_cols, capacity) buckets by
+    the tile of each slot's position (minus the (row0, col0) offset).
+    Returns the buckets and the count of dropped live particles."""
+    col = torch.floor(flat.x / tile_nx).to(torch.int64) - col0
+    row = torch.floor(flat.y / tile_ny).to(torch.int64) - row0
+    in_grid = (col >= 0) & (col < tile_cols) & (row >= 0) & (row < tile_rows)
+    tid = row * tile_cols + col
+    return rebin_by_tid(flat, tid, in_grid, tile_rows * tile_cols, capacity)
+
+
+def rebin_by_tid(flat: ParticleState, tid: torch.Tensor,
+                 in_grid: torch.Tensor, num_tiles: int,
+                 capacity: int) -> Tuple[ParticleState, torch.Tensor]:
+    """Bucket a flat pool by caller-supplied tile indices `tid`; slots with
+    w == 0 or ~in_grid are not placed.  Live slots off the grid are counted
+    as dropped.  Reads nothing back to the host."""
+    n = flat.x.shape[0]
+    if n < num_tiles * capacity:
+        raise ValueError(f"slot pool {n} smaller than bucket space "
+                         f"{num_tiles * capacity}")
+    dev = flat.x.device
+    live_w = flat.w > 0
+    alive = live_w & in_grid
+    off_grid_live = (live_w & ~in_grid).sum()
+
+    # int32 keys: half the radix passes of int64.  Bucket bounds come from
+    # the sorted keys (bincount would read its input's range to the host).
+    key = torch.where(alive, tid, torch.full_like(tid, num_tiles)).to(
+        torch.int32)
+    sorted_key, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(sorted_key, torch.arange(
+        num_tiles + 1, dtype=torch.int32, device=dev))
+    starts = bounds[:-1]
+    counts = bounds[1:] - starts
+    dropped = torch.clamp(counts - capacity, min=0).sum() + off_grid_live
+
+    slot = torch.arange(capacity, device=dev)
+    src = order[torch.clamp(starts[:, None] + slot[None, :], max=n - 1)]
+    valid = slot[None, :] < counts[:, None]
+    outs = [torch.where(valid, a[src], torch.zeros((), dtype=a.dtype,
+                                                    device=dev))
+            for a in flat]
+    return ParticleState(*outs), dropped.to(torch.int32)
+
+
+def rebin(p: ParticleState, tiling: Tiling) -> Tuple[ParticleState,
+                                                       torch.Tensor]:
+    """Single-device re-binning over the full tile grid."""
+    flat = ParticleState(*(a.reshape(-1) for a in p))
+    return rebin_flat(flat, tile_rows=tiling.tile_rows,
+                      tile_cols=tiling.tile_cols, tile_nx=tiling.tile_nx,
+                      tile_ny=tiling.tile_ny, capacity=p.capacity)
+
+
+def tile_counts(p: ParticleState) -> torch.Tensor:
+    """Alive particles per tile."""
+    return (p.w > 0).sum(dim=1, dtype=torch.int32)

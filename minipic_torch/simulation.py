@@ -1,0 +1,312 @@
+"""Single-device simulation: the full PIC step on one device.
+
+Torch port of ``minipic_tpu.simulation`` for the periodic, sort-re-binned
+configuration.  Step order (leapfrog, E and B synchronized at integer
+steps):
+
+  1. halo-pad the fields at t^n and cut the per-tile windows;
+  2. per species, the advance (ops/advance.py): gather E^n, B^n -> Boris
+     u^{n-1/2} -> u^{n+1/2} -> move x^n -> x^{n+1} (stored wrapped) ->
+     Esirkepov J^{n+1/2} tile windows, and each tile's max displacement;
+  3. fold the J windows into the global J;
+  4. B^n -> B^{n+1/2} -> E^{n+1} (with J) -> B^{n+1};
+  5. re-bin (filler-key sort) when the drift trigger or interval fires.
+
+What this port does not carry yet raises ``NotImplementedError``:
+``rebin_mode`` other than "sort", absorbing boundaries, the moving window,
+``Simulation.run`` and ``Simulation.ensure_capacity``.
+
+Host syncs: the re-bin decision is taken on the host, so each step reads
+one device scalar (the drift predicate, or the step counter on the
+interval schedule).
+
+Profiler ranges (``torch.profiler.record_function``) name the step's
+layers for a trace: ``minipic.fields`` (pad, window extract, J fold, Yee),
+``minipic.advance`` (the kernel and its epilogue), ``minipic.rebin`` and
+``minipic.diag`` (energies, momentum, live count, weight guard).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from .core.config import Deck
+from .core.state import (
+    CurrentState,
+    FieldState,
+    ParticleState,
+    SimState,
+    field_energy,
+    kinetic_energy,
+    momentum_sum,
+)
+from .fields.halo import fold_block_periodic, pad_fields_periodic
+from .fields.tiles import extract_field_tiles, fold_tiles
+from .fields.yee import update_b_half_periodic, update_e_full_periodic
+from .ops.advance import fused_push_deposit, live_watermark, resolve_mode
+from .particles.binning import rebin
+from .particles.species import load_species
+
+# Bucket capacity quantum for whole-bucket chunks (kchunk=0), as in the JAX
+# package (whose re-bin kernels slice buckets in 512-slot blocks).
+BUCKET_ALIGN = 512
+
+
+class StepDiag(NamedTuple):
+    """Per-step observables, left on the device (reading them syncs)."""
+
+    field_energy: torch.Tensor  # float64
+    kinetic_energy: torch.Tensor  # [n_species] float64
+    overflow: torch.Tensor  # int32: particles dropped at re-bin
+    momentum: torch.Tensor  # [n_species, 3] float64
+    shard_live: torch.Tensor  # [1] live particles, all species
+    weight_nonuniform: torch.Tensor  # int32: int8 species with uneven w
+
+
+def int8_weight_violations(deck: Deck, species_states) -> torch.Tensor:
+    """Count int8-engaged species whose LIVE weights are not uniform: the
+    int8 deposit scales jx/jy by q*max(w), right only for uniform w."""
+    dev = species_states[0].w.device if species_states else None
+    bad = torch.zeros((), dtype=torch.int32, device=dev)
+    if deck.deposit != "int8":
+        return bad
+    for spec, p in zip(deck.species, species_states):
+        if not spec.uniform_weights():
+            continue
+        wmax = p.w.max()
+        inf = torch.full_like(p.w, float("inf"))
+        wmin = torch.where(p.w > 0, p.w, inf).min()
+        bad = bad + ((wmin != wmax) & torch.isfinite(wmin)).to(torch.int32)
+    return bad
+
+
+def tile_origins(tiling, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """([T,1], [T,1]) global cell coordinates of each tile's origin."""
+    t = torch.arange(tiling.num_tiles, device=device)
+    ox = (t % tiling.tile_cols).to(dtype)[:, None] * tiling.tile_nx
+    oy = (t // tiling.tile_cols).to(dtype)[:, None] * tiling.tile_ny
+    return ox, oy
+
+
+def tile_local_coords(x, y, origins, tile_nx: int, tile_ny: int,
+                      grid: Optional[Tuple[int, int]] = None):
+    """Bucket-tile-local coordinates with nearest-image centering.
+
+    The fold is a reciprocal multiply, not a division — the same f32 ops as
+    the advance's fold, so diagnostics (rho for continuity) evaluate shapes
+    at the coordinates the deposit used; the int8 deposit's exactness
+    check depends on it."""
+    ox, oy = origins
+    xi = x - ox
+    eta = y - oy
+    if grid is not None:
+        gnx, gny = grid
+        xi = xi - gnx * torch.floor((xi + (gnx - tile_nx) * 0.5) * (1.0 / gnx))
+        eta = eta - gny * torch.floor((eta + (gny - tile_ny) * 0.5)
+                                      * (1.0 / gny))
+    return xi, eta
+
+
+def max_step_displacement(species_states, dt: float, dx: float,
+                          dy: float) -> torch.Tensor:
+    """Largest per-axis displacement (cells) of any live particle, from the
+    pushed momenta (float32 0-d)."""
+    disp = None
+    for p in species_states:
+        inv_g = torch.rsqrt(1.0 + p.px * p.px + p.py * p.py + p.pz * p.pz)
+        m = torch.maximum(torch.abs(p.px) * (dt / dx),
+                          torch.abs(p.py) * (dt / dy))
+        m = torch.where(p.w > 0, m * inv_g, torch.zeros_like(m))
+        d = m.max().to(torch.float32)
+        disp = d if disp is None else torch.maximum(disp, d)
+    return disp
+
+
+def resolve_backend(deck: Deck, device: torch.device) -> str:
+    """"cuda" (the advance kernel) for a CUDA device, "plain" on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not "
+                               "available")
+        if deck.dtype != torch.float32:
+            raise NotImplementedError("the CUDA advance kernel is float32-only")
+        return "cuda"
+    if device.type == "cpu":
+        return "plain"
+    raise NotImplementedError(f"device {device}")
+
+
+def advance_species_tiles(p: ParticleState, ftiles: FieldState, *, qm: float,
+                          q: float, order: int, tile_ny: int, tile_nx: int,
+                          tile_cols: int, g: int, dt: float, dx: float,
+                          dy: float, grid: Tuple[int, int], mode: str):
+    """Gather + push + move + deposit for one species over its buckets.
+    Returns (pushed particles with wrapped positions, (jx, jy, jz) tile
+    windows, max displacement in cells)."""
+    return fused_push_deposit(
+        p, ftiles, live_watermark(p.w), qm=qm, q=q, order=order,
+        tile_ny=tile_ny, tile_nx=tile_nx, tile_cols=tile_cols, g=g, dt=dt,
+        dx=dx, dy=dy, grid=grid, mode=mode)
+
+
+def _check_supported(deck: Deck) -> None:
+    if deck.rebin_mode != "sort":
+        raise NotImplementedError(
+            f"rebin_mode={deck.rebin_mode!r}: the port re-bins by sort only "
+            "(set rebin_mode='sort')")
+    if deck.boundary != "periodic":
+        raise NotImplementedError(f"boundary={deck.boundary!r}")
+    if deck.moving_window:
+        raise NotImplementedError("moving_window")
+
+
+def build_step(deck: Deck, device: torch.device):
+    """Step function SimState -> (SimState, StepDiag) for `device`."""
+    deck.validate()
+    _check_supported(deck)
+    resolve_backend(deck, device)
+    tiling = deck.tiling
+    g = deck.guard
+    dt, dx, dy = deck.dt, deck.dx, deck.dy
+    grid = (deck.nx, deck.ny)
+    trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
+    modes = []
+    for spec in deck.species:
+        qw0 = (spec.charge * dx * dy / spec.ppc
+               if spec.uniform_weights() else 0.0)
+        modes.append(resolve_mode(deck.deposit, qw0, tiling.tile_ny,
+                                  tiling.tile_nx, g))
+        if modes[-1] == "f32" and deck.gather_precision != "exact":
+            raise NotImplementedError(
+                f"gather_precision={deck.gather_precision!r} with the f32 "
+                "deposit (the port gathers exactly)")
+
+    def to_global(t):
+        tr = t.reshape(tiling.tile_rows, tiling.tile_cols,
+                       tiling.tile_ny + 2 * g, tiling.tile_nx + 2 * g)
+        return fold_block_periodic(
+            fold_tiles(tr, tiling.tile_ny, tiling.tile_nx, g), g)
+
+    def step(state: SimState) -> Tuple[SimState, StepDiag]:
+        f = state.fields
+        with record_function("minipic.fields"):
+            ftiles = extract_field_tiles(
+                pad_fields_periodic(f, g), tiling.tile_rows,
+                tiling.tile_cols, tiling.tile_ny, tiling.tile_nx, g)
+
+        pushed, kes, moms, disps = [], [], [], []
+        jsum = None
+        for spec, mode, p in zip(deck.species, modes, state.species):
+            with record_function("minipic.advance"):
+                pnew, js, disp = advance_species_tiles(
+                    p, ftiles, qm=spec.charge / spec.mass, q=spec.charge,
+                    order=spec.shape_order, tile_ny=tiling.tile_ny,
+                    tile_nx=tiling.tile_nx, tile_cols=tiling.tile_cols, g=g,
+                    dt=dt, dx=dx, dy=dy, grid=grid, mode=mode)
+            jsum = js if jsum is None else tuple(
+                a + b for a, b in zip(jsum, js))
+            pushed.append(pnew)
+            disps.append(disp)
+            with record_function("minipic.diag"):
+                kes.append(kinetic_energy(pnew, spec.mass))
+                moms.append(momentum_sum(pnew, spec.mass))
+
+        with record_function("minipic.fields"):
+            j = None if jsum is None else CurrentState(*(to_global(t)
+                                                         for t in jsum))
+            f = update_b_half_periodic(f, dt, dx, dy)
+            f = update_e_full_periodic(f, dt, dx, dy, j)
+            f = update_b_half_periodic(f, dt, dx, dy)
+
+        drift_now = state.drift
+        if trigger_drift:
+            if state.drift is None:
+                raise ValueError("deck uses drift-triggered re-binning but "
+                                 "SimState.drift is unset")
+            disp = disps[0]
+            for d in disps[1:]:
+                disp = torch.maximum(disp, d)
+            drift_now = state.drift + disp
+            do_rebin = bool(drift_now > deck.drift_threshold())
+        else:
+            do_rebin = (deck.rebin_interval == 1
+                        or int(state.step) % deck.rebin_interval == 0)
+
+        overflow = torch.zeros((), dtype=torch.int32, device=f.ex.device)
+        binned = []
+        for p in pushed:
+            if do_rebin:
+                with record_function("minipic.rebin"):
+                    p, ov = rebin(p, tiling)
+                overflow = overflow + ov
+            binned.append(p)
+        if trigger_drift and do_rebin:
+            drift_now = torch.zeros_like(drift_now)
+
+        dev = f.ex.device
+        with record_function("minipic.diag"):
+            live = sum((p.w > 0).sum(dtype=torch.int32) for p in binned)
+            diag = StepDiag(
+                field_energy=field_energy(f, dx, dy),
+                kinetic_energy=(torch.stack(kes) if kes else torch.zeros(
+                    0, dtype=torch.float64, device=dev)),
+                overflow=overflow,
+                momentum=(torch.stack(moms) if moms else torch.zeros(
+                    (0, 3), dtype=torch.float64, device=dev)),
+                shard_live=torch.as_tensor(live, dtype=torch.int32,
+                                           device=dev).reshape(1),
+                weight_nonuniform=int8_weight_violations(deck, binned),
+            )
+        new_state = SimState(fields=f, species=tuple(binned),
+                             step=state.step + 1, drift=drift_now)
+        return new_state, diag
+
+    return step
+
+
+class Simulation:
+    """User-facing entry point: holds a deck and a device, builds the initial
+    state, owns the step."""
+
+    def __init__(self, deck: Deck, fields: Optional[FieldState] = None,
+                 seed: int = 0, *, device):
+        deck.validate()
+        _check_supported(deck)
+        self.device = torch.device(device)
+        self.backend = resolve_backend(deck, self.device)
+        self.deck = deck
+        tiling = deck.tiling
+        cap = deck.capacity()
+        q = deck.kchunk if deck.kchunk > 0 else BUCKET_ALIGN
+        if cap % q:
+            cap = -(-cap // q) * q
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        species = tuple(
+            load_species(spec, deck.domain, tiling, cap, gen, deck.dtype,
+                         self.device)
+            for spec in deck.species)
+        if fields is None:
+            fields = FieldState.zeros(deck.ny, deck.nx, deck.dtype,
+                                      self.device)
+        self.state = SimState(
+            fields=fields, species=species,
+            step=torch.zeros((), dtype=torch.int32, device=self.device),
+            drift=torch.zeros((), dtype=torch.float32, device=self.device))
+        self._step = build_step(deck, self.device)
+
+    def step(self, n: int = 1) -> Optional[StepDiag]:
+        diag = None
+        for _ in range(n):
+            self.state, diag = self._step(self.state)
+        return diag
+
+    def ensure_capacity(self, overflow: int = 0) -> bool:
+        raise NotImplementedError("adaptive capacity is not ported yet")
+
+    def run(self, n_steps=None, save_every=None, saver=None):
+        raise NotImplementedError("Simulation.run is not ported yet; "
+                                  "use Simulation.step")

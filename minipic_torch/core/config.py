@@ -160,12 +160,14 @@ class Deck:
     # the JAX package measured its 10k-step two-stream energy acceptance
     # on a TPU (docs/energy_tpu_10k_int8q.json).
     deposit: str = ""
-    # Re-binning strategy: "sort" = full sort every pass (the one the port
-    # carries); "incremental" = movers-only kernels + watermark defrag;
-    # "auto" = the deal route in the JAX package.
+    # Re-binning strategy: "sort" = a stable sort of every slot by tile;
+    # "auto" and "incremental" = the deal route (split, segment, append or
+    # defrag: particles/binning.rebin_auto) on every device.  The JAX
+    # package's "auto" takes the deal route on its Pallas backend only and
+    # sorts on XLA.
     rebin_mode: str = "auto"
-    # Outgoing/incoming mover buffer slots per tile for incremental
-    # re-binning; None -> capacity // 8 (rounded to a lane multiple).
+    # Outgoing mover buffer slots per tile for the deal route; None derives
+    # them from the deck's kinematics (mover_cap).
     mover_capacity: Optional[int] = None
 
     def shape_reach(self) -> float:

@@ -1,9 +1,11 @@
 """The headline configuration on the port, and a device-time profile of its
 step.
 
-``headline_deck()`` is bench.py:58-102's deck (1e8 electrons on 512^2,
-8x8 tiles, guard 4, TSC, int8 deposit, whole-bucket chunks, headroom 1.1)
-with ``rebin_mode="sort"``, the re-bin this port carries.
+``headline_deck()`` is bench.py:58-102's deck exactly (1e8 electrons on
+512^2, 8x8 tiles, guard 4, TSC, int8 deposit, whole-bucket chunks,
+headroom 1.1, ``rebin_mode`` at its default "auto": the deal-route
+re-bin).  ``headline_deck(rebin_mode="sort")`` drives the sort re-bin
+instead.
 
     python3 -m minipic_torch.headline [--steps N] [--trace PATH]
 
@@ -29,7 +31,8 @@ RANGES = ("minipic.advance", "minipic.fields", "minipic.rebin",
           "minipic.diag")
 
 
-def headline_deck(grid: int = 512, order: int = 2) -> Deck:
+def headline_deck(grid: int = 512, order: int = 2,
+                  rebin_mode: str = "auto") -> Deck:
     """bench.py's deck with ppc = round(1e8 / 512^2) = 381; `grid` cuts the
     box (not the widths) for smaller runs."""
     ppc = max(1, round(1e8 / 512 ** 2))
@@ -39,7 +42,7 @@ def headline_deck(grid: int = 512, order: int = 2) -> Deck:
         species=(SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.05,
                              shape_order=order),),
         precision="f32", rebin_interval=8, capacity_headroom=1.1, kchunk=0,
-        deposit="int8", rebin_mode="sort")
+        deposit="int8", rebin_mode=rebin_mode)
 
 
 def _is_device(e) -> bool:

@@ -366,10 +366,9 @@ class AdvanceKernel:
 
     def _load(self):
         if self._lib is None:
-            from ._build import build_advance
+            from ._build import build
 
-            built = build_advance() if self._src is None else build_advance(
-                self._src)
+            built = build("advance.cu" if self._src is None else self._src)
             lib = ctypes.CDLL(str(built.path))
             fn = lib.minipic_advance
             fn.argtypes = ([ctypes.c_int, ctypes.c_int, AdvanceParams]

@@ -1,0 +1,509 @@
+"""The deal-route re-bin kernels: split, segment, append, defrag.
+
+Port of ``minipic_tpu.ops.pallas.rebin_kernels`` (``split_buckets``,
+``segment_movers``, ``append_segments``, ``defrag_buckets``).  Each has two
+implementations of one function:
+
+* a CUDA kernel in ``csrc/rebin.cu``, launched for CUDA tensors;
+* a plain torch version (``*_plain``), vectorised over tiles with cumsum
+  ranks and scatters.  The wrappers take it only for CPU tensors;
+  ``chip_smoke.py`` holds each kernel against it on the card.
+
+The payload moves by pure copies, so both are bit-equal to each other and,
+slot for slot, to the JAX package's interpreted kernels, dead slots
+included (the JAX kernels zero everything past each run or count).  What
+each computes, per tile ``t`` of a row-major tile grid:
+
+* **split** — a live slot whose ``floor(x * (1/tile_nx))`` or
+  ``floor(y * (1/tile_ny))`` is not the tile's column or row (f32, as the
+  JAX kernel) is a mover.  If the tile's movers fit the ``b_cap`` buffer, or
+  ``force`` is set, they go to it and the stayers are compacted in slot
+  order; otherwise the tile defers (all its live slots stay, compacted, and
+  its movers count as pending).  Buffer order is the JAX kernel's: ``kc``
+  slot chunks in order, movers within a chunk in REVERSE slot order.  A
+  forced tile keeps the first ``b_cap`` movers in that order and counts the
+  rest.  Returns the buckets (zero past the stay count), the movers (zero
+  past the kept count), the stay count (the new watermark) and the pending
+  count, int32 ``[T]``.
+* **segment** — each mover goes to the run of its destination direction d
+  (``DIR_OFFSETS``, periodic fold of the tile delta) in stable buffer
+  order; a run keeps its first ``b_seg`` movers and counts the rest.  A
+  mover more than one tile from home is killed and counted.  (The JAX
+  kernel flushes a run's tail only when a whole ``kc`` block still fits,
+  so at ``b_seg % kc != 0`` it drops movers that fit; the port does not.)
+* **append** — the eight arrival runs ``seg[nbr[t, d], d]`` (each
+  live-compacted: its length is its count of ``w > 0``) are written in
+  direction order at ``[wm, wm + n_in)``.  A tile whose arrivals do not fit
+  its bucket takes none and counts them.
+* **defrag** — the live slots of the bucket and then of the arrival runs,
+  in that order, are compacted to the front; ``min(census, cap)`` are kept
+  and the rest counted; the tail is zeroed.
+
+The append and the defrag work in place on the buckets the split returned
+and take a 0-d ``active`` flag from device memory: ``rebin_auto`` launches
+both, and each returns at once unless its branch was chosen, so the choice
+costs no host read.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ..core.state import ParticleState
+from .advance import _check
+
+# Deal-route direction order: d = (dr+1)*3 + (dc+1) with self (0, 0)
+# removed; DIR_OFFSETS[d] = (dr, dc) of the destination tile relative to the
+# source tile.
+DIR_OFFSETS = tuple(
+    (dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1) if (dr, dc) != (0, 0))
+
+
+def split_chunk(cap: int, b_cap: int) -> int:
+    """The JAX split's slot chunk (rebin_kernels.py:678-686): 512 when it
+    divides the bucket and fits the buffer, else the largest of 512, 384,
+    256, 128 that does, else the whole bucket."""
+    if cap % 512 == 0 and 512 <= b_cap:
+        return 512
+    for d in (512, 384, 256, 128):
+        if cap % d == 0 and d <= b_cap:
+            return d
+    return cap
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _tile_rc(num_tiles: int, tile_cols: int, device):
+    """([T, 1], [T, 1]) float32 row and column of each tile."""
+    t = torch.arange(num_tiles, device=device)
+    return ((t // tile_cols).to(torch.float32)[:, None],
+            (t % tile_cols).to(torch.float32)[:, None])
+
+
+def _scatter_rows(src: ParticleState, mask: torch.Tensor, dest: torch.Tensor,
+                  width: int, base: Optional[ParticleState] = None
+                  ) -> ParticleState:
+    """Rows of `width` slots per tile holding src[t, s] at dest[t, s] where
+    mask; every other slot is zero, or `base`'s slot when given."""
+    T = src.x.shape[0]
+    rows = torch.arange(T, device=src.x.device)
+    rows = rows.reshape((T,) + (1,) * (dest.dim() - 1))
+    idx = torch.where(mask, rows * width + dest,
+                      torch.full_like(dest, T * width)).reshape(-1)
+    outs = []
+    for i, a in enumerate(src):
+        out = torch.zeros(T * width + 1, dtype=a.dtype, device=a.device)
+        if base is not None:
+            out[:-1] = base[i].reshape(-1)
+        # Every masked destination is unique; the unmasked ones all land on
+        # the spare last slot, which is cut off.
+        out.scatter_(0, idx, a.reshape(-1))
+        outs.append(out[:-1].reshape(T, width))
+    return ParticleState(*outs)
+
+
+# ----------------------------------------------------------------------
+# Plain torch versions.
+
+
+def _away(p: ParticleState, tile_cols: int, tile_ny: int, tile_nx: int):
+    """Live slots whose floor(pos * (1/tile)) is not their tile's cell."""
+    rows, cols = _tile_rc(p.x.shape[0], tile_cols, p.x.device)
+    col = torch.floor(p.x * _f32(1.0 / tile_nx, p.x))
+    row = torch.floor(p.y * _f32(1.0 / tile_ny, p.y))
+    return (p.w > 0) & ((col != cols) | (row != rows))
+
+
+def split_buckets_plain(p: ParticleState, *, tile_cols: int, tile_ny: int,
+                        tile_nx: int, b_cap: int, force=False):
+    """Plain version of the split (see the module docstring).  `force` is a
+    bool or a 0-d bool tensor.  Returns (buckets, movers [T, b_cap], stay
+    count [T], pending [T])."""
+    T, cap = p.x.shape
+    kc = split_chunk(cap, b_cap)
+    i32 = torch.int32
+    mov = _away(p, tile_cols, tile_ny, tile_nx)
+    total = mov.sum(1, dtype=i32)
+    extract = (total <= b_cap) | torch.as_tensor(force, device=p.x.device)
+    mov = mov & extract[:, None]
+    stay = (p.w > 0) & ~mov
+    srank = torch.cumsum(stay, 1, dtype=i32)
+    buckets = _scatter_rows(p, stay, srank - 1, cap)
+    # Buffer position of a mover: movers of earlier kc chunks, then its
+    # chunk's movers in reverse slot order.
+    inc = torch.cumsum(mov, 1, dtype=i32).reshape(T, cap // kc, kc)
+    ends = inc[:, :, -1:]
+    before = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], 1)
+    pos = (before + ends - inc).reshape(T, cap)
+    keep = mov & (pos < b_cap)
+    movers = _scatter_rows(p, keep, pos, b_cap)
+    kept = torch.clamp(total, max=b_cap)
+    pending = torch.where(extract, total - kept, total)
+    return buckets, movers, srank[:, -1].contiguous(), pending
+
+
+def segment_movers_plain(movers: ParticleState, *, tile_rows: int,
+                         tile_cols: int, tile_ny: int, tile_nx: int,
+                         b_seg: int):
+    """Plain version of the segment (see the module docstring).  Returns
+    (segments [T, 8*b_seg], dropped [T]: run overflow plus >1-hop kills)."""
+    T = movers.x.shape[0]
+    i32 = torch.int32
+    rows, cols = _tile_rc(T, tile_cols, movers.x.device)
+    dc = torch.floor(movers.x * _f32(1.0 / tile_nx, movers.x)) - cols
+    dr = torch.floor(movers.y * _f32(1.0 / tile_ny, movers.y)) - rows
+    dc = torch.where(dc > 1.5, dc - tile_cols,
+                     torch.where(dc < -1.5, dc + tile_cols, dc))
+    dr = torch.where(dr > 1.5, dr - tile_rows,
+                     torch.where(dr < -1.5, dr + tile_rows, dr))
+    hop1 = (dc.abs() <= 1.5) & (dr.abs() <= 1.5)
+    zero = torch.zeros_like(dc)
+    d9 = ((torch.where(hop1, dr, zero).to(i32) + 1) * 3
+          + torch.where(hop1, dc, zero).to(i32) + 1)
+    alive = movers.w > 0
+    mov = alive & hop1 & (d9 != 4)
+    d8 = d9 - (d9 > 4).to(i32)
+    dest = torch.full_like(d8, -1)
+    dropped = (alive & ~hop1).sum(1, dtype=i32)
+    for d in range(8):
+        m = mov & (d8 == d)
+        rank = torch.cumsum(m, 1, dtype=i32) - 1
+        dest = torch.where(m & (rank < b_seg), d * b_seg + rank, dest)
+        dropped = dropped + torch.clamp(rank[:, -1] + 1 - b_seg, min=0)
+    return _scatter_rows(movers, dest >= 0, dest, 8 * b_seg), dropped
+
+
+def roll_segments(seg: ParticleState, nbr: torch.Tensor,
+                  b_seg: int) -> ParticleState:
+    """Arrivals [T, 8*b_seg]: run d of tile t is run d of tile nbr[t, d]
+    (the JAX package's ``_roll_segments``, as a gather)."""
+    T = seg.x.shape[0]
+    dirs = torch.arange(8, device=nbr.device)[None, :]
+    return ParticleState(*(a.reshape(T, 8, b_seg)[nbr.long(), dirs]
+                           .reshape(T, 8 * b_seg) for a in seg))
+
+
+def seg_arrival_counts(seg: ParticleState, nbr: torch.Tensor,
+                       b_seg: int) -> torch.Tensor:
+    """Arrivals per tile: the live slots of run d of tile nbr[t, d], summed
+    over d (int32 [T])."""
+    T = seg.w.shape[0]
+    cnt = (seg.w.reshape(T, 8, b_seg) > 0).sum(2, dtype=torch.int32)
+    dirs = torch.arange(8, device=nbr.device)[None, :]
+    return cnt[nbr.long(), dirs].sum(1, dtype=torch.int32)
+
+
+def append_segments_plain(p: ParticleState, seg: ParticleState,
+                          wm: torch.Tensor, nbr: torch.Tensor, *,
+                          b_seg: int):
+    """Plain version of the append (see the module docstring), out of
+    place.  Returns (buckets, dropped [T])."""
+    T, cap = p.x.shape
+    inc = roll_segments(seg, nbr, b_seg)
+    n_r = (inc.w.reshape(T, 8, b_seg) > 0).sum(2, dtype=torch.int32)
+    off = torch.cumsum(n_r, 1, dtype=torch.int32) - n_r
+    n_in = n_r.sum(1, dtype=torch.int32)
+    fits = wm + n_in <= cap
+    i = torch.arange(b_seg, device=p.x.device, dtype=torch.int32)
+    valid = (i < n_r[:, :, None]) & fits[:, None, None]
+    dest = wm[:, None, None] + off[:, :, None] + i
+    out = _scatter_rows(ParticleState(*(a.reshape(T, 8, b_seg)
+                                        for a in inc)),
+                        valid, dest, cap, base=p)
+    return out, torch.where(fits, torch.zeros_like(n_in), n_in)
+
+
+def defrag_buckets_plain(p: ParticleState,
+                         incoming: Optional[ParticleState] = None):
+    """Plain version of the defrag (see the module docstring), out of place;
+    `incoming` [T, b_in] is merged after the bucket's own live slots.
+    Returns (buckets, counts [T], dropped [T])."""
+    T, cap = p.x.shape
+    a = p if incoming is None else ParticleState(
+        *(torch.cat([u, v], 1) for u, v in zip(p, incoming)))
+    live = a.w > 0
+    rank = torch.cumsum(live, 1, dtype=torch.int32) - 1
+    out = _scatter_rows(a, live & (rank < cap), rank, cap)
+    census = rank[:, -1] + 1
+    counts = torch.clamp(census, max=cap)
+    return out, counts, census - counts
+
+
+# ----------------------------------------------------------------------
+# CUDA kernels.
+
+
+class Channels(ctypes.Structure):
+    """Mirror of ``struct Channels`` in csrc/rebin.cu: six channel pointers
+    (x, y, px, py, pz, w), passed by value."""
+
+    _fields_ = [("c", ctypes.c_void_p * 6)]
+
+
+def _channels(p: ParticleState) -> Channels:
+    return Channels((ctypes.c_void_p * 6)(*(a.data_ptr() for a in p)))
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ._build import build
+
+        lib = ctypes.CDLL(str(build("rebin.cu").path))
+        ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        lib.minipic_split.argtypes = ([ci] * 5 + [cf, cf, Channels, vp,
+                                                  Channels, Channels]
+                                      + [vp] * 3)
+        lib.minipic_segment.argtypes = ([ci] * 5 + [cf, cf, Channels,
+                                                    Channels] + [vp] * 2)
+        lib.minipic_append.argtypes = ([ci] * 3 + [vp] * 3
+                                       + [Channels, Channels] + [vp] * 3)
+        lib.minipic_defrag.argtypes = ([ci] * 3 + [vp] * 2
+                                       + [Channels, Channels] + [vp] * 4)
+        for fn in (lib.minipic_split, lib.minipic_segment,
+                   lib.minipic_append, lib.minipic_defrag):
+            fn.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _flag(v, dev) -> torch.Tensor:
+    """A bool or 0-d bool tensor as a 0-d bool tensor on `dev`, made
+    without a host transfer."""
+    if isinstance(v, torch.Tensor):
+        _check(v, "flag", torch.bool, (), dev)
+        return v
+    return torch.full((), bool(v), dtype=torch.bool, device=dev)
+
+
+def _check_p(p: ParticleState, what: str, shape, dev) -> None:
+    for name, a in zip(ParticleState._fields, p):
+        _check(a, f"{what}.{name}", torch.float32, shape, dev)
+
+
+def _launched(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+class _Kernel:
+    """Base of the four launchers: ``launches`` counts kernel launches.
+    The append and the defrag also count on the device, in ``taken``, the
+    launches whose ``active`` flag was set (read with ``taken_count``)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.taken: Optional[torch.Tensor] = None
+
+    def _taken(self, dev) -> torch.Tensor:
+        if self.taken is None or self.taken.device != dev:
+            self.taken = torch.zeros(1, dtype=torch.int32, device=dev)
+        return self.taken
+
+    def taken_count(self) -> int:
+        return 0 if self.taken is None else int(self.taken[0])
+
+    def reset(self) -> None:
+        self.launches = 0
+        if self.taken is not None:
+            self.taken.zero_()
+
+
+class SplitKernel(_Kernel):
+    def __call__(self, p: ParticleState, *, tile_cols: int, tile_ny: int,
+                 tile_nx: int, b_cap: int, force=False):
+        T, cap = p.x.shape
+        dev = p.x.device
+        _check_p(p, "p", (T, cap), dev)
+        kc = split_chunk(cap, b_cap)
+        if kc > 1024 or kc % 32:
+            raise ValueError(f"split chunk {kc} (bucket {cap}, buffer "
+                             f"{b_cap}) is not a block size of the kernel")
+        if T % tile_cols:
+            raise ValueError(f"{T} tiles not a multiple of {tile_cols} cols")
+        force = _flag(force, dev)
+        lib = _lib()
+        # The buckets are six allocations: the next advance replaces all
+        # channels but w, which must not pin the other five.
+        out = ParticleState(*(torch.empty((T, cap), dtype=torch.float32,
+                                          device=dev) for _ in range(6)))
+        mbuf = torch.empty((6, T, b_cap), dtype=torch.float32, device=dev)
+        movers = ParticleState(*mbuf)
+        stay = torch.empty(T, dtype=torch.int32, device=dev)
+        pending = torch.empty(T, dtype=torch.int32, device=dev)
+        _launched(lib.minipic_split(
+            T, cap, b_cap, kc, tile_cols, 1.0 / tile_nx, 1.0 / tile_ny,
+            _channels(p), force.data_ptr(), _channels(out),
+            _channels(movers), stay.data_ptr(), pending.data_ptr(),
+            _stream(dev)), "split")
+        self.launches += 1
+        return out, movers, stay, pending
+
+
+class SegmentKernel(_Kernel):
+    def __call__(self, movers: ParticleState, *, tile_rows: int,
+                 tile_cols: int, tile_ny: int, tile_nx: int, b_seg: int):
+        T, mc = movers.x.shape
+        dev = movers.x.device
+        _check_p(movers, "movers", (T, mc), dev)
+        if T != tile_rows * tile_cols:
+            raise ValueError(f"{T} tiles, grid {tile_rows}x{tile_cols}")
+        lib = _lib()
+        buf = torch.empty((6, T, 8 * b_seg), dtype=torch.float32, device=dev)
+        seg = ParticleState(*buf)
+        dropped = torch.empty(T, dtype=torch.int32, device=dev)
+        _launched(lib.minipic_segment(
+            T, mc, b_seg, tile_rows, tile_cols, 1.0 / tile_nx,
+            1.0 / tile_ny, _channels(movers), _channels(seg),
+            dropped.data_ptr(), _stream(dev)), "segment")
+        self.launches += 1
+        return seg, dropped
+
+
+def _check_runs(seg: ParticleState, nbr: torch.Tensor, T: int, b_seg: int,
+                dev) -> None:
+    _check_p(seg, "seg", (T, 8 * b_seg), dev)
+    _check(nbr, "nbr", torch.int32, (T, 8), dev)
+
+
+class AppendKernel(_Kernel):
+    def __call__(self, p: ParticleState, seg: ParticleState,
+                 wm: torch.Tensor, nbr: torch.Tensor, *, b_seg: int,
+                 active=True) -> torch.Tensor:
+        T, cap = p.x.shape
+        dev = p.x.device
+        _check_p(p, "p", (T, cap), dev)
+        _check_runs(seg, nbr, T, b_seg, dev)
+        _check(wm, "wm", torch.int32, (T,), dev)
+        active = _flag(active, dev)
+        lib = _lib()
+        dropped = torch.zeros(T, dtype=torch.int32, device=dev)
+        _launched(lib.minipic_append(
+            T, cap, b_seg, wm.data_ptr(), nbr.data_ptr(), active.data_ptr(),
+            _channels(p), _channels(seg), dropped.data_ptr(),
+            self._taken(dev).data_ptr(), _stream(dev)), "append")
+        self.launches += 1
+        return dropped
+
+
+class DefragKernel(_Kernel):
+    def __call__(self, p: ParticleState, seg: Optional[ParticleState] = None,
+                 nbr: Optional[torch.Tensor] = None, *, b_seg: int = 0,
+                 active=True) -> Tuple[torch.Tensor, torch.Tensor]:
+        T, cap = p.x.shape
+        dev = p.x.device
+        _check_p(p, "p", (T, cap), dev)
+        if seg is None:
+            b_seg, seg_ch, nbr_ptr = 0, Channels(), None
+        else:
+            _check_runs(seg, nbr, T, b_seg, dev)
+            seg_ch, nbr_ptr = _channels(seg), nbr.data_ptr()
+        active = _flag(active, dev)
+        lib = _lib()
+        counts = torch.zeros(T, dtype=torch.int32, device=dev)
+        dropped = torch.zeros(T, dtype=torch.int32, device=dev)
+        _launched(lib.minipic_defrag(
+            T, cap, b_seg, nbr_ptr, active.data_ptr(), _channels(p), seg_ch,
+            counts.data_ptr(), dropped.data_ptr(),
+            self._taken(dev).data_ptr(), _stream(dev)), "defrag")
+        self.launches += 1
+        return counts, dropped
+
+
+split_kernel = SplitKernel()
+segment_kernel = SegmentKernel()
+append_kernel = AppendKernel()
+defrag_kernel = DefragKernel()
+KERNELS = {"split": split_kernel, "segment": segment_kernel,
+           "append": append_kernel, "defrag": defrag_kernel}
+
+
+# ----------------------------------------------------------------------
+# Wrappers: the kernel for CUDA tensors, the plain version for CPU tensors.
+
+
+def _on_cpu(a: torch.Tensor, what: str) -> None:
+    if a.device.type != "cpu":
+        raise ValueError(f"no {what} for device {a.device}")
+
+
+def split_buckets(p: ParticleState, *, tile_cols: int, tile_ny: int,
+                  tile_nx: int, b_cap: int, force=False):
+    kw = dict(tile_cols=tile_cols, tile_ny=tile_ny, tile_nx=tile_nx,
+              b_cap=b_cap, force=force)
+    if p.x.is_cuda:
+        return split_kernel(p, **kw)
+    _on_cpu(p.x, "split")
+    return split_buckets_plain(p, **kw)
+
+
+def segment_movers(movers: ParticleState, *, tile_rows: int, tile_cols: int,
+                   tile_ny: int, tile_nx: int, b_seg: int):
+    kw = dict(tile_rows=tile_rows, tile_cols=tile_cols, tile_ny=tile_ny,
+              tile_nx=tile_nx, b_seg=b_seg)
+    if movers.x.is_cuda:
+        return segment_kernel(movers, **kw)
+    _on_cpu(movers.x, "segment")
+    return segment_movers_plain(movers, **kw)
+
+
+def _assign(p: ParticleState, new: ParticleState, active) -> None:
+    for a, b in zip(p, new):
+        a.copy_(torch.where(torch.as_tensor(active), b, a))
+
+
+def append_segments_(p: ParticleState, seg: ParticleState, wm: torch.Tensor,
+                     nbr: torch.Tensor, *, b_seg: int,
+                     active=True) -> torch.Tensor:
+    """The append, in place on `p` when `active`.  Returns dropped [T]."""
+    if p.x.is_cuda:
+        return append_kernel(p, seg, wm, nbr, b_seg=b_seg, active=active)
+    _on_cpu(p.x, "append")
+    out, dropped = append_segments_plain(p, seg, wm, nbr, b_seg=b_seg)
+    _assign(p, out, active)
+    return torch.where(torch.as_tensor(active), dropped,
+                       torch.zeros_like(dropped))
+
+
+def defrag_buckets_(p: ParticleState, seg: Optional[ParticleState] = None,
+                    nbr: Optional[torch.Tensor] = None, *, b_seg: int = 0,
+                    active=True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The defrag, in place on `p` when `active`, merging the arrival runs
+    of `seg` through `nbr` when given.  Returns (counts, dropped) [T]."""
+    if p.x.is_cuda:
+        return defrag_kernel(p, seg, nbr, b_seg=b_seg, active=active)
+    _on_cpu(p.x, "defrag")
+    inc = None if seg is None else roll_segments(seg, nbr, b_seg)
+    out, counts, dropped = defrag_buckets_plain(p, inc)
+    _assign(p, out, active)
+    on = torch.as_tensor(active)
+    return (torch.where(on, counts, torch.zeros_like(counts)),
+            torch.where(on, dropped, torch.zeros_like(dropped)))
+
+
+@functools.lru_cache(maxsize=None)
+def seg_neighbor_table(tile_rows: int, tile_cols: int,
+                       device: torch.device) -> torch.Tensor:
+    """[T, 8] int32: nbr[t, d] is the tile whose direction-d run lands at t,
+    t's (-DIR_OFFSETS[d]) neighbour on the periodic tile grid.  Static, so
+    it is built once per grid and device (its host-to-device copy would
+    otherwise sync every re-bin)."""
+    r = torch.arange(tile_rows, device=device)[:, None, None]
+    c = torch.arange(tile_cols, device=device)[None, :, None]
+    dr = torch.tensor([o[0] for o in DIR_OFFSETS], device=device)
+    dc = torch.tensor([o[1] for o in DIR_OFFSETS], device=device)
+    nbr = (torch.remainder(r - dr, tile_rows) * tile_cols
+           + torch.remainder(c - dc, tile_cols))
+    return nbr.reshape(tile_rows * tile_cols, 8).to(torch.int32)

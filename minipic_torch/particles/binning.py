@@ -1,15 +1,20 @@
 """Particle re-binning into fixed-capacity tile buckets, and box wrap.
 
-Particles are sorted by destination tile into a static (num_tiles,
-capacity) layout.  The JAX package does this with one multi-operand
-filler-key sort because gathers are slow on a TPU; on a GPU a stable
-argsort of the tile ids plus one index gather per channel is the natural
-form.  Live particles come out first in each bucket, in flat-index order,
-as in the JAX package; the dead slots after them are zeroed (w == 0).
+Two routes into the static (num_tiles, capacity) layout:
 
-Overflow (more live particles for a tile than its capacity) is counted and
-the excess dropped: a bucket takes the first `capacity` arrivals by flat
-index.
+* ``rebin`` (the sort route, ``rebin_mode="sort"``): particles are sorted
+  by destination tile.  The JAX package does this with one multi-operand
+  filler-key sort because gathers are slow on a TPU; on a GPU a stable
+  argsort of the tile ids plus one index gather per channel is the natural
+  form.  Live particles come out first in each bucket, in flat-index
+  order, as in the JAX package; the dead slots after them are zeroed
+  (w == 0).  Overflow (more live particles for a tile than its capacity)
+  is counted and the excess dropped: a bucket takes the first `capacity`
+  arrivals by flat index.
+* ``rebin_auto`` (the deal route, ``rebin_mode="auto"`` or
+  ``"incremental"``): only the particles that left their tile move,
+  through the four kernels of ``ops/rebin.py``.  Its buckets equal the JAX
+  package's slot for slot, dead slots included.
 """
 from __future__ import annotations
 
@@ -96,6 +101,64 @@ def rebin(p: ParticleState, tiling: Tiling) -> Tuple[ParticleState,
     return rebin_flat(flat, tile_rows=tiling.tile_rows,
                       tile_cols=tiling.tile_cols, tile_nx=tiling.tile_nx,
                       tile_ny=tiling.tile_ny, capacity=p.capacity)
+
+
+def rebin_auto(p: ParticleState, tiling: Tiling, mover_cap: int, *,
+               force=False, seg_cap: int
+               ) -> Tuple[ParticleState, torch.Tensor, torch.Tensor]:
+    """The deal-route re-bin: split each bucket into stayers (compacted in
+    place of the bucket) and movers, bin the movers by destination
+    direction, and append each tile's eight arrival runs at its watermark;
+    when some bucket lacks 256 slots of headroom for that, the defrag
+    compacts bucket and arrivals together instead.  The branch is chosen on
+    the device (both kernels launch; the one not chosen returns at once),
+    so nothing is read back to the host.
+
+    Returns (buckets, dropped, pending), int32 0-d:
+    * dropped — particles lost: segment-run overflow, >1-hop kills, census
+      overflow in the defrag, and a forced split's buffer overflow;
+    * pending — movers left in their buckets because the tile's buffer was
+      too small and `force` was not set (nothing lost).  The caller keeps
+      its drift budget while pending > 0 and passes force once the budget
+      is spent.
+
+    Needs `p.capacity >= 8 * seg_cap + 256`: the JAX package takes its sort
+    route and ``append_incoming`` below that, which the port does not carry
+    yet (ROADMAP B6)."""
+    from ..ops.rebin import (append_segments_, defrag_buckets_,
+                             seg_arrival_counts, seg_neighbor_table,
+                             segment_movers, split_buckets)
+
+    cap = p.capacity
+    if seg_cap <= 0 or cap < 8 * seg_cap + 256:
+        raise NotImplementedError(
+            f"bucket capacity {cap} < 8 * segment cap {seg_cap} + 256: the "
+            "sort route with append_incoming (ROADMAP B6) is not ported")
+    t = tiling
+    p1, movers, wm, pending = split_buckets(
+        p, tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+        b_cap=mover_cap, force=force)
+    seg, seg_dropped = segment_movers(
+        movers, tile_rows=t.tile_rows, tile_cols=t.tile_cols,
+        tile_ny=t.tile_ny, tile_nx=t.tile_nx, b_seg=seg_cap)
+    nbr = seg_neighbor_table(t.tile_rows, t.tile_cols, p.x.device)
+    n_in = seg_arrival_counts(seg, nbr, seg_cap)
+    headroom_ok = (wm + n_in <= cap - 256).all()
+    app_dropped = append_segments_(p1, seg, wm, nbr, b_seg=seg_cap,
+                                   active=headroom_ok)
+    _, def_dropped = defrag_buckets_(p1, seg, nbr, b_seg=seg_cap,
+                                     active=~headroom_ok)
+    dropped = (seg_dropped.sum() + app_dropped.sum()
+               + def_dropped.sum()).to(torch.int32)
+    pend = pending.sum().to(torch.int32)
+    if isinstance(force, bool):
+        if force:
+            return p1, dropped + pend, torch.zeros_like(pend)
+        return p1, dropped, pend
+    # Forced passes turn the backlog into counted drops.
+    zero = torch.zeros_like(pend)
+    return (p1, dropped + torch.where(force, pend, zero),
+            torch.where(force, zero, pend))
 
 
 def tile_counts(p: ParticleState) -> torch.Tensor:

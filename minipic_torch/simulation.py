@@ -1,8 +1,7 @@
 """Single-device simulation: the full PIC step on one device.
 
-Torch port of ``minipic_tpu.simulation`` for the periodic, sort-re-binned
-configuration.  Step order (leapfrog, E and B synchronized at integer
-steps):
+Torch port of ``minipic_tpu.simulation`` for periodic decks.  Step order
+(leapfrog, E and B synchronized at integer steps):
 
   1. halo-pad the fields at t^n and cut the per-tile windows;
   2. per species, the advance (ops/advance.py): gather E^n, B^n -> Boris
@@ -10,15 +9,22 @@ steps):
      Esirkepov J^{n+1/2} tile windows, and each tile's max displacement;
   3. fold the J windows into the global J;
   4. B^n -> B^{n+1/2} -> E^{n+1} (with J) -> B^{n+1};
-  5. re-bin (filler-key sort) when the drift trigger or interval fires.
+  5. re-bin when the drift trigger or the interval schedule fires: the
+     deal route (``binning.rebin_auto``: split, segment, append or defrag)
+     for ``rebin_mode`` "auto" and "incremental" on both devices, the sort
+     (``binning.rebin``) for "sort" or a deck whose buckets are too small
+     for a mover buffer.
 
-What this port does not carry yet raises ``NotImplementedError``:
-``rebin_mode`` other than "sort", absorbing boundaries, the moving window,
-``Simulation.run`` and ``Simulation.ensure_capacity``.
+What this port does not carry yet raises ``NotImplementedError``: a deck
+that would take the JAX package's sort route with ``append_incoming``
+(mover buffer but buckets under 8 segment runs + 256 slots; ROADMAP B6),
+absorbing boundaries, the moving window, ``Simulation.run`` and
+``Simulation.ensure_capacity``.
 
 Host syncs: the re-bin decision is taken on the host, so each step reads
-one device scalar (the drift predicate, or the step counter on the
-interval schedule).
+one device scalar (the drift predicate, or the schedule's on the interval
+trigger).  The re-bin itself reads nothing back: its force flag, its
+append-or-defrag choice and the drift reset stay on the device.
 
 Profiler ranges (``torch.profiler.record_function``) name the step's
 layers for a trace: ``minipic.fields`` (pad, window extract, J fold, Yee),
@@ -46,12 +52,46 @@ from .fields.halo import fold_block_periodic, pad_fields_periodic
 from .fields.tiles import extract_field_tiles, fold_tiles
 from .fields.yee import update_b_half_periodic, update_e_full_periodic
 from .ops.advance import fused_push_deposit, live_watermark, resolve_mode
-from .particles.binning import rebin
+from .particles.binning import rebin, rebin_auto
 from .particles.species import load_species
 
 # Bucket capacity quantum for whole-bucket chunks (kchunk=0), as in the JAX
 # package (whose re-bin kernels slice buckets in 512-slot blocks).
 BUCKET_ALIGN = 512
+
+
+def bucket_capacity(deck: Deck) -> int:
+    """Slots per tile bucket: the deck's capacity rounded up to the chunk
+    (kchunk, or BUCKET_ALIGN for whole-bucket chunks)."""
+    cap = deck.capacity()
+    q = deck.kchunk if deck.kchunk > 0 else BUCKET_ALIGN
+    return -(-cap // q) * q
+
+
+def uses_deal_route(deck: Deck) -> bool:
+    """"auto" and "incremental" re-bin by the deal route on every device
+    (the JAX package's "auto" does so on its Pallas backend only)."""
+    return deck.rebin_mode in ("auto", "incremental")
+
+
+def rebin_caps(deck: Deck, capacity: int) -> Tuple[int, int]:
+    """(mover buffer, segment run) slots per tile for the deal route, or
+    (0, 0) when the buckets are too small for a mover buffer and the sort
+    re-bins instead.  Raises where the JAX package would take its sort
+    route with append_incoming, which is not ported."""
+    if not uses_deal_route(deck):
+        return 0, 0
+    mc = deck.mover_cap(capacity)
+    if mc == 0:
+        return 0, 0
+    sc = deck.mover_seg_cap(mc)
+    if capacity < 8 * sc + 256:
+        raise NotImplementedError(
+            f"rebin_mode={deck.rebin_mode!r} with {capacity}-slot buckets "
+            f"under 8 segment runs of {sc} + 256: the JAX package re-bins "
+            "such decks through its sort route and append_incoming, not "
+            "ported yet (ROADMAP B6); use rebin_mode='sort'")
+    return mc, sc
 
 
 class StepDiag(NamedTuple):
@@ -153,14 +193,11 @@ def advance_species_tiles(p: ParticleState, ftiles: FieldState, *, qm: float,
 
 
 def _check_supported(deck: Deck) -> None:
-    if deck.rebin_mode != "sort":
-        raise NotImplementedError(
-            f"rebin_mode={deck.rebin_mode!r}: the port re-bins by sort only "
-            "(set rebin_mode='sort')")
     if deck.boundary != "periodic":
         raise NotImplementedError(f"boundary={deck.boundary!r}")
     if deck.moving_window:
         raise NotImplementedError("moving_window")
+    rebin_caps(deck, bucket_capacity(deck))
 
 
 def build_step(deck: Deck, device: torch.device):
@@ -173,6 +210,12 @@ def build_step(deck: Deck, device: torch.device):
     dt, dx, dy = deck.dt, deck.dx, deck.dy
     grid = (deck.nx, deck.ny)
     trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
+    # Interval schedule: when the guard affords one extra CFL step, a
+    # mover-buffer overflow defers the tile to the next step instead of
+    # dropping at once (the drift trigger's deferral budget).
+    interval_grace = uses_deal_route(deck) and (
+        (deck.rebin_interval + 1) * deck.cfl_step_cells()
+        <= deck.guard - deck.shape_reach())
     modes = []
     for spec in deck.species:
         qw0 = (spec.charge * dx * dy / spec.ppc
@@ -221,6 +264,7 @@ def build_step(deck: Deck, device: torch.device):
             f = update_e_full_periodic(f, dt, dx, dy, j)
             f = update_b_half_periodic(f, dt, dx, dy)
 
+        dev = f.ex.device
         drift_now = state.drift
         if trigger_drift:
             if state.drift is None:
@@ -231,22 +275,43 @@ def build_step(deck: Deck, device: torch.device):
                 disp = torch.maximum(disp, d)
             drift_now = state.drift + disp
             do_rebin = bool(drift_now > deck.drift_threshold())
+            # Past this line a deferred re-bin may no longer wait: extract
+            # with counted drops.  Stays on the device.
+            force = drift_now > deck.force_threshold()
         else:
-            do_rebin = (deck.rebin_interval == 1
-                        or int(state.step) % deck.rebin_interval == 0)
+            sched = state.step % deck.rebin_interval == 0
+            if interval_grace:
+                # The backlog marker rides SimState.drift (0 clean, 1
+                # pending): re-bin again next step, then drop and count.
+                force = state.drift > 0.5
+                sched = sched | force
+            else:
+                force = True  # no deferral budget in the guard
+            do_rebin = deck.rebin_interval == 1 or bool(sched)
 
-        overflow = torch.zeros((), dtype=torch.int32, device=f.ex.device)
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        pending_total = torch.zeros((), dtype=torch.int32, device=dev)
         binned = []
         for p in pushed:
             if do_rebin:
                 with record_function("minipic.rebin"):
-                    p, ov = rebin(p, tiling)
+                    mc, sc = rebin_caps(deck, p.capacity)
+                    if mc > 0:
+                        p, ov, pend = rebin_auto(p, tiling, mc, force=force,
+                                                 seg_cap=sc)
+                        pending_total = pending_total + pend
+                    else:
+                        p, ov = rebin(p, tiling)
                 overflow = overflow + ov
             binned.append(p)
-        if trigger_drift and do_rebin:
-            drift_now = torch.zeros_like(drift_now)
+        if do_rebin and trigger_drift:
+            # Reset the budget only after a complete re-bin: a backlog
+            # keeps it hot so the next step re-triggers and drains it.
+            drift_now = torch.where(pending_total == 0,
+                                    torch.zeros_like(drift_now), drift_now)
+        elif do_rebin and interval_grace:
+            drift_now = (pending_total > 0).to(torch.float32)
 
-        dev = f.ex.device
         with record_function("minipic.diag"):
             live = sum((p.w > 0).sum(dtype=torch.int32) for p in binned)
             diag = StepDiag(
@@ -279,10 +344,7 @@ class Simulation:
         self.backend = resolve_backend(deck, self.device)
         self.deck = deck
         tiling = deck.tiling
-        cap = deck.capacity()
-        q = deck.kchunk if deck.kchunk > 0 else BUCKET_ALIGN
-        if cap % q:
-            cap = -(-cap // q) * q
+        cap = bucket_capacity(deck)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         species = tuple(

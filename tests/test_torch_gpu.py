@@ -1,4 +1,5 @@
-"""The CUDA advance kernel against its plain torch version, on the card.
+"""The CUDA kernels (advance, and the deal-route re-bin) against their plain
+torch versions, on the card.
 
 Marked ``gpu``: each test skips without CUDA.  On a machine with a card
 (which need not have JAX) run them with
@@ -109,3 +110,158 @@ def test_no_atomics_probe_pushes_alike_and_deposits_nothing(cuda, tmp_path,
     assert torch.equal(dv, dk)
     for j in jv:
         assert not bool(j.any())
+
+
+# ----------------------------------------------------------------------
+# The deal-route re-bin kernels (csrc/rebin.cu) against their plain
+# versions: pure copies, so every channel of every slot must be equal.
+
+def _stale(dev, cap=3072, n_live=2000, spread=2.0, seed=1):
+    """4x4 tiles of 8x8 cells on a 32^2 periodic grid: live-compacted
+    buckets of n_live particles displaced up to `spread` cells off their
+    tile, as after a few steps without a re-bin."""
+    from minipic_torch.core.state import ParticleState as P
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    T = 16
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    t = torch.arange(T, device=dev)[:, None]
+    live = torch.arange(cap, device=dev)[None, :] < n_live
+    x = (t % 4) * 8 + rnd(T, cap) * (8 + 2 * spread) - spread
+    y = (t // 4) * 8 + rnd(T, cap) * (8 + 2 * spread) - spread
+    x, y = torch.remainder(x, 32), torch.remainder(y, 32)
+    x = torch.where(x >= 32, x - 32, x)
+    y = torch.where(y >= 32, y - 32, y)
+    mom = [(rnd(T, cap) - 0.5) * 0.2 for _ in range(3)]
+    w = live.float().expand(T, cap) * 0.004
+    p = P(x, y, *mom, w)
+    return P(*(torch.where(live, a, torch.zeros_like(a)).contiguous()
+               for a in p))
+
+
+def _equal(a, b, what):
+    for name, u, v in zip(("x", "y", "px", "py", "pz", "w"), a, b):
+        assert torch.equal(u, v), f"{what}.{name}"
+
+
+_GRID = dict(tile_cols=4, tile_ny=8, tile_nx=8)
+
+
+@pytest.mark.parametrize("case", ["normal", "pending", "forced"])
+def test_split_kernel_matches_plain(cuda, case):
+    from minipic_torch.ops import rebin as rb
+
+    p = _stale(cuda)
+    b_cap = 1536 if case == "normal" else 512
+    kw = dict(_GRID, b_cap=b_cap, force=case == "forced")
+    n0 = rb.split_kernel.launches
+    got = rb.split_buckets(p, **kw)
+    assert rb.split_kernel.launches == n0 + 1
+    want = rb.split_buckets_plain(p, **kw)
+    _equal(got[0], want[0], "buckets")
+    _equal(got[1], want[1], "movers")
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    if case != "normal":
+        assert int(want[3].sum()) > 0
+
+
+def _movers(dev):
+    from minipic_torch.ops import rebin as rb
+
+    p = _stale(dev)
+    _, movers, _, _ = rb.split_buckets_plain(p, **_GRID, b_cap=1536)
+    # A mover of tile 5 (row 1, col 1) in column 3, two tiles from home:
+    # killed and counted.
+    x, y = movers.x.clone(), movers.y.clone()
+    x[5, 0], y[5, 0] = 28.5, 12.0
+    return movers._replace(x=x, y=y)
+
+
+@pytest.mark.parametrize("b_seg", [512, 128])
+def test_segment_kernel_matches_plain(cuda, b_seg):
+    from minipic_torch.ops import rebin as rb
+
+    movers = _movers(cuda)
+    kw = dict(tile_rows=4, **_GRID, b_seg=b_seg)
+    seg, dropped = rb.segment_movers(movers, **kw)
+    seg_p, dropped_p = rb.segment_movers_plain(movers, **kw)
+    _equal(seg, seg_p, "seg")
+    assert torch.equal(dropped, dropped_p) and int(dropped_p[5]) >= 1
+
+
+@pytest.mark.parametrize("crowded", [False, True])
+def test_append_and_defrag_kernels_match_plain(cuda, crowded):
+    """Crowded: the append lands above a raised watermark and overflows,
+    and the defrag merges the arrivals into the unsplit buckets (census
+    overflow).  Also the defrag of hole-ridden buckets alone."""
+    from minipic_torch.ops import rebin as rb
+
+    p = _stale(cuda)
+    p1, movers, wm, _ = rb.split_buckets_plain(p, **_GRID, b_cap=3072)
+    seg, _ = rb.segment_movers_plain(movers, tile_rows=4, **_GRID,
+                                     b_seg=256)
+    nbr = rb.seg_neighbor_table(4, 4, cuda)
+    if crowded:
+        wm = wm + 1500
+    want, want_d = rb.append_segments_plain(p1, seg, wm, nbr, b_seg=256)
+    got = rb.ParticleState(*(a.clone() for a in p1))
+    got_d = rb.append_kernel(got, seg, wm, nbr, b_seg=256)
+    _equal(got, want, "append")
+    assert torch.equal(got_d, want_d)
+    assert bool((want_d > 0).any()) == crowded
+    holes = torch.rand(p.w.shape, device=cuda) < 0.3
+    ridden = p._replace(w=torch.where(holes, torch.zeros_like(p.w), p.w))
+    for q, merge in ((p if crowded else p1, True), (ridden, False)):
+        inc = rb.roll_segments(seg, nbr, 256) if merge else None
+        want, want_c, want_d = rb.defrag_buckets_plain(q, inc)
+        got = rb.ParticleState(*(a.clone() for a in q))
+        got_c, got_d = rb.defrag_kernel(got, seg if merge else None,
+                                        nbr if merge else None, b_seg=256)
+        _equal(got, want, f"defrag merge={merge}")
+        assert torch.equal(got_c, want_c) and torch.equal(got_d, want_d)
+        assert bool((want_d > 0).any()) == (crowded and merge)
+
+
+@pytest.mark.parametrize("crowded", [False, True])
+def test_rebin_auto_on_the_card_matches_the_cpu(cuda, crowded):
+    """The whole deal route through the kernels against the plain versions
+    on the CPU; a crowded state takes the defrag branch on the device."""
+    from minipic_torch.core.geometry import Tiling
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import rebin_auto
+
+    p = _stale(cuda, n_live=2810 if crowded else 2000, spread=1.0)
+    tiling = Tiling(tile_rows=4, tile_cols=4, tile_ny=8, tile_nx=8)
+    for k in rb.KERNELS.values():
+        k.reset()
+    got, dropped, pending = rebin_auto(p, tiling, 1536, seg_cap=256)
+    cpu = rb.ParticleState(*(a.cpu() for a in p))
+    want, dropped_p, pending_p = rebin_auto(cpu, tiling, 1536, seg_cap=256)
+    _equal(rb.ParticleState(*(a.cpu() for a in got)), want, "rebin_auto")
+    assert int(dropped) == int(dropped_p) and int(pending) == int(pending_p)
+    assert all(k.launches == 1 for k in rb.KERNELS.values())
+    assert rb.defrag_kernel.taken_count() == int(crowded)
+    assert rb.append_kernel.taken_count() == int(not crowded)
+
+
+def test_rebin_wrappers_reject_bad_inputs(cuda):
+    from minipic_torch.ops import rebin as rb
+
+    p = _stale(cuda)
+    with pytest.raises(ValueError):
+        rb.split_kernel(p._replace(x=p.x.double()), **_GRID, b_cap=512)
+    with pytest.raises(ValueError):
+        rb.split_kernel(p._replace(w=p.w[:, :-1]), **_GRID, b_cap=512)
+    with pytest.raises(ValueError):
+        rb.segment_kernel(p, tile_rows=3, **_GRID, b_seg=128)
+    nbr = rb.seg_neighbor_table(4, 4, cuda)
+    wm = torch.zeros(16, dtype=torch.int32, device=cuda)
+    seg = rb.ParticleState(*(torch.zeros(16, 8 * 128, device=cuda)
+                             for _ in range(6)))
+    with pytest.raises(ValueError):
+        rb.append_kernel(p, seg, wm.long(), nbr, b_seg=128)
+    with pytest.raises(ValueError):
+        rb.defrag_kernel(p, seg, nbr.cpu(), b_seg=128)

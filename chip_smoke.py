@@ -10,29 +10,55 @@ Phases, each printing what it found; any failure exits non-zero:
 2. kernel: the advance kernel against its plain torch version on the card,
    on 64 tiles of the headline tile shape (8x8, guard 4, 27136 slots,
    thermal particles, non-zero fields) in int8 and f32 modes, TSC and CIC;
-   then each re-bin kernel (split, segment, append, defrag) against its
-   plain version on 64 headline-shaped tiles with stale buckets, equal in
-   every channel of every slot: normal, pending, forced, segment overflow,
-   a >1-hop mover, and a crowded state whose re-bin takes the defrag;
-3. small step: two 32^2 decks stepped on the card (kernels) against the
-   same state stepped on the CPU (plain versions): the sort route, and the
-   deal route (ppc 40, buckets big enough for it);
-4. main path: bench.py's headline deck exactly (1e8 particles, 512^2, TSC,
+   then each re-bin kernel against its plain version on 64-tile subsets
+   with stale buckets, equal in every channel of every slot: the split
+   (normal, pending, forced), the segment (overflow, a >1-hop mover), the
+   append, append_runs (also equal to the append), the extract (normal,
+   pending, forced, holes) and the defrag (merged, hole-ridden) at the
+   headline's tile shape; append_incoming (normal, a tile that does not
+   fit, inactive) and the defrag with a dense incoming slab at the physics
+   decks' (1536 slots); and ``rebin_auto`` on both routes and
+   ``rebin_incremental`` through the kernels against the CPU;
+3. small step: three 32^2 decks stepped on the card (kernels) against the
+   same state stepped on the CPU (plain versions): the sort route, the
+   deal route (ppc 40, buckets big enough for it), and the deal route with
+   ``MINIPIC_APPEND_FUSED=0`` (append_runs);
+4. decks: ``two_stream``, ``weibel`` and ``landau`` at their default sizes,
+   seeded by their ``seed_state``, stepped on the card and on the CPU from
+   one state with a re-bin forced half way (the small-bucket route:
+   split, sort of the movers, append_incoming or the defrag);
+5. physics: on the card through ``Simulation.run``, the 10k-step
+   two-stream energy acceptance run (``scripts/energy_probe.py``'s deck,
+   max |dE|/E0 < 1e-3, overflow 0), ``weibel`` for its full run (in-plane
+   B energy grows more than 100x), and ``two_stream`` for its full run;
+   every drop counted and followed at once by growth, and printed with
+   its step and the stage that dropped;
+6. sort route: the headline deck with ``rebin_mode="sort"``, 20 steps with
+   one forced re-bin;
+7. main path: bench.py's headline deck exactly (1e8 particles, 512^2, TSC,
    int8, whole-bucket chunks, the default deal-route re-bin), 60
    ``Simulation.step`` calls on the card; then each kernel against its plain
    version on the run's final state, at the main path's shapes, and each
-   one's time, with the whole deal-route re-bin and the sort re-bin;
-5. sort route: the headline deck with ``rebin_mode="sort"``, 20 steps with
-   one forced re-bin.
+   one's time, with the whole deal-route re-bin (fused and through
+   append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
+   that state;
+8. device time: append_incoming on the decks' states and the two copy
+   kernels of the main path, from one torch.profiler run (their wrappers
+   take longer on the host than they do on the card).
 
-The line before last is a JSON object with each kernel's launches on the
-main path, its error against the plain version and both times; the last
-line is ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it
-fails before printing any result.
+The line before last is a JSON object with, for each kernel, its launches
+in the phase that drives it, its error against the plain version, both
+times (CUDA events; the profiler's device time for the three appends) and
+its bound at the shape timed; the last line is ``{"ok": true, "device":
+{...}}``.  Needs CUDA: without a card it fails before printing
+any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -43,6 +69,11 @@ ROOT = Path(__file__).resolve().parent
 MAIN_STEPS = 60
 SORT_STEPS = 20
 SUBSET_TILES = 64
+DECK_STEPS = {"two_stream": 30, "weibel": 30, "landau": 10}
+ENERGY_STEPS = 10000
+ENERGY_EVERY = 200
+WEIBEL_EVERY = 5
+TWO_STREAM_EVERY = 10
 ADVANCE_SOURCE = "minipic_torch/csrc/advance.cu"
 REBIN_SOURCE = "minipic_torch/csrc/rebin.cu"
 RK = "minipic_tpu/ops/pallas/rebin_kernels.py"
@@ -53,7 +84,18 @@ KERNELS = {
     "segment": (REBIN_SOURCE, f"{RK}:1009"),
     "append": (REBIN_SOURCE, f"{RK}:1457"),
     "defrag": (REBIN_SOURCE, f"{RK}:1201"),
+    "append_incoming": (REBIN_SOURCE, f"{RK}:1643"),
+    "append_runs": (REBIN_SOURCE, f"{RK}:1589"),
+    "extract": (REBIN_SOURCE, f"{RK}:394"),
 }
+# The card's peaks for the bound (H100 SXM, NVIDIA's data sheet): HBM3 and
+# f32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# The advance's f32 operations per live particle, counted from
+# csrc/advance.cu at TSC: ~100 for the two shape sets, ~110 for the six
+# gathers, ~60 for the Boris push and move, ~130 for the Esirkepov terms.
+ADVANCE_OPS_PER_PARTICLE = 400
 # int8 jx/jy are integer sums, exact in any order, so kernel and plain
 # version agree cell for cell unless a position differs by 1 ulp and moves
 # a shape quantum; allow a few such cells per comparison.
@@ -92,6 +134,54 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_times(jobs) -> list:
+    """Mean device time in ms of each job's kernel, from one torch.profiler
+    run: for kernels shorter than their wrapper's host time, where CUDA
+    events around a loop of calls measure the host.  `jobs` is a list of
+    (fn, reps, kernel name); each job runs `reps` times in order, and its
+    launches are told from the next job's by their order on the stream.
+    Call it last: in one process, profiling slows what runs after it, and
+    a second profile sees no kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, _, _ in jobs:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn, reps, _ in jobs:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    out, used = [], set()
+    for _, reps, name in jobs:
+        mine = [e for e in kernels if name in e.name and id(e) not in used]
+        check(len(mine) >= reps, f"profiler saw {len(mine)} {name} "
+              f"launches for {reps}")
+        mine = mine[:reps]
+        used.update(id(e) for e in mine)
+        out.append(sum(e.time_range.elapsed_us() for e in mine) / reps / 1e3)
+    return out
+
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the f32 peak."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(tb, to),
+                bound_by="bytes" if tb >= to else "operations",
+                library_ms=None)
+
+
+def _live(p) -> int:
+    return int((p.w > 0).sum())
 
 
 def phase_build() -> None:
@@ -404,6 +494,154 @@ def phase_rebin_kernels(dev) -> None:
               f"rebin_auto {label}: append/defrag ran {ran}")
 
 
+def _physics_subset(dev, ppc=16, sigma=0.5, seed=41):
+    """The two_stream deck's 64 tiles (1536-slot buckets, mover buffer
+    640) with its right beam displaced by a Gaussian of `sigma` cells
+    clipped at 2 cells: stale buckets of the small-bucket route.  `ppc`
+    raises the load for a crowded state."""
+    import torch
+
+    from minipic_torch.decks import standard
+    from minipic_torch.particles.species import load_species
+    from minipic_torch.simulation import bucket_capacity
+
+    deck = standard.make("two_stream").deck
+    check(deck.tiling.num_tiles == SUBSET_TILES, "physics subset tiling")
+    cap = bucket_capacity(deck)
+    spec = dataclasses.replace(deck.species[0], ppc=ppc)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = load_species(spec, deck.domain, deck.tiling, cap, gen,
+                     torch.float32, dev)
+    live = p.w > 0
+
+    def shifted(a, n):
+        d = torch.randn(a.shape, generator=gen, device=dev) * sigma
+        v = torch.remainder(a + torch.clamp(d, -2.0, 2.0), n)
+        return torch.where(live, torch.where(v >= n, v - n, v), a)
+
+    return deck, cap, p._replace(x=shifted(p.x, deck.nx),
+                                 y=shifted(p.y, deck.ny))
+
+
+def phase_rebin_kernels_b6_b8(dev) -> None:
+    """append_runs and the extract on the headline's 64-tile subset,
+    append_incoming and the dense defrag on the physics decks' tiles, each
+    against its plain version; then the small-bucket rebin_auto and
+    rebin_incremental through the kernels against the CPU."""
+    import torch
+
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import (rebin_auto,
+                                                 rebin_incremental,
+                                                 route_movers)
+
+    deck, cap, p = _rebin_subset(dev)
+    t = deck.tiling
+    grid = dict(tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx)
+    mc = deck.mover_cap(cap)
+    sc = deck.mover_seg_cap(mc)
+    nbr = rb.seg_neighbor_table(t.tile_rows, t.tile_cols, dev)
+    p1, movers, wm, _ = rb.split_buckets_plain(p, **grid, b_cap=mc)
+    seg, _ = rb.segment_movers_plain(movers, tile_rows=t.tile_rows, **grid,
+                                     b_seg=sc)
+    inc = rb.roll_segments(seg, nbr, sc)
+    want, want_d = rb.append_runs_plain(p1, inc, wm, b_seg=sc)
+    got = _clone(p1)
+    got_d = rb.append_runs_kernel(got, inc, wm, b_seg=sc)
+    fused = _clone(p1)
+    fused_d = rb.append_kernel(fused, seg, wm, nbr, b_seg=sc)
+    _same(got, want, "append_runs")
+    _same(got_d, want_d, "append_runs dropped")
+    _same(got, fused, "append_runs against the fused append")
+    _same(got_d, fused_d, "append_runs dropped against the fused append")
+    print(f"kernel: append_runs: {int((inc.w > 0).sum())} arrivals in runs "
+          f"of {sc}: equal to its plain version and to the fused append")
+
+    holes = torch.rand(p.w.shape, device=dev) < 0.3
+    ridden = p._replace(w=torch.where(holes, torch.zeros_like(p.w), p.w))
+    for label, q, b_cap, force in (("normal", p, mc, False),
+                                   ("pending", p, 1024, False),
+                                   ("forced", p, 1024, True),
+                                   ("holes", ridden, mc, False)):
+        kw = dict(grid, b_cap=b_cap, force=force)
+        got = rb.extract_kernel(q, **kw)
+        want = rb.extract_movers_plain(q, **kw)
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same(a, b, f"extract {label} output {i}")
+        n_pend = int(want[3].sum())
+        print(f"kernel: extract {label}: buffer {b_cap}, "
+              f"{_live(want[1])} movers out, {n_pend} "
+              f"{'dropped' if force else 'pending'}: equal")
+        check((n_pend > 0) == (label in ("pending", "forced")),
+              f"extract {label}: {n_pend} not kept")
+
+    sdeck, scap, sp = _physics_subset(dev)
+    st = sdeck.tiling
+    sgrid = dict(tile_cols=st.tile_cols, tile_ny=st.tile_ny,
+                 tile_nx=st.tile_nx)
+    smc = sdeck.mover_cap(scap)
+    sp1, smov, swm, _ = rb.split_buckets_plain(sp, **sgrid, b_cap=smc)
+    sinc, _ = route_movers(smov, st, smc)
+    n_in = (sinc.w > 0).sum(1, dtype=torch.int32)
+    odd = torch.arange(st.num_tiles, device=dev) % 2 == 1
+    crowded_wm = torch.where(odd, scap - n_in + 5, swm).to(torch.int32)
+    for label, w_m, active in (("normal", swm, True),
+                               ("not fitting", crowded_wm, True),
+                               ("inactive", swm, False)):
+        want, want_d = rb.append_incoming_plain(sp1, sinc, w_m)
+        if not active:
+            want, want_d = sp1, torch.zeros_like(want_d)
+        got = _clone(sp1)
+        got_d = rb.append_incoming_kernel(got, sinc, w_m, active=active)
+        _same(got, want, f"append_incoming {label}")
+        _same(got_d, want_d, f"append_incoming {label} dropped")
+        print(f"kernel: append_incoming {label}: buckets {scap}, incoming "
+              f"{smc}, {int(n_in.sum())} arrivals, {int(want_d.sum())} "
+              "dropped: equal")
+        check((int(want_d.sum()) > 0) == (label == "not fitting"),
+              f"append_incoming {label}: dropped {int(want_d.sum())}")
+    _, _, crowd = _physics_subset(dev, ppc=22)
+    _, cmov, _, _ = rb.split_buckets_plain(crowd, **sgrid, b_cap=smc)
+    cinc, _ = route_movers(cmov, st, smc)
+    want, want_c, want_d = rb.defrag_buckets_plain(crowd, cinc)
+    got = _clone(crowd)
+    got_c, got_d = rb.defrag_kernel(got, cinc)
+    _same(got, want, "defrag dense")
+    _same(got_c, want_c, "defrag dense counts")
+    _same(got_d, want_d, "defrag dense dropped")
+    check(int(want_d.sum()) > 0, "defrag dense: no census overflow")
+    print(f"kernel: defrag with a dense incoming slab: {_live(crowd)} + "
+          f"{_live(cinc)} arrivals, {int(want_d.sum())} dropped: equal")
+
+    for label, q in (("normal", sp), ("crowded", crowd)):
+        for k in rb.KERNELS.values():
+            k.reset()
+        got, dropped, pending = rebin_auto(q, st, smc, seg_cap=512)
+        cpu = type(q)(*(a.cpu() for a in q))
+        want, dropped_p, pending_p = rebin_auto(cpu, st, smc, seg_cap=512)
+        _same(type(q)(*(a.cpu() for a in got)), want,
+              f"small rebin_auto {label}")
+        check(int(dropped) == int(dropped_p)
+              and int(pending) == int(pending_p),
+              f"small rebin_auto {label} counts")
+        ran = (rb.append_incoming_kernel.taken_count(),
+               rb.defrag_kernel.taken_count())
+        check(rb.segment_kernel.launches == 0, "small route ran the segment")
+        check(ran == ((0, 1) if label == "crowded" else (1, 0)),
+              f"small rebin_auto {label}: append_incoming/defrag ran {ran}")
+        print(f"kernel: small-bucket rebin_auto {label}: {_live(q)} "
+              f"particles, dropped {int(dropped)}, append_incoming/defrag "
+              f"ran {ran[0]}/{ran[1]}: equal to the CPU")
+    cpu = type(sp)(*(a.cpu() for a in sp))
+    got, dropped, wm_after = rebin_incremental(_clone(sp), st, smc)
+    want, dropped_p, wm_p = rebin_incremental(cpu, st, smc)
+    _same(type(sp)(*(a.cpu() for a in got)), want, "rebin_incremental")
+    check(int(dropped) == int(dropped_p) and int(wm_after) == int(wm_p),
+          "rebin_incremental counts")
+    print(f"kernel: rebin_incremental: {_live(sp)} particles, dropped "
+          f"{int(dropped)}, max watermark {int(wm_after)}: equal to the CPU")
+
+
 def _small_deck(rebin_mode: str, ppc: int):
     from minipic_torch.core import config as cfg
 
@@ -415,24 +653,34 @@ def _small_deck(rebin_mode: str, ppc: int):
         rebin_mode=rebin_mode)
 
 
-def phase_small_step(dev) -> None:
-    """Two 32^2 headline-shaped decks stepped on the card (kernels) and on
+def phase_small_step(dev) -> int:
+    """Three 32^2 headline-shaped decks stepped on the card (kernels) and on
     the CPU (plain versions) from the same state: the sort route (ppc 8),
-    and the deal route (ppc 40: 3072-slot buckets, 512-slot mover buffers,
-    256-slot runs)."""
+    the deal route (ppc 40: 3072-slot buckets, 512-slot mover buffers,
+    256-slot runs), and the same with MINIPIC_APPEND_FUSED=0, read when the
+    step is built, so that append_runs appends.  Returns append_runs'
+    launches in that run."""
     from minipic_torch import bridge
     from minipic_torch.ops import rebin as rb
     from minipic_torch.simulation import Simulation
 
-    for label, deck in (("sort", _small_deck("sort", 8)),
-                        ("deal", _small_deck("auto", 40))):
-        cpu = Simulation(deck, seed=1, device="cpu")
-        gpu = Simulation(deck, seed=1, device=dev)
+    runs_launches = 0
+    for label, deck, fused in (("sort", _small_deck("sort", 8), "1"),
+                               ("deal", _small_deck("auto", 40), "1"),
+                               ("deal unfused", _small_deck("auto", 40),
+                                "0")):
+        os.environ["MINIPIC_APPEND_FUSED"] = fused
+        try:
+            cpu = Simulation(deck, seed=1, device="cpu")
+            gpu = Simulation(deck, seed=1, device=dev)
+        finally:
+            os.environ.pop("MINIPIC_APPEND_FUSED")
         check(gpu.backend == "cuda", "small deck did not take the CUDA "
               "backend")
         gpu.state = bridge.sim_state_from_numpy(
             bridge.sim_state_to_numpy(cpu.state), dev)
-        rb.split_kernel.reset()
+        for k in rb.KERNELS.values():
+            k.reset()
         rebins = 0
         for i in range(30):
             dc, dg = cpu.step(), gpu.step()
@@ -450,11 +698,374 @@ def phase_small_step(dev) -> None:
             rebins += rg
         check(rebins >= 1, f"small {label} deck never re-binned")
         split = rb.split_kernel.launches
-        check(split == (rebins if label == "deal" else 0),
+        app = (rb.append_kernel.launches, rb.append_runs_kernel.launches)
+        check(split == (0 if label == "sort" else rebins),
               f"small {label}: {split} split launches, {rebins} re-bins")
+        check(app == ((0, split) if fused == "0" else (split, 0)),
+              f"small {label}: append/append_runs launches {app}")
+        if fused == "0":
+            runs_launches = app[1]
         print(f"small step: {label} route, 30 steps at 32^2 on the card "
               f"match the CPU (field energy {fe[0]:.6e} vs {fe[1]:.6e}, "
-              f"{rebins} re-bins, {split} split launches)")
+              f"{rebins} re-bins, {split} split launches, append/"
+              f"append_runs launches {app[0]}/{app[1]})")
+    return runs_launches
+
+
+def _energies(state, deck):
+    """(field, kinetic) energy of a state, f64, read to the host."""
+    from minipic_torch.core.state import field_energy, kinetic_energy
+
+    ke = sum(float(kinetic_energy(p, s.mass))
+             for p, s in zip(state.species, deck.species))
+    return float(field_energy(state.fields, deck.dx, deck.dy)), ke
+
+
+def _append_incoming_numbers(p, deck, reps=20) -> dict:
+    """append_incoming at a physics deck's shape: the split and the route
+    of `p`'s movers, then the kernel against its plain version, the time of
+    a call through its wrapper and of the plain version, and a job for
+    device_times."""
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import route_movers
+
+    t = deck.tiling
+    mc = deck.mover_cap(p.capacity)
+    p1, movers, wm, _ = rb.split_kernel(
+        p, tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+        b_cap=mc)
+    inc, _ = route_movers(movers, t, mc)
+    want, want_d = rb.append_incoming_plain(p1, inc, wm)
+    got = _clone(p1)
+    got_d = rb.append_incoming_kernel(got, inc, wm)
+    err = max(_same(got, want, "append_incoming on the deck"),
+              _same(got_d, want_d, "append_incoming dropped on the deck"))
+    # The append is idempotent on its own output (same arrivals, same
+    # watermarks), so repeated launches time it fairly.
+    n_in = int((inc.w > 0).sum())
+    T, cap = p.x.shape
+    return dict(
+        max_abs_err=err,
+        wrapper_ms=cuda_ms(lambda: rb.append_incoming_kernel(got, inc, wm),
+                           reps),
+        plain_ms=cuda_ms(lambda: rb.append_incoming_plain(p1, inc, wm), 3),
+        shape=f"{T} tiles x {cap} slots, incoming {mc}",
+        job=(lambda: rb.append_incoming_kernel(got, inc, wm), reps,
+             "append_rows_kernel"),
+        **bound(4 * T * mc + 4 * T + 2 * 24 * n_in))
+
+
+def phase_decks(dev) -> dict:
+    """two_stream, weibel and landau from decks.make at their default sizes,
+    seeded, stepped on the card and on the CPU from one state; a re-bin is
+    forced half way if the drift trigger has not fired.  Returns
+    append_incoming's numbers on each deck's final state, with its launches
+    in that deck's card run (its device time is left to device_times)."""
+    from minipic_torch import bridge
+    from minipic_torch.decks import standard
+    from minipic_torch.headline import _force_rebin
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.simulation import Simulation
+
+    numbers = {}
+    for name, steps in DECK_STEPS.items():
+        case = standard.make(name)
+        deck = case.deck
+        cpu = Simulation(deck, seed=1, device="cpu")
+        cpu.state = case.seed_state(cpu.state, deck)
+        gpu = Simulation(deck, seed=1, device=dev)
+        gpu.state = bridge.sim_state_from_numpy(
+            bridge.sim_state_to_numpy(cpu.state), dev)
+        n_live = sum(_live(p) for p in gpu.state.species)
+        rebin_steps = []
+        for k in rb.KERNELS.values():
+            k.reset()
+        for i in range(steps):
+            if i == steps // 2 and not rebin_steps:
+                _force_rebin(cpu)
+                _force_rebin(gpu)
+            dc, dg = cpu.step(), gpu.step()
+            fe = (float(dg.field_energy), float(dc.field_energy))
+            check(abs(fe[0] - fe[1]) <= 1e-4 * abs(fe[1]) + 1e-12,
+                  f"{name} step {i}: field energy {fe}")
+            # The step twin's 1e-5 per species; the cold ions' energy is
+            # ~1e-9 of the total and round-off of the field's push, so it
+            # is held to 1e-7 of the total as well.
+            kg = dg.kinetic_energy.cpu()
+            kc = dc.kinetic_energy
+            tol = 1e-5 * kc.abs() + 1e-7 * float(kc.sum())
+            check(bool(((kg - kc).abs() <= tol).all()),
+                  f"{name} step {i}: kinetic energy {kg} vs {kc}")
+            check(int(dg.overflow) == 0 and int(dc.overflow) == 0,
+                  f"{name} step {i}: overflow")
+            rg = float(gpu.state.drift) == 0.0
+            check(rg == (float(cpu.state.drift) == 0.0),
+                  f"{name} step {i}: re-bin steps differ")
+            if rg:
+                rebin_steps.append(i)
+        live = sum(_live(p) for p in gpu.state.species)
+        check(live == n_live, f"{name}: live {n_live} -> {live}")
+        check(len(rebin_steps) >= 1, f"{name}: no re-bin")
+        launches = _auto_route_launches(name, small_only=True)
+        check(launches["split"] == len(rebin_steps) * len(deck.species),
+              f"{name}: split launches {launches['split']}")
+        print(f"decks: {name} {deck.nx}x{deck.ny}, {len(deck.species)} "
+              f"species, {n_live} particles, buckets "
+              f"{gpu.state.species[0].capacity}: {steps} steps on the card "
+              f"match the CPU (re-bins at steps {rebin_steps}, field "
+              f"energy {fe[0]:.6e} vs {fe[1]:.6e}); {launches}")
+        numbers[name] = dict(
+            launches=launches["append_incoming"],
+            **_append_incoming_numbers(gpu.state.species[0], deck))
+    return numbers
+
+
+def _auto_route_launches(label: str, small_only: bool) -> dict:
+    """The re-bin launches since the counters were reset, checked: each
+    species re-bin through rebin_auto launches the split and the defrag
+    once, and append_incoming (the small-bucket route) or the segment and
+    the append (the deal route, which buckets grown past 8 runs + 256
+    slots take); the device flag takes the defrag or the append, and
+    append_incoming is taken at least once.  `small_only`: the deal route
+    must not have run.  Returns the launches, with the taken counts."""
+    from minipic_torch.ops import rebin as rb
+
+    launches = {n: k.launches for n, k in rb.KERNELS.items()}
+    split = launches["split"]
+    taken = {f"{n}_taken": rb.KERNELS[n].taken_count()
+             for n in ("append_incoming", "append", "defrag")}
+    check(launches["append_incoming"] + launches["segment"] == split
+          and launches["append"] == launches["segment"]
+          and launches["defrag"] == split,
+          f"{label}: launches {launches}")
+    check(taken["append_incoming_taken"] >= 1
+          and sum(taken.values()) == split,
+          f"{label}: taken {taken} of {split} re-bins")
+    check(not small_only or launches["segment"] == 0,
+          f"{label}: the deal route ran")
+    return dict(launches, **taken)
+
+
+class _DropSources:
+    """Where a run's drops come from: for the run, wraps the stages through
+    which rebin_auto drops (the route of the movers, the segment, the
+    appends, the defrag) and sums on the device what each dropped and in
+    how many tiles (per re-bin); the rest of the overflow is the forced
+    split's backlog."""
+
+    STAGES = (("binning", "route_movers", 1), ("rb", "segment_movers", 1),
+              ("rb", "append_incoming_", None), ("rb", "append_segments_", None),
+              ("rb", "append_runs_", None), ("rb", "defrag_buckets_", 1))
+
+    def __enter__(self):
+        from minipic_torch.ops import rebin as rb
+        from minipic_torch.particles import binning
+
+        mods = {"binning": binning, "rb": rb}
+        self.sums, self.tiles, self._real = {}, {}, []
+        for mod, name, idx in self.STAGES:
+            real = getattr(mods[mod], name)
+            self._real.append((mods[mod], name, real))
+            setattr(mods[mod], name, self._wrap(name, real, idx))
+        return self
+
+    def _wrap(self, name, real, idx):
+        def f(*a, **k):
+            out = real(*a, **k)
+            d = out if idx is None else out[idx]
+            self.sums[name] = self.sums.get(name, 0) + d.sum()
+            self.tiles[name] = self.tiles.get(name, 0) + (d > 0).sum()
+            return out
+        return f
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._real:
+            setattr(mod, name, real)
+
+    def read(self, overflow: int) -> dict:
+        """{stage: (particles, tiles)} of the stages that dropped."""
+        out = {n: (int(v), int(self.tiles[n]))
+               for n, v in self.sums.items() if int(v)}
+        out["split backlog (forced)"] = (
+            overflow - sum(n for n, _ in out.values()), None)
+        return out
+
+
+def phase_physics(dev, card: str) -> int:
+    """The physics bars on the card, through Simulation.run.  Returns
+    append_incoming's launches in the two_stream run."""
+    import torch
+
+    from minipic_torch.decks import standard
+    from minipic_torch.diag.analysis import (energy_drift, field_spectrum_x,
+                                             growth_rate,
+                                             two_stream_growth_theory)
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.simulation import Simulation
+
+    def timed_run(sim, steps, every, sample, label):
+        """sim.run, timed, with sample(state, step) at step 0 and every
+        `every` steps; checks that every re-bin went through the re-bin
+        kernels and that each drop was counted and grew the buckets at once
+        (the JAX package's policy: a second drop needs a tile fuller than
+        the grown buckets).  Prints each step that dropped, with the change
+        of total energy over that step and which stage dropped
+        (``_DropSources``)."""
+        n_live = sum(_live(p) for p in sim.state.species)
+        for k in rb.KERNELS.values():
+            k.reset()
+        drops, prev = [], [sim.state]
+
+        def saver(st, i):
+            new = sim.overflow_total - sum(n for _, n, _ in drops)
+            if new:
+                e = [sum(_energies(s, sim.deck)) for s in (prev[0], st)]
+                drops.append((i, new, (e[1] - e[0]) / e[0]))
+            prev[0] = st
+            if i % every == 0:
+                sample(st, i)
+
+        torch.cuda.synchronize()
+        with _DropSources() as sources:
+            t0 = time.perf_counter()
+            sim.run(steps, save_every=1, saver=saver)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rebins = rb.split_kernel.launches
+        launches = _auto_route_launches(label, small_only=False)
+        live = sum(_live(p) for p in sim.state.species)
+        print(f"physics: {label}: {steps} steps in {wall:.2f} s, "
+              f"{1e3 * wall / steps:.4f} ms/step, "
+              f"{n_live * steps / wall:.4e} pushes/s, "
+              f"{rebins // len(sim.deck.species)} re-bins, "
+              f"{sim.capacity_changes} capacity changes (buckets now "
+              f"{[p.capacity for p in sim.state.species]}), overflow "
+              f"{sim.overflow_total}, live {live} (was {n_live}); "
+              f"{launches} [{card}]")
+        check(all(bool(torch.isfinite(c).all()) for c in sim.state.fields),
+              f"{label}: fields not finite")
+        check(live + sim.overflow_total == n_live,
+              f"{label}: particles lost without being counted")
+        if drops:
+            print(f"physics: {label}: dropped by stage (particles, tiles) "
+                  f"{sources.read(sim.overflow_total)}; steps that dropped "
+                  f"(step, particles, total energy change over the step): "
+                  f"{[(i, n, f'{de:.4e}') for i, n, de in drops]}")
+        check(len(drops) <= sim.capacity_changes,
+              f"{label}: {len(drops)} steps dropped, "
+              f"{sim.capacity_changes} capacity changes")
+        return launches
+
+    # The energy acceptance deck exactly as scripts/energy_probe.py builds
+    # it at docs/energy_tpu_10k_int8q.json's settings: 64^2, ppc 16, u0
+    # 0.2, beams at uth 0.05 (ions cold), TSC, int8, headroom 3.
+    case = standard.two_stream(nx=64, ny=64, ppc=16, u0=0.2)
+    sp = tuple(dataclasses.replace(s, uth=(0.05 if s.mass <= 1.0 else 0.0),
+                                   shape_order=2)
+               for s in case.deck.species)
+    deck = dataclasses.replace(case.deck, species=sp, precision="f32",
+                               gather_precision="exact",
+                               capacity_headroom=3.0)
+    sim = Simulation(deck, seed=0, device=dev)
+    sim.state = case.seed_state(sim.state, deck)
+    hist = []
+    timed_run(sim, ENERGY_STEPS, ENERGY_EVERY,
+              lambda st, i: hist.append((i, *_energies(st, deck))),
+              "two-stream energy acceptance (energy_probe's deck)")
+    check(len(hist) == ENERGY_STEPS // ENERGY_EVERY + 1, "energy samples")
+    check(sim.overflow_total == 0, f"energy deck: overflow "
+          f"{sim.overflow_total}")
+    tot = [f + k for _, f, k in hist]
+    worst = max(range(len(tot)), key=lambda i: abs(tot[i] - tot[0]))
+    drift = energy_drift([(f, k) for _, f, k in hist])
+    print(f"physics: energy: E0 {tot[0]:.9e}, max |dE|/E0 {drift:.4e} at "
+          f"step {hist[worst][0]}, end {abs(tot[-1] - tot[0]) / tot[0]:.4e}, "
+          f"field share at the end {hist[-1][1] / tot[-1]:.4e} (bar 1e-3) "
+          f"[{card}]")
+    check(drift < 1e-3, f"energy drift {drift:.3e} >= 1e-3")
+
+    case = standard.make("weibel")
+    deck = case.deck
+    sim = Simulation(deck, seed=0, device=dev)
+    sim.state = case.seed_state(sim.state, deck)
+    eb = []
+
+    def b_energy(st, i):
+        f = st.fields
+        eb.append((i, float(0.5 * ((f.bx.double() ** 2).sum()
+                                   + (f.by.double() ** 2).sum())
+                            * deck.dx * deck.dy)))
+
+    e0 = _energies(sim.state, deck)
+    timed_run(sim, deck.total_steps, WEIBEL_EVERY, b_energy, "weibel")
+    e1 = _energies(sim.state, deck)
+    steps = [i for i, _ in eb[1:]]
+    times = [i * deck.dt for i in steps]
+    energy = [e for _, e in eb[1:]]
+    growth = min(energy[-5:]) / energy[0]
+    beta0 = 0.6 / math.sqrt(1 + 0.6 * 0.6)
+    # The JAX package's window (tests/test_physics_benchmarks.py:113): the
+    # first 200 steps sampled every 5, fitted from the fourth sample to the
+    # peak; its 0.5-0.85 beta0 was calibrated on its own 32^2 deck.
+    n200 = steps.index(200) + 1
+    j1 = max(range(n200), key=energy.__getitem__) or n200
+    gam_jax = growth_rate(times[3:j1], energy[3:j1])
+    # The port's own window over the whole run: from 10x the first sample
+    # to a tenth of the peak (the linear phase, before saturation).
+    i1 = max(range(len(energy)), key=energy.__getitem__)
+    lin = [i for i in range(i1) if 10 * energy[0] < energy[i]
+           < 0.1 * energy[i1]]
+    check(len(lin) >= 5, f"weibel: {len(lin)} samples in the linear phase")
+    gam = growth_rate([times[i] for i in lin], [energy[i] for i in lin])
+    print(f"physics: weibel: in-plane B energy {energy[0]:.4e} -> "
+          f"{energy[-1]:.4e} (x{growth:.4e}, bar 100), peak at t "
+          f"{times[i1]:.2f}; growth rate over the JAX test's window (steps "
+          f"{steps[3]}-{steps[j1 - 1]}) {gam_jax / beta0:.4f} beta0 (that "
+          f"test's bar 0.5-0.85, on its own deck), over the port's window "
+          f"(t {times[lin[0]]:.2f}-{times[lin[-1]]:.2f}, 10x the first "
+          f"sample to a tenth of the peak) {gam / beta0:.4f} beta0; total "
+          f"energy change {abs(sum(e1) - sum(e0)) / sum(e0):.4e} [{card}]")
+    check(growth > 100, f"weibel: B energy grew only x{growth:.3e}")
+
+    case = standard.make("two_stream")
+    deck = case.deck
+    sim = Simulation(deck, seed=0, device=dev)
+    sim.state = case.seed_state(sim.state, deck)
+    e0 = _energies(sim.state, deck)
+    mode1 = []
+
+    def spectrum(st, i):
+        mode1.append((i * deck.dt,
+                      float(field_spectrum_x(st.fields.ex.cpu().numpy())[1])))
+
+    launches = timed_run(sim, deck.total_steps, TWO_STREAM_EVERY, spectrum,
+                         "two_stream")
+    e1 = _energies(sim.state, deck)
+    # Cold symmetric beams at +-u0, each of density 1/2; the deck's box
+    # holds mode 1 near peak growth.
+    u0 = deck.species[0].ux
+    v0 = u0 / math.sqrt(1 + u0 * u0)
+    theory = two_stream_growth_theory(2 * math.pi / deck.box_x, v0,
+                                      math.sqrt(0.5))
+    p1 = [e for _, e in mode1]
+    i1 = max(range(len(p1)), key=p1.__getitem__)
+    # The mode-power window of the JAX package's growth-rate test
+    # (tests/test_physics_benchmarks.py:64, the same 64-cell FFT), before
+    # trapping; this deck's seed is 10x that test's, so the window also
+    # starts after the seed's transient (~3/gamma, as that test notes).
+    lin = [i for i in range(i1)
+           if mode1[i][0] > 3 / theory and 3e-4 < p1[i] < 3e-2]
+    fit = "not fitted (under 5 samples in the window)"
+    if len(lin) >= 5:
+        gam = growth_rate([mode1[i][0] for i in lin], [p1[i] for i in lin])
+        fit = (f"{gam:.4f} over t {mode1[lin[0]][0]:.2f}-"
+               f"{mode1[lin[-1]][0]:.2f}, {gam / theory:.4f} of theory")
+    print(f"physics: two_stream: energy {sum(e0):.9e} -> {sum(e1):.9e} (rel "
+          f"change {abs(sum(e1) - sum(e0)) / sum(e0):.4e}); mode-1 power "
+          f"peak {p1[i1]:.4e} at t {mode1[i1][0]:.2f}; growth rate past "
+          f"t = 3/theory in the JAX test's window (power 3e-4 to 3e-2) "
+          f"{fit} (cold-beam theory {theory:.4f}) [{card}]")
+    return launches["append_incoming"]
 
 
 def _run(sim, steps: int, card: str, label: str, force_at=None):
@@ -556,11 +1167,13 @@ def phase_main(dev, card: str) -> dict:
     from minipic_torch.fields.halo import pad_fields_periodic
     from minipic_torch.fields.tiles import extract_field_tiles
     from minipic_torch.ops.advance import advance_plain, live_watermark
-    from minipic_torch.particles.binning import rebin, rebin_auto
+    from minipic_torch.particles.binning import (rebin, rebin_auto,
+                                                 rebin_incremental)
 
     fields = sim.state.fields
     p = sim.state.species[0]
     t = deck.tiling
+    T, cap = p.x.shape
     numbers = {}
     ft = extract_field_tiles(pad_fields_periodic(fields, deck.guard),
                              t.tile_rows, t.tile_cols, t.tile_ny, t.tile_nx,
@@ -568,13 +1181,18 @@ def phase_main(dev, card: str) -> dict:
     counts = live_watermark(p.w)
     kw = _kw(deck, "int8")
     err = _compare(p, ft, counts, kw, "main-path shape o2 int8")
+    # Bytes: six channels in and five out up to each watermark, the field
+    # windows in, the J windows and displacements out.
+    n_wm = int(counts.sum())
+    win = T * (t.tile_ny + 2 * deck.guard) * (t.tile_nx + 2 * deck.guard)
     numbers["advance"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: advance_kernel(p, ft, counts, **kw), 5),
-        plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **kw), 2))
+        plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **kw), 2),
+        **bound(4 * (11 * n_wm + 9 * win + T),
+                ADVANCE_OPS_PER_PARTICLE * _live(p)))
     del ft
 
-    cap = p.capacity
     mc = deck.mover_cap(cap)
     sc = deck.mover_seg_cap(mc)
     grid = dict(tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx)
@@ -585,7 +1203,8 @@ def phase_main(dev, card: str) -> dict:
               for i, (a, b) in enumerate(zip(got, want)))
     numbers["split"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: rb.split_kernel(p, **skw), 3),
-        plain_ms=cuda_ms(lambda: rb.split_buckets_plain(p, **skw), 1))
+        plain_ms=cuda_ms(lambda: rb.split_buckets_plain(p, **skw), 1),
+        **bound(24 * T * cap + 24 * T * cap + 24 * T * mc + 8 * T))
     p1, movers, wm, pending = got
     del want
     gkw = dict(tile_rows=t.tile_rows, **grid, b_seg=sc)
@@ -596,9 +1215,14 @@ def phase_main(dev, card: str) -> dict:
     numbers["segment"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: rb.segment_kernel(movers, **gkw), 3),
-        plain_ms=cuda_ms(lambda: rb.segment_movers_plain(movers, **gkw), 1))
+        plain_ms=cuda_ms(lambda: rb.segment_movers_plain(movers, **gkw), 1),
+        **bound(24 * T * mc + 24 * T * 8 * sc + 4 * T))
     del seg_p
     nbr = rb.seg_neighbor_table(t.tile_rows, t.tile_cols, dev)
+    n_in = int((seg.w > 0).sum())
+    # The appends read the runs' w, the live arrivals, the watermarks (and
+    # the table), and write the arrivals and the dropped counts.
+    app_bytes = 4 * T * 8 * sc + 2 * 24 * n_in + 8 * T
     want, want_d = rb.append_segments_plain(p1, seg, wm, nbr, b_seg=sc)
     q = _clone(p1)
     got_d = rb.append_kernel(q, seg, wm, nbr, b_seg=sc)
@@ -610,9 +1234,21 @@ def phase_main(dev, card: str) -> dict:
         max_abs_err=err,
         ms=cuda_ms(lambda: rb.append_kernel(q, seg, wm, nbr, b_seg=sc), 3),
         plain_ms=cuda_ms(lambda: rb.append_segments_plain(
-            p1, seg, wm, nbr, b_seg=sc), 1))
-    del want, q
+            p1, seg, wm, nbr, b_seg=sc), 1),
+        **bound(app_bytes + 32 * T))
     inc = rb.roll_segments(seg, nbr, sc)
+    r = _clone(p1)
+    got_d = rb.append_runs_kernel(r, inc, wm, b_seg=sc)
+    err = max(_same(r, want, "main append_runs"),
+              _same(got_d, want_d, "main append_runs dropped"),
+              _same(r, q, "main append_runs against the append"))
+    numbers["append_runs"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: rb.append_runs_kernel(r, inc, wm, b_seg=sc), 3),
+        plain_ms=cuda_ms(lambda: rb.append_runs_plain(p1, inc, wm,
+                                                      b_seg=sc), 1),
+        **bound(app_bytes))
+    del want, q, r
     want, want_c, want_d = rb.defrag_buckets_plain(p1, inc)
     q = _clone(p1)
     got_c, got_d = rb.defrag_kernel(q, seg, nbr, b_seg=sc)
@@ -627,20 +1263,83 @@ def phase_main(dev, card: str) -> dict:
         max_abs_err=err,
         ms=cuda_ms(lambda: rb.defrag_kernel(next(it), seg, nbr, b_seg=sc), 2,
                    warm=1),
-        plain_ms=cuda_ms(lambda: rb.defrag_buckets_plain(p1, inc), 1))
+        plain_ms=cuda_ms(lambda: rb.defrag_buckets_plain(p1, inc), 1),
+        **bound(2 * 24 * T * cap + 4 * T * 8 * sc + 24 * n_in + 32 * T
+                + 8 * T))
     del want, q, qs, inc
+
+    got = rb.extract_kernel(p, **skw)
+    want = rb.extract_movers_plain(p, **skw)
+    err = max(_same(a, b, f"main extract {i}")
+              for i, (a, b) in enumerate(zip(got, want)))
+    n_ext = _live(want[1])
+    numbers["extract"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: rb.extract_kernel(p, **skw), 3),
+        plain_ms=cuda_ms(lambda: rb.extract_movers_plain(p, **skw), 1),
+        **bound(12 * T * cap + 12 * n_ext + 4 * T * cap + 24 * T * mc
+                + 8 * T))
+    print(f"main: extract: {n_ext} movers out, {int(want[3].sum())} not "
+          "kept: equal")
+    del got, want
+
+    # The copy kernels last about as long as their wrappers take on the
+    # host: their device time is measured at the end (device_times).
+    # Both write the same arrivals at the same watermarks into one copy.
+    q = _clone(p1)
+    inc = rb.roll_segments(seg, nbr, sc)
+    jobs = [(lambda: rb.append_kernel(q, seg, wm, nbr, b_seg=sc), 5,
+             "append_kernel"),
+            (lambda: rb.append_runs_kernel(q, inc, wm, b_seg=sc), 5,
+             "append_rows_kernel")]
+
+    fused_out = rebin_auto(p, t, mc, seg_cap=sc)
+    runs_out = rebin_auto(p, t, mc, seg_cap=sc, fused=False)
+    _same(runs_out[0], fused_out[0], "main rebin_auto fused=False")
+    check(int(runs_out[1]) == int(fused_out[1])
+          and int(runs_out[2]) == int(fused_out[2]),
+          "main rebin_auto fused=False counts")
+    del fused_out, runs_out
     auto_ms = cuda_ms(lambda: rebin_auto(p, t, mc, seg_cap=sc), 3)
+    unfused_ms = cuda_ms(lambda: rebin_auto(p, t, mc, seg_cap=sc,
+                                            fused=False), 3)
     sort_ms = cuda_ms(lambda: rebin(p, t), 3)
     for name, v in numbers.items():
         print(f"main: {name} at the main path's shape: kernel "
-              f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, max abs err "
+              f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
+              f"{v['bound_ms']:.3f} ms ({v['bound_by']}), max abs err "
               f"{v['max_abs_err']:.3e} [{card}]")
     print(f"main: advance kernel {numbers['advance']['ms']:.3f} ms = "
-          f"{int((p.w > 0).sum()) / (numbers['advance']['ms'] / 1e3):.4e} "
+          f"{_live(p) / (numbers['advance']['ms'] / 1e3):.4e} "
           f"pushes/s alone; deal-route re-bin (rebin_auto) {auto_ms:.3f} ms, "
+          f"through append_runs (fused=False, equal) {unfused_ms:.3f} ms, "
           f"sort re-bin {sort_ms:.3f} ms; split buffer {mc}, runs {sc}, "
           f"{int(pending.sum())} pending [{card}]")
-    return {n: dict(launches=launches[n], **v) for n, v in numbers.items()}
+
+    # rebin_incremental, the extract's path, on a copy of the final state:
+    # extract, route, append_incoming.
+    for k in rb.KERNELS.values():
+        k.reset()
+    n0 = _live(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, dropped, wm_after = rebin_incremental(_clone(p), t, mc)
+    torch.cuda.synchronize()
+    inc_ms = (time.perf_counter() - t0) * 1e3
+    inc_launches = {n: k.launches for n, k in rb.KERNELS.items()}
+    check(inc_launches["extract"] == 1
+          and inc_launches["append_incoming"] == 1,
+          f"rebin_incremental launches {inc_launches}")
+    check(_live(p2) + int(dropped) == n0, "rebin_incremental lost particles")
+    check(all(bool(torch.isfinite(a).all()) for a in p2),
+          "rebin_incremental: particles not finite")
+    print(f"main: rebin_incremental on the final state: {inc_ms:.3f} ms "
+          f"(host clock, first call), dropped {int(dropped)}, max watermark "
+          f"{int(wm_after)} of {cap}, launches extract "
+          f"{inc_launches['extract']}, append_incoming "
+          f"{inc_launches['append_incoming']} [{card}]")
+    launches["extract"] = inc_launches["extract"]
+    return ({n: dict(launches=launches[n], **v) for n, v in numbers.items()},
+            jobs)
 
 
 def phase_sort(dev, card: str) -> None:
@@ -683,10 +1382,37 @@ def main() -> int:
     phase_build()
     phase_kernel(dev)
     phase_rebin_kernels(dev)
-    phase_small_step(dev)
-    numbers = phase_main(dev, card)
+    phase_rebin_kernels_b6_b8(dev)
+    runs_launches = phase_small_step(dev)
+    b6 = phase_decks(dev)
+    b6_launches = phase_physics(dev, card)
     torch.cuda.empty_cache()
     phase_sort(dev, card)
+    torch.cuda.empty_cache()
+    numbers, jobs = phase_main(dev, card)
+    numbers["append_runs"]["launches"] = runs_launches
+    # Device times last, in one profile (device_times).
+    decks = list(b6)
+    times = device_times([b6[d].pop("job") for d in decks] + jobs)
+    for d, ms in zip(decks, times):
+        v = b6[d]
+        v["ms"] = ms
+        print(f"device: append_incoming on {d}'s final state ({v['shape']}): "
+              f"kernel {ms:.4f} ms on the device (profiler), "
+              f"{v['wrapper_ms']:.4f} ms a call through the wrapper (CUDA "
+              f"events), plain {v['plain_ms']:.3f} ms, bound "
+              f"{v['bound_ms']:.4f} ms [{card}]")
+    for name, ms in zip(("append", "append_runs"), times[len(decks):]):
+        print(f"device: {name} at the main path's shape: kernel {ms:.4f} ms "
+              f"on the device (profiler), {numbers[name]['ms']:.4f} ms by "
+              f"CUDA events [{card}]")
+        numbers[name]["ms"] = ms
+    # append_incoming's launches are those of the two_stream deck's run
+    # through Simulation.run; its times, at that deck's shape.
+    numbers["append_incoming"] = {
+        k: v for k, v in b6["two_stream"].items()
+        if k not in ("shape", "wrapper_ms")}
+    numbers["append_incoming"]["launches"] = b6_launches
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

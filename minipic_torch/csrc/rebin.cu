@@ -1,8 +1,10 @@
-// The deal-route re-bin for Hopper (sm_90a): split, segment, append, defrag.
+// The incremental re-bin for Hopper (sm_90a): split, segment, append,
+// defrag, append_incoming, append_runs, extract.
 //
 // Replaces: minipic_tpu/ops/pallas/rebin_kernels.py, split_buckets
-// (pallas_call at :719), segment_movers (:1009), append_segments (:1457) and
-// defrag_buckets (:1201).  Plain torch versions of the same functions:
+// (pallas_call at :719), segment_movers (:1009), append_segments (:1457),
+// defrag_buckets (:1201), append_incoming (:1643), append_runs (:1589) and
+// extract_movers (:394).  Plain torch versions of the same functions:
 // minipic_torch/ops/rebin.py (its docstring states what each computes).
 //
 // Layout.  One thread block per tile for every kernel.  Particles are six
@@ -322,7 +324,10 @@ __global__ void append_kernel(AppendArgs a) {
 // Defrag (kDefragThreads threads), in place.
 
 struct DefragArgs {
-  int cap, b_seg;  // b_seg 0: no arrival runs to merge
+  // b_seg 0: no arrivals to merge.  nbr set: the eight runs seg[nbr[t, d],
+  // d] of b_seg slots; nbr null: one dense row of b_seg slots per tile,
+  // seg[t] (the sort route's incoming slab).
+  int cap, b_seg;
   const int* nbr;
   const bool* active;
   Channels p, seg;
@@ -352,8 +357,11 @@ __global__ void defrag_kernel(DefragArgs a) {
     cursor += tot[0];
   }
   // Then the live slots of the arrival runs, in direction order.
-  for (int d = 0; d < (a.b_seg > 0 ? 8 : 0); ++d) {
-    const size_t src = ((size_t)a.nbr[t * 8 + d] * 8 + d) * (size_t)a.b_seg;
+  const int runs = a.b_seg == 0 ? 0 : (a.nbr != nullptr ? 8 : 1);
+  for (int d = 0; d < runs; ++d) {
+    const size_t src =
+        a.nbr != nullptr ? ((size_t)a.nbr[t * 8 + d] * 8 + d) * (size_t)a.b_seg
+                         : (size_t)t * a.b_seg;
     for (int base = 0; base < a.b_seg; base += blockDim.x) {
       const int i = base + threadIdx.x;
       float v[6] = {0, 0, 0, 0, 0, 0};
@@ -371,6 +379,148 @@ __global__ void defrag_kernel(DefragArgs a) {
   if (threadIdx.x == 0) {
     a.counts[t] = kept;
     a.dropped[t] = cursor - kept;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Append of a tile's own incoming row (kAppendRowsThreads threads), in place:
+// append_incoming (one run of b_run slots) and append_runs (`runs` runs of
+// b_run slots each, the rolled arrival runs of the unfused deal route).
+//
+// Replaces rebin_kernels.py _append_kernel (:1220) and _append_runs_kernel
+// (:1474).  Each run is live-compacted, so its count of w > 0 is its length;
+// the runs are written one after another at [wm, wm + n_in).  Bytes: the
+// incoming w row is read twice (the fits total, then per-run counts) and
+// only the live arrivals are copied, 6 channels read and written, so HBM
+// bounds it at ~(2*4*b_in + 48*n_in) bytes per tile.  The TPU kernels
+// stream a 128-aligned slab around the watermark and keep 128 slots of
+// slack for its anchor; here every thread copies one slot per pass, so
+// the write starts at wm exactly and a tile fits when wm + n_in <= cap.
+
+constexpr int kAppendRowsThreads = 256;
+
+struct AppendRowsArgs {
+  int cap, runs, b_run;
+  const int* wm;
+  const bool* active;
+  Channels p, inc;
+  int* dropped;
+  int* taken;
+};
+
+__global__ void append_rows_kernel(AppendRowsArgs a) {
+  if (!*a.active) return;
+  __shared__ int sh[32];
+  const int t = blockIdx.x;
+  if (t == 0 && threadIdx.x == 0) atomicAdd(a.taken, 1);
+  const int width = a.runs * a.b_run;
+  const size_t src = (size_t)t * width;
+  const float* iw = a.inc.c[5] + src;
+  int c = 0;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) c += iw[i] > 0.0f;
+  const int n_in = block_sum(c, sh);
+  const int wm = a.wm[t];
+  if (wm + n_in > a.cap) {  // all or nothing
+    if (threadIdx.x == 0) a.dropped[t] = n_in;
+    return;
+  }
+  const size_t dst = (size_t)t * a.cap + wm;
+  int off = 0;
+  for (int r = 0; r < a.runs; ++r) {
+    const size_t rs = src + (size_t)r * a.b_run;
+    int n = 0;
+    for (int i = threadIdx.x; i < a.b_run; i += blockDim.x)
+      n += iw[(size_t)r * a.b_run + i] > 0.0f;
+    n = block_sum(n, sh);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) a.p.c[k][dst + off + i] = a.inc.c[k][rs + i];
+    }
+    off += n;
+  }
+  if (threadIdx.x == 0) a.dropped[t] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// Extract (kExtractThreads threads): the extract-only split of
+// rebin_incremental.
+//
+// Replaces rebin_kernels.py _extract_kernel (:147).  A live slot off its
+// tile (the split's test) is a mover.  A tile extracts when its movers fit
+// fit_cap = (b_cap // kc) * kc slots, or `force` is set; then its movers'
+// w becomes 0 in the new w row (every other channel stays in the caller's
+// tensors), and the first b_cap of them go to the buffer in FORWARD slot
+// order (the TPU kernel ranks by a triangular matmul).  A tile that does not
+// extract is left as it was and reports its mover count.  The watermark is
+// 1 + the index of the last live stayer, not a count: the stayers are not
+// compacted, so leavers leave holes.  Bytes: x, y and w of every slot are
+// read twice (count, then extract) and w written once; movers' six channels
+// are read and written once: ~(28 * cap + 48 * movers) bytes per tile, HBM
+// bound.  Coalesced: consecutive threads take consecutive slots, the ranks
+// come from a warp ballot and a scan of the warp counts (block_scan), and
+// nothing but the movers is copied.
+
+constexpr int kExtractThreads = 512;
+
+struct ExtractArgs {
+  int cap, b_cap, fit_cap, tile_cols;
+  float inv_nx, inv_ny;
+  Channels in;
+  const bool* force;
+  float* w_out;
+  Channels mov;
+  int* wm;
+  int* pending;
+};
+
+__global__ void extract_kernel(ExtractArgs a) {
+  __shared__ int sh[1][33];
+  const int t = blockIdx.x;
+  const float my_row = (float)(t / a.tile_cols);
+  const float my_col = (float)(t % a.tile_cols);
+  const size_t row = (size_t)t * a.cap;
+  const float* x = a.in.c[0] + row;
+  const float* y = a.in.c[1] + row;
+  const float* w = a.in.c[5] + row;
+  int n_mov = 0;
+  for (int s = threadIdx.x; s < a.cap; s += blockDim.x) {
+    if (w[s] > 0.0f)
+      n_mov += (floorf(x[s] * a.inv_nx) != my_col) ||
+               (floorf(y[s] * a.inv_ny) != my_row);
+  }
+  const int total = block_sum(n_mov, sh[0]);
+  const bool extract = total <= a.fit_cap || *a.force;
+  const size_t mrow = (size_t)t * a.b_cap;
+  int m_cur = 0, last = 0;
+  for (int base = 0; base < a.cap; base += blockDim.x) {
+    const int s = base + threadIdx.x;
+    bool mv = false;
+    if (s < a.cap) {
+      const float wv = w[s];
+      const bool live = wv > 0.0f;
+      mv = live && extract &&
+           ((floorf(x[s] * a.inv_nx) != my_col) ||
+            (floorf(y[s] * a.inv_ny) != my_row));
+      a.w_out[row + s] = mv ? 0.0f : wv;
+      if (live && !mv) last = s + 1;
+    }
+    const bool f[1] = {mv};
+    int ex[1], tot[1];
+    block_scan<1>(f, ex, tot, sh);
+    if (mv && m_cur + ex[0] < a.b_cap) {
+      float v[6];
+      load6(a.in, row + s, v);
+      store6(a.mov, mrow + m_cur + ex[0], v);
+    }
+    m_cur += tot[0];
+  }
+  const int wm = block_max(last, sh[0]);
+  const int kept = min(m_cur, a.b_cap);
+  for (int s = kept + threadIdx.x; s < a.b_cap; s += blockDim.x)
+    zero6(a.mov, mrow + s);
+  if (threadIdx.x == 0) {
+    a.wm[t] = wm;
+    a.pending[t] = total - kept;  // a tile that did not extract: kept == 0
   }
 }
 
@@ -418,5 +568,28 @@ extern "C" int minipic_defrag(int num_tiles, int cap, int b_seg,
   DefragArgs a{cap, b_seg, nbr, active, p, seg, counts, dropped, taken};
   defrag_kernel<<<num_tiles, kDefragThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(a);
+  return finish();
+}
+
+extern "C" int minipic_append_rows(int num_tiles, int cap, int runs,
+                                   int b_run, const int* wm,
+                                   const bool* active, Channels p,
+                                   Channels inc, int* dropped, int* taken,
+                                   void* stream) {
+  AppendRowsArgs a{cap, runs, b_run, wm, active, p, inc, dropped, taken};
+  append_rows_kernel<<<num_tiles, kAppendRowsThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
+  return finish();
+}
+
+extern "C" int minipic_extract(int num_tiles, int cap, int b_cap,
+                               int fit_cap, int tile_cols, float inv_nx,
+                               float inv_ny, Channels in, const bool* force,
+                               float* w_out, Channels mov, int* wm,
+                               int* pending, void* stream) {
+  ExtractArgs a{cap, b_cap, fit_cap, tile_cols, inv_nx, inv_ny, in, force,
+                w_out, mov, wm, pending};
+  extract_kernel<<<num_tiles, kExtractThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a);
   return finish();
 }

@@ -8,8 +8,10 @@ re-bin).  ``headline_deck(rebin_mode="sort")`` drives the sort re-bin
 instead.
 
     python3 -m minipic_torch.headline [--steps N] [--trace PATH]
+        [--deck NAME]
 
-on a CUDA card loads that deck, warms up, and traces N steps that only
+on a CUDA card loads that deck (or, with ``--deck``, a deck of
+``decks.standard``, seeded), warms up, and traces N steps that only
 advance plus one forced re-bin step with ``torch.profiler``.  It prints the
 share of the traced wall time in which the device ran a kernel, the span
 of the device timeline each profiler range of the step covers
@@ -76,6 +78,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
+    ap.add_argument("--deck", default="", help="profile this deck of "
+                    "decks.standard instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -85,7 +89,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    sim = Simulation(headline_deck(), seed=0, device=dev)
+    if args.deck:
+        from .decks import standard
+
+        case = standard.make(args.deck)
+        sim = Simulation(case.deck, seed=0, device=dev)
+        sim.state = case.seed_state(sim.state, case.deck)
+    else:
+        sim = Simulation(headline_deck(), seed=0, device=dev)
     # Warm-up, a re-bin included: first launches load their modules.
     sim.step(2)
     _force_rebin(sim)
@@ -103,11 +114,18 @@ def main(argv=None) -> int:
     print(f"profile: {args.steps} advance-only steps + 1 re-bin step, "
           f"wall {wall_us / 1e3:.3f} ms, device busy "
           f"{100 * _busy_us(events) / wall_us:.1f}% [{card}]")
+    n_kernels = sum(1 for e in events
+                    if _is_device(e) and e.name not in RANGES)
+    print(f"profile: {n_kernels} kernel launches, "
+          f"{n_kernels / (args.steps + 1):.1f} a step")
     for r in RANGES:
         spans = [e.time_range.elapsed_us() for e in events
                  if _is_device(e) and e.name == r]
+        host = [e.time_range.elapsed_us() for e in events
+                if not _is_device(e) and e.name == r]
         print(f"profile: range {r}: {sum(spans) / 1e3:.3f} ms of device "
-              f"timeline over {len(spans)} spans")
+              f"timeline over {len(spans)} spans, {sum(host) / 1e3:.3f} ms "
+              "on the host")
     kernels = sorted((e for e in prof.key_averages()
                       if _is_device(e) and e.key not in RANGES),
                      key=lambda e: -e.self_device_time_total)

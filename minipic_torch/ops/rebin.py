@@ -1,7 +1,9 @@
-"""The deal-route re-bin kernels: split, segment, append, defrag.
+"""The incremental re-bin kernels: split, segment, append, defrag,
+append_incoming, append_runs and extract.
 
 Port of ``minipic_tpu.ops.pallas.rebin_kernels`` (``split_buckets``,
-``segment_movers``, ``append_segments``, ``defrag_buckets``).  Each has two
+``segment_movers``, ``append_segments``, ``defrag_buckets``,
+``append_incoming``, ``append_runs``, ``extract_movers``).  Each has two
 implementations of one function:
 
 * a CUDA kernel in ``csrc/rebin.cu``, launched for CUDA tensors;
@@ -35,14 +37,32 @@ each computes, per tile ``t`` of a row-major tile grid:
   live-compacted: its length is its count of ``w > 0``) are written in
   direction order at ``[wm, wm + n_in)``.  A tile whose arrivals do not fit
   its bucket takes none and counts them.
-* **defrag** — the live slots of the bucket and then of the arrival runs,
-  in that order, are compacted to the front; ``min(census, cap)`` are kept
-  and the rest counted; the tail is zeroed.
+* **append_runs** — the append with the runs read from the tile's own
+  incoming row ``[T, runs * b_seg]`` (run r at offset ``r * b_seg``): the
+  unfused deal route, after ``roll_segments``.
+* **append_incoming** — append_runs with one run: the tile's own
+  live-compacted incoming row ``[T, b_in]`` from the sort route.
+* **defrag** — the live slots of the bucket and then of the arrivals (the
+  eight runs, or one dense incoming row), in that order, are compacted to
+  the front; ``min(census, cap)`` are kept and the rest counted; the tail
+  is zeroed.
+* **extract** — the extract-only split of ``rebin_incremental``: movers as
+  in the split, all or nothing per tile (a tile extracts when its movers
+  fit ``(b_cap // kc) * kc`` slots, or ``force``).  The input comes back
+  with only ``w`` replaced (a leaver's w is 0; stayers are not compacted),
+  the movers go to the buffer in FORWARD slot order, the first ``b_cap``
+  kept, and the watermark is 1 + the last live stayer's slot.  The fourth
+  output is the movers not kept: dropped for a tile that extracted, its
+  whole mover count (pending) for one that did not.
 
-The append and the defrag work in place on the buckets the split returned
+The three appends all take a tile's arrivals when ``wm + n_in <= cap``: the
+JAX kernels ask for ``cap - 128``, slack for the TPU's 128-lane slab anchor
+that a GPU copy does not need (ROADMAP C).
+
+The appends and the defrag work in place on the buckets the split returned
 and take a 0-d ``active`` flag from device memory: ``rebin_auto`` launches
-both, and each returns at once unless its branch was chosen, so the choice
-costs no host read.
+an append and the defrag together, and each returns at once unless its
+branch was chosen, so the choice costs no host read.
 """
 from __future__ import annotations
 
@@ -198,24 +218,40 @@ def seg_arrival_counts(seg: ParticleState, nbr: torch.Tensor,
     return cnt[nbr.long(), dirs].sum(1, dtype=torch.int32)
 
 
-def append_segments_plain(p: ParticleState, seg: ParticleState,
-                          wm: torch.Tensor, nbr: torch.Tensor, *,
-                          b_seg: int):
-    """Plain version of the append (see the module docstring), out of
-    place.  Returns (buckets, dropped [T])."""
+def append_runs_plain(p: ParticleState, inc: ParticleState,
+                      wm: torch.Tensor, *, b_seg: int):
+    """Plain version of append_runs (see the module docstring), out of
+    place: the runs of `b_seg` slots of each tile's own row `inc`.
+    Returns (buckets, dropped [T])."""
     T, cap = p.x.shape
-    inc = roll_segments(seg, nbr, b_seg)
-    n_r = (inc.w.reshape(T, 8, b_seg) > 0).sum(2, dtype=torch.int32)
+    runs = inc.x.shape[1] // b_seg
+    n_r = (inc.w.reshape(T, runs, b_seg) > 0).sum(2, dtype=torch.int32)
     off = torch.cumsum(n_r, 1, dtype=torch.int32) - n_r
     n_in = n_r.sum(1, dtype=torch.int32)
     fits = wm + n_in <= cap
     i = torch.arange(b_seg, device=p.x.device, dtype=torch.int32)
     valid = (i < n_r[:, :, None]) & fits[:, None, None]
     dest = wm[:, None, None] + off[:, :, None] + i
-    out = _scatter_rows(ParticleState(*(a.reshape(T, 8, b_seg)
+    out = _scatter_rows(ParticleState(*(a.reshape(T, runs, b_seg)
                                         for a in inc)),
                         valid, dest, cap, base=p)
     return out, torch.where(fits, torch.zeros_like(n_in), n_in)
+
+
+def append_incoming_plain(p: ParticleState, inc: ParticleState,
+                          wm: torch.Tensor):
+    """Plain version of append_incoming: append_runs with one run of the
+    row's width.  Returns (buckets, dropped [T])."""
+    return append_runs_plain(p, inc, wm, b_seg=inc.x.shape[1])
+
+
+def append_segments_plain(p: ParticleState, seg: ParticleState,
+                          wm: torch.Tensor, nbr: torch.Tensor, *,
+                          b_seg: int):
+    """Plain version of the append (see the module docstring), out of
+    place.  Returns (buckets, dropped [T])."""
+    return append_runs_plain(p, roll_segments(seg, nbr, b_seg), wm,
+                             b_seg=b_seg)
 
 
 def defrag_buckets_plain(p: ParticleState,
@@ -232,6 +268,43 @@ def defrag_buckets_plain(p: ParticleState,
     census = rank[:, -1] + 1
     counts = torch.clamp(census, max=cap)
     return out, counts, census - counts
+
+
+def extract_chunk(cap: int, b_cap: int) -> int:
+    """The JAX extract's slot chunk (rebin_kernels.py:356-362): 256 unless
+    it does not divide the bucket or exceeds the buffer, then the first of
+    128, 256, 384, 512 that does both, else the whole bucket.  It sets only
+    the all-or-nothing rule: a tile extracts when its movers fit
+    (b_cap // kc) * kc slots."""
+    kc = 256
+    if cap % kc or kc > b_cap:
+        for d in (128, 256, 384, 512):
+            if cap % d == 0 and d <= b_cap:
+                return d
+        return cap
+    return kc
+
+
+def extract_movers_plain(p: ParticleState, *, tile_cols: int, tile_ny: int,
+                         tile_nx: int, b_cap: int, force=False):
+    """Plain version of the extract (see the module docstring).  Returns
+    (p with w replaced, movers [T, b_cap], watermark [T], not kept [T])."""
+    T, cap = p.x.shape
+    i32 = torch.int32
+    mov = _away(p, tile_cols, tile_ny, tile_nx)
+    total = mov.sum(1, dtype=i32)
+    kc = extract_chunk(cap, b_cap)
+    extract = ((total <= (b_cap // kc) * kc)
+               | torch.as_tensor(force, device=p.x.device))
+    mov = mov & extract[:, None]
+    w = torch.where(mov, torch.zeros_like(p.w), p.w)
+    slot = torch.arange(1, cap + 1, device=p.x.device, dtype=i32)
+    wm = torch.where((p.w > 0) & ~mov, slot, 0).amax(1).to(i32)
+    rank = torch.cumsum(mov, 1, dtype=i32) - 1
+    movers = _scatter_rows(p, mov & (rank < b_cap), rank, b_cap)
+    kept = torch.where(extract, torch.clamp(total, max=b_cap),
+                       torch.zeros_like(total))
+    return p._replace(w=w), movers, wm, total - kept
 
 
 # ----------------------------------------------------------------------
@@ -268,8 +341,14 @@ def _lib():
                                        + [Channels, Channels] + [vp] * 3)
         lib.minipic_defrag.argtypes = ([ci] * 3 + [vp] * 2
                                        + [Channels, Channels] + [vp] * 4)
+        lib.minipic_append_rows.argtypes = ([ci] * 4 + [vp] * 2
+                                            + [Channels, Channels]
+                                            + [vp] * 3)
+        lib.minipic_extract.argtypes = ([ci] * 5 + [cf, cf, Channels]
+                                        + [vp] * 2 + [Channels] + [vp] * 3)
         for fn in (lib.minipic_split, lib.minipic_segment,
-                   lib.minipic_append, lib.minipic_defrag):
+                   lib.minipic_append, lib.minipic_defrag,
+                   lib.minipic_append_rows, lib.minipic_extract):
             fn.restype = ci
         _LIB = lib
     return _LIB
@@ -299,8 +378,8 @@ def _launched(err: int, name: str) -> None:
 
 
 class _Kernel:
-    """Base of the four launchers: ``launches`` counts kernel launches.
-    The append and the defrag also count on the device, in ``taken``, the
+    """Base of the launchers: ``launches`` counts kernel launches.  The
+    appends and the defrag also count on the device, in ``taken``, the
     launches whose ``active`` flag was set (read with ``taken_count``)."""
 
     def __init__(self):
@@ -399,6 +478,10 @@ class AppendKernel(_Kernel):
 
 
 class DefragKernel(_Kernel):
+    """The defrag.  Arrivals to merge: none; the eight runs of `seg`
+    through `nbr` (runs of `b_seg`); or, with `nbr` None, `seg` as one
+    dense incoming row [T, b_in] per tile."""
+
     def __call__(self, p: ParticleState, seg: Optional[ParticleState] = None,
                  nbr: Optional[torch.Tensor] = None, *, b_seg: int = 0,
                  active=True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -407,6 +490,10 @@ class DefragKernel(_Kernel):
         _check_p(p, "p", (T, cap), dev)
         if seg is None:
             b_seg, seg_ch, nbr_ptr = 0, Channels(), None
+        elif nbr is None:
+            b_seg = seg.x.shape[1]
+            _check_p(seg, "incoming", (T, b_seg), dev)
+            seg_ch, nbr_ptr = _channels(seg), None
         else:
             _check_runs(seg, nbr, T, b_seg, dev)
             seg_ch, nbr_ptr = _channels(seg), nbr.data_ptr()
@@ -422,12 +509,88 @@ class DefragKernel(_Kernel):
         return counts, dropped
 
 
+class _AppendRowsKernel(_Kernel):
+    """Shared launcher of append_incoming and append_runs (one device
+    kernel, csrc/rebin.cu append_rows_kernel); each has its own instance
+    and so its own counters."""
+
+    name = ""
+
+    def _launch(self, p: ParticleState, inc: ParticleState,
+                wm: torch.Tensor, b_run: int, active) -> torch.Tensor:
+        T, cap = p.x.shape
+        dev = p.x.device
+        _check_p(p, "p", (T, cap), dev)
+        width = inc.x.shape[-1]
+        if b_run <= 0 or width % b_run:
+            raise ValueError(f"incoming width {width} is not a whole number "
+                             f"of runs of {b_run}")
+        _check_p(inc, "incoming", (T, width), dev)
+        _check(wm, "wm", torch.int32, (T,), dev)
+        active = _flag(active, dev)
+        lib = _lib()
+        dropped = torch.zeros(T, dtype=torch.int32, device=dev)
+        _launched(lib.minipic_append_rows(
+            T, cap, width // b_run, b_run, wm.data_ptr(), active.data_ptr(),
+            _channels(p), _channels(inc), dropped.data_ptr(),
+            self._taken(dev).data_ptr(), _stream(dev)), self.name)
+        self.launches += 1
+        return dropped
+
+
+class AppendIncomingKernel(_AppendRowsKernel):
+    name = "append_incoming"
+
+    def __call__(self, p: ParticleState, inc: ParticleState,
+                 wm: torch.Tensor, *, active=True) -> torch.Tensor:
+        return self._launch(p, inc, wm, inc.x.shape[-1], active)
+
+
+class AppendRunsKernel(_AppendRowsKernel):
+    name = "append_runs"
+
+    def __call__(self, p: ParticleState, inc: ParticleState,
+                 wm: torch.Tensor, *, b_seg: int,
+                 active=True) -> torch.Tensor:
+        return self._launch(p, inc, wm, b_seg, active)
+
+
+class ExtractKernel(_Kernel):
+    def __call__(self, p: ParticleState, *, tile_cols: int, tile_ny: int,
+                 tile_nx: int, b_cap: int, force=False):
+        T, cap = p.x.shape
+        dev = p.x.device
+        _check_p(p, "p", (T, cap), dev)
+        if T % tile_cols:
+            raise ValueError(f"{T} tiles not a multiple of {tile_cols} cols")
+        kc = extract_chunk(cap, b_cap)
+        force = _flag(force, dev)
+        lib = _lib()
+        w = torch.empty((T, cap), dtype=torch.float32, device=dev)
+        mbuf = torch.empty((6, T, b_cap), dtype=torch.float32, device=dev)
+        movers = ParticleState(*mbuf)
+        wm = torch.empty(T, dtype=torch.int32, device=dev)
+        pending = torch.empty(T, dtype=torch.int32, device=dev)
+        _launched(lib.minipic_extract(
+            T, cap, b_cap, (b_cap // kc) * kc, tile_cols, 1.0 / tile_nx,
+            1.0 / tile_ny, _channels(p), force.data_ptr(), w.data_ptr(),
+            _channels(movers), wm.data_ptr(), pending.data_ptr(),
+            _stream(dev)), "extract")
+        self.launches += 1
+        return p._replace(w=w), movers, wm, pending
+
+
 split_kernel = SplitKernel()
 segment_kernel = SegmentKernel()
 append_kernel = AppendKernel()
 defrag_kernel = DefragKernel()
+append_incoming_kernel = AppendIncomingKernel()
+append_runs_kernel = AppendRunsKernel()
+extract_kernel = ExtractKernel()
 KERNELS = {"split": split_kernel, "segment": segment_kernel,
-           "append": append_kernel, "defrag": defrag_kernel}
+           "append": append_kernel, "defrag": defrag_kernel,
+           "append_incoming": append_incoming_kernel,
+           "append_runs": append_runs_kernel, "extract": extract_kernel}
 
 
 # ----------------------------------------------------------------------
@@ -477,20 +640,57 @@ def append_segments_(p: ParticleState, seg: ParticleState, wm: torch.Tensor,
                        torch.zeros_like(dropped))
 
 
+def append_runs_(p: ParticleState, inc: ParticleState, wm: torch.Tensor, *,
+                 b_seg: int, active=True) -> torch.Tensor:
+    """append_runs, in place on `p` when `active`.  Returns dropped [T]."""
+    if p.x.is_cuda:
+        return append_runs_kernel(p, inc, wm, b_seg=b_seg, active=active)
+    _on_cpu(p.x, "append_runs")
+    out, dropped = append_runs_plain(p, inc, wm, b_seg=b_seg)
+    _assign(p, out, active)
+    return torch.where(torch.as_tensor(active), dropped,
+                       torch.zeros_like(dropped))
+
+
+def append_incoming_(p: ParticleState, inc: ParticleState, wm: torch.Tensor,
+                     *, active=True) -> torch.Tensor:
+    """append_incoming, in place on `p` when `active`.  Returns dropped
+    [T].  The JAX wrapper also asks for cap >= b_in + 256, room for its
+    slab anchor; the port writes at the watermark itself and needs none."""
+    if p.x.is_cuda:
+        return append_incoming_kernel(p, inc, wm, active=active)
+    _on_cpu(p.x, "append_incoming")
+    out, dropped = append_incoming_plain(p, inc, wm)
+    _assign(p, out, active)
+    return torch.where(torch.as_tensor(active), dropped,
+                       torch.zeros_like(dropped))
+
+
 def defrag_buckets_(p: ParticleState, seg: Optional[ParticleState] = None,
                     nbr: Optional[torch.Tensor] = None, *, b_seg: int = 0,
                     active=True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The defrag, in place on `p` when `active`, merging the arrival runs
-    of `seg` through `nbr` when given.  Returns (counts, dropped) [T]."""
+    of `seg` through `nbr` when given, or `seg` as one dense incoming row
+    per tile when `nbr` is None.  Returns (counts, dropped) [T]."""
     if p.x.is_cuda:
         return defrag_kernel(p, seg, nbr, b_seg=b_seg, active=active)
     _on_cpu(p.x, "defrag")
-    inc = None if seg is None else roll_segments(seg, nbr, b_seg)
+    inc = seg if nbr is None else roll_segments(seg, nbr, b_seg)
     out, counts, dropped = defrag_buckets_plain(p, inc)
     _assign(p, out, active)
     on = torch.as_tensor(active)
     return (torch.where(on, counts, torch.zeros_like(counts)),
             torch.where(on, dropped, torch.zeros_like(dropped)))
+
+
+def extract_movers(p: ParticleState, *, tile_cols: int, tile_ny: int,
+                   tile_nx: int, b_cap: int, force=False):
+    kw = dict(tile_cols=tile_cols, tile_ny=tile_ny, tile_nx=tile_nx,
+              b_cap=b_cap, force=force)
+    if p.x.is_cuda:
+        return extract_kernel(p, **kw)
+    _on_cpu(p.x, "extract")
+    return extract_movers_plain(p, **kw)
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,10 +11,15 @@ Two routes into the static (num_tiles, capacity) layout:
   (w == 0).  Overflow (more live particles for a tile than its capacity)
   is counted and the excess dropped: a bucket takes the first `capacity`
   arrivals by flat index.
-* ``rebin_auto`` (the deal route, ``rebin_mode="auto"`` or
-  ``"incremental"``): only the particles that left their tile move,
-  through the four kernels of ``ops/rebin.py``.  Its buckets equal the JAX
-  package's slot for slot, dead slots included.
+* ``rebin_auto`` (``rebin_mode="auto"`` or ``"incremental"``): only the
+  particles that left their tile move, through the kernels of
+  ``ops/rebin.py``: the split, then the deal route (segment, then append
+  or defrag) where the buckets hold eight segment runs plus 256 slots, else
+  the sort route of the movers alone (``route_movers``, then
+  append_incoming or the defrag).  Its buckets equal the JAX package's
+  slot for slot, dead slots included.
+* ``rebin_incremental``: extract (holes left behind), route the movers,
+  append_incoming, with no deferral and no defrag.
 """
 from __future__ import annotations
 
@@ -103,52 +108,80 @@ def rebin(p: ParticleState, tiling: Tiling) -> Tuple[ParticleState,
                       tile_ny=tiling.tile_ny, capacity=p.capacity)
 
 
+def route_movers(movers: ParticleState, tiling: Tiling, mover_cap: int
+                 ) -> Tuple[ParticleState, torch.Tensor]:
+    """The sort route of the movers (the JAX package's ``_route``): the
+    flattened [T, mover_cap] mover buffer binned by destination tile into
+    incoming rows of mover_cap slots, live slots first in flat buffer
+    order (source tile, then buffer slot), the rest zero.  Returns the
+    incoming rows and the count of arrivals beyond mover_cap (dropped)."""
+    flat = ParticleState(*(a.reshape(-1) for a in movers))
+    return rebin_flat(flat, tile_rows=tiling.tile_rows,
+                      tile_cols=tiling.tile_cols, tile_nx=tiling.tile_nx,
+                      tile_ny=tiling.tile_ny, capacity=mover_cap)
+
+
 def rebin_auto(p: ParticleState, tiling: Tiling, mover_cap: int, *,
-               force=False, seg_cap: int
+               force=False, seg_cap: int = 0, fused: bool = True
                ) -> Tuple[ParticleState, torch.Tensor, torch.Tensor]:
-    """The deal-route re-bin: split each bucket into stayers (compacted in
-    place of the bucket) and movers, bin the movers by destination
-    direction, and append each tile's eight arrival runs at its watermark;
-    when some bucket lacks 256 slots of headroom for that, the defrag
-    compacts bucket and arrivals together instead.  The branch is chosen on
-    the device (both kernels launch; the one not chosen returns at once),
-    so nothing is read back to the host.
+    """The incremental re-bin: split each bucket into stayers (compacted in
+    place of the bucket) and movers, bring the movers to their destination
+    tiles, and append each tile's arrivals at its watermark; when some
+    bucket lacks 256 slots of headroom for that, the defrag compacts bucket
+    and arrivals together instead.  The branch is chosen on the device
+    (both kernels launch; the one not chosen returns at once), so nothing
+    is read back to the host.
+
+    The movers reach their tiles by the deal route when `seg_cap` > 0 and
+    ``p.capacity >= 8 * seg_cap + 256``: binned by direction into runs of
+    `seg_cap` and appended by the fused append (`fused`), or, with
+    ``fused=False``, rolled into each tile's own row first and appended by
+    append_runs.  Otherwise by the sort route: ``route_movers``, then
+    append_incoming.
 
     Returns (buckets, dropped, pending), int32 0-d:
-    * dropped — particles lost: segment-run overflow, >1-hop kills, census
-      overflow in the defrag, and a forced split's buffer overflow;
+    * dropped — particles lost: segment-run overflow and >1-hop kills, or
+      the sort route's arrivals beyond mover_cap; an append's arrivals
+      that do not fit; census overflow in the defrag; and a forced split's
+      buffer overflow;
     * pending — movers left in their buckets because the tile's buffer was
       too small and `force` was not set (nothing lost).  The caller keeps
       its drift budget while pending > 0 and passes force once the budget
-      is spent.
-
-    Needs `p.capacity >= 8 * seg_cap + 256`: the JAX package takes its sort
-    route and ``append_incoming`` below that, which the port does not carry
-    yet (ROADMAP B6)."""
-    from ..ops.rebin import (append_segments_, defrag_buckets_,
-                             seg_arrival_counts, seg_neighbor_table,
-                             segment_movers, split_buckets)
+      is spent."""
+    from ..ops.rebin import (append_incoming_, append_runs_,
+                             append_segments_, defrag_buckets_,
+                             roll_segments, seg_arrival_counts,
+                             seg_neighbor_table, segment_movers,
+                             split_buckets)
 
     cap = p.capacity
-    if seg_cap <= 0 or cap < 8 * seg_cap + 256:
-        raise NotImplementedError(
-            f"bucket capacity {cap} < 8 * segment cap {seg_cap} + 256: the "
-            "sort route with append_incoming (ROADMAP B6) is not ported")
     t = tiling
     p1, movers, wm, pending = split_buckets(
         p, tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
         b_cap=mover_cap, force=force)
-    seg, seg_dropped = segment_movers(
-        movers, tile_rows=t.tile_rows, tile_cols=t.tile_cols,
-        tile_ny=t.tile_ny, tile_nx=t.tile_nx, b_seg=seg_cap)
-    nbr = seg_neighbor_table(t.tile_rows, t.tile_cols, p.x.device)
-    n_in = seg_arrival_counts(seg, nbr, seg_cap)
-    headroom_ok = (wm + n_in <= cap - 256).all()
-    app_dropped = append_segments_(p1, seg, wm, nbr, b_seg=seg_cap,
-                                   active=headroom_ok)
-    _, def_dropped = defrag_buckets_(p1, seg, nbr, b_seg=seg_cap,
-                                     active=~headroom_ok)
-    dropped = (seg_dropped.sum() + app_dropped.sum()
+    if seg_cap > 0 and cap >= 8 * seg_cap + 256:
+        seg, seg_dropped = segment_movers(
+            movers, tile_rows=t.tile_rows, tile_cols=t.tile_cols,
+            tile_ny=t.tile_ny, tile_nx=t.tile_nx, b_seg=seg_cap)
+        nbr = seg_neighbor_table(t.tile_rows, t.tile_cols, p.x.device)
+        n_in = seg_arrival_counts(seg, nbr, seg_cap)
+        headroom_ok = (wm + n_in <= cap - 256).all()
+        if fused:
+            app_dropped = append_segments_(p1, seg, wm, nbr, b_seg=seg_cap,
+                                           active=headroom_ok)
+        else:
+            app_dropped = append_runs_(p1, roll_segments(seg, nbr, seg_cap),
+                                       wm, b_seg=seg_cap, active=headroom_ok)
+        _, def_dropped = defrag_buckets_(p1, seg, nbr, b_seg=seg_cap,
+                                         active=~headroom_ok)
+        route_dropped = seg_dropped.sum()
+    else:
+        incoming, route_dropped = route_movers(movers, t, mover_cap)
+        n_in = (incoming.w > 0).sum(1, dtype=torch.int32)
+        headroom_ok = (wm + n_in <= cap - 256).all()
+        app_dropped = append_incoming_(p1, incoming, wm, active=headroom_ok)
+        _, def_dropped = defrag_buckets_(p1, incoming, active=~headroom_ok)
+    dropped = (route_dropped + app_dropped.sum()
                + def_dropped.sum()).to(torch.int32)
     pend = pending.sum().to(torch.int32)
     if isinstance(force, bool):
@@ -159,6 +192,31 @@ def rebin_auto(p: ParticleState, tiling: Tiling, mover_cap: int, *,
     zero = torch.zeros_like(pend)
     return (p1, dropped + torch.where(force, pend, zero),
             torch.where(force, zero, pend))
+
+
+def rebin_incremental(p: ParticleState, tiling: Tiling, mover_cap: int
+                      ) -> Tuple[ParticleState, torch.Tensor, torch.Tensor]:
+    """Movers-only re-bin, unconditional and forced (the JAX package's
+    ``rebin_incremental``): extract the particles that left their tile
+    (their slots stay behind as holes, w = 0), route them with
+    ``route_movers``, and append them at each destination's watermark with
+    append_incoming; no deferral, no defrag.  The result shares x, y, px,
+    py and pz with `p` and is appended in place, so `p` is consumed.
+
+    Returns (p2, dropped, max watermark after), int32 0-d: dropped counts
+    the extract's buffer overflow, the route's and the append's."""
+    from ..ops.rebin import append_incoming_, extract_movers
+
+    t = tiling
+    p1, movers, wm, dropped_a = extract_movers(
+        p, tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+        b_cap=mover_cap, force=True)
+    incoming, route_dropped = route_movers(movers, t, mover_cap)
+    n_in = (incoming.w > 0).sum(1, dtype=torch.int32)
+    dropped_b = append_incoming_(p1, incoming, wm)
+    dropped = (dropped_a.sum() + route_dropped + dropped_b.sum()).to(
+        torch.int32)
+    return p1, dropped, (wm + n_in).max()
 
 
 def tile_counts(p: ParticleState) -> torch.Tensor:

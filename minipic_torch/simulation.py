@@ -9,22 +9,24 @@ Torch port of ``minipic_tpu.simulation`` for periodic decks.  Step order
      Esirkepov J^{n+1/2} tile windows, and each tile's max displacement;
   3. fold the J windows into the global J;
   4. B^n -> B^{n+1/2} -> E^{n+1} (with J) -> B^{n+1};
-  5. re-bin when the drift trigger or the interval schedule fires: the
-     deal route (``binning.rebin_auto``: split, segment, append or defrag)
-     for ``rebin_mode`` "auto" and "incremental" on both devices, the sort
+  5. re-bin when the drift trigger or the interval schedule fires:
+     ``binning.rebin_auto`` for ``rebin_mode`` "auto" and "incremental" on
+     both devices (the split, then the deal route where the buckets hold
+     eight segment runs + 256 slots, else the sort route of the movers and
+     append_incoming; the defrag when headroom is short), the full sort
      (``binning.rebin``) for "sort" or a deck whose buckets are too small
      for a mover buffer.
 
-What this port does not carry yet raises ``NotImplementedError``: a deck
-that would take the JAX package's sort route with ``append_incoming``
-(mover buffer but buckets under 8 segment runs + 256 slots; ROADMAP B6),
-absorbing boundaries, the moving window, ``Simulation.run`` and
-``Simulation.ensure_capacity``.
+What this port does not carry yet raises ``NotImplementedError``:
+absorbing boundaries and the moving window.
 
 Host syncs: the re-bin decision is taken on the host, so each step reads
 one device scalar (the drift predicate, or the schedule's on the interval
 trigger).  The re-bin itself reads nothing back: its force flag, its
 append-or-defrag choice and the drift reset stay on the device.
+``Simulation.run`` adds one read on each step that re-binned (its overflow,
+zero on every other step) and the census every ``CAPACITY_CHECK_EVERY``
+steps.
 
 Profiler ranges (``torch.profiler.record_function``) name the step's
 layers for a trace: ``minipic.fields`` (pad, window extract, J fold, Yee),
@@ -33,7 +35,8 @@ layers for a trace: ``minipic.fields`` (pad, window extract, J fold, Yee),
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import os
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -58,40 +61,41 @@ from .particles.species import load_species
 # Bucket capacity quantum for whole-bucket chunks (kchunk=0), as in the JAX
 # package (whose re-bin kernels slice buckets in 512-slot blocks).
 BUCKET_ALIGN = 512
+# Steps between two census checks in Simulation.run (the JAX package's
+# CapacityManager cadence; an overflow is acted on at once).
+CAPACITY_CHECK_EVERY = 50
+
+
+def align_capacity(deck: Deck, cap: int) -> int:
+    """`cap` rounded up to the bucket quantum: kchunk, or BUCKET_ALIGN for
+    whole-bucket chunks."""
+    q = deck.kchunk if deck.kchunk > 0 else BUCKET_ALIGN
+    return -(-cap // q) * q
 
 
 def bucket_capacity(deck: Deck) -> int:
     """Slots per tile bucket: the deck's capacity rounded up to the chunk
     (kchunk, or BUCKET_ALIGN for whole-bucket chunks)."""
-    cap = deck.capacity()
-    q = deck.kchunk if deck.kchunk > 0 else BUCKET_ALIGN
-    return -(-cap // q) * q
+    return align_capacity(deck, deck.capacity())
 
 
-def uses_deal_route(deck: Deck) -> bool:
-    """"auto" and "incremental" re-bin by the deal route on every device
+def uses_rebin_auto(deck: Deck) -> bool:
+    """"auto" and "incremental" re-bin by ``rebin_auto`` on every device
     (the JAX package's "auto" does so on its Pallas backend only)."""
     return deck.rebin_mode in ("auto", "incremental")
 
 
 def rebin_caps(deck: Deck, capacity: int) -> Tuple[int, int]:
-    """(mover buffer, segment run) slots per tile for the deal route, or
-    (0, 0) when the buckets are too small for a mover buffer and the sort
-    re-bins instead.  Raises where the JAX package would take its sort
-    route with append_incoming, which is not ported."""
-    if not uses_deal_route(deck):
+    """(mover buffer, segment run) slots per tile for ``rebin_auto``, or
+    (0, 0) when the buckets are too small for a mover buffer and the full
+    sort re-bins instead.  ``rebin_auto`` takes the deal route only when
+    ``capacity >= 8 * run + 256``, the sort route of the movers below."""
+    if not uses_rebin_auto(deck):
         return 0, 0
     mc = deck.mover_cap(capacity)
     if mc == 0:
         return 0, 0
-    sc = deck.mover_seg_cap(mc)
-    if capacity < 8 * sc + 256:
-        raise NotImplementedError(
-            f"rebin_mode={deck.rebin_mode!r} with {capacity}-slot buckets "
-            f"under 8 segment runs of {sc} + 256: the JAX package re-bins "
-            "such decks through its sort route and append_incoming, not "
-            "ported yet (ROADMAP B6); use rebin_mode='sort'")
-    return mc, sc
+    return mc, deck.mover_seg_cap(mc)
 
 
 class StepDiag(NamedTuple):
@@ -103,6 +107,7 @@ class StepDiag(NamedTuple):
     momentum: torch.Tensor  # [n_species, 3] float64
     shard_live: torch.Tensor  # [1] live particles, all species
     weight_nonuniform: torch.Tensor  # int32: int8 species with uneven w
+    rebinned: bool  # host: this step re-binned (overflow is 0 otherwise)
 
 
 def int8_weight_violations(deck: Deck, species_states) -> torch.Tensor:
@@ -197,14 +202,18 @@ def _check_supported(deck: Deck) -> None:
         raise NotImplementedError(f"boundary={deck.boundary!r}")
     if deck.moving_window:
         raise NotImplementedError("moving_window")
-    rebin_caps(deck, bucket_capacity(deck))
 
 
 def build_step(deck: Deck, device: torch.device):
-    """Step function SimState -> (SimState, StepDiag) for `device`."""
+    """Step function SimState -> (SimState, StepDiag) for `device`.
+
+    ``MINIPIC_APPEND_FUSED`` is read here, once: "0" appends the deal
+    route's arrivals with append_runs after a roll, anything else (the
+    default "1") with the fused append."""
     deck.validate()
     _check_supported(deck)
     resolve_backend(deck, device)
+    fused = os.environ.get("MINIPIC_APPEND_FUSED", "1") == "1"
     tiling = deck.tiling
     g = deck.guard
     dt, dx, dy = deck.dt, deck.dx, deck.dy
@@ -213,7 +222,7 @@ def build_step(deck: Deck, device: torch.device):
     # Interval schedule: when the guard affords one extra CFL step, a
     # mover-buffer overflow defers the tile to the next step instead of
     # dropping at once (the drift trigger's deferral budget).
-    interval_grace = uses_deal_route(deck) and (
+    interval_grace = uses_rebin_auto(deck) and (
         (deck.rebin_interval + 1) * deck.cfl_step_cells()
         <= deck.guard - deck.shape_reach())
     modes = []
@@ -298,7 +307,7 @@ def build_step(deck: Deck, device: torch.device):
                     mc, sc = rebin_caps(deck, p.capacity)
                     if mc > 0:
                         p, ov, pend = rebin_auto(p, tiling, mc, force=force,
-                                                 seg_cap=sc)
+                                                 seg_cap=sc, fused=fused)
                         pending_total = pending_total + pend
                     else:
                         p, ov = rebin(p, tiling)
@@ -324,6 +333,7 @@ def build_step(deck: Deck, device: torch.device):
                 shard_live=torch.as_tensor(live, dtype=torch.int32,
                                            device=dev).reshape(1),
                 weight_nonuniform=int8_weight_violations(deck, binned),
+                rebinned=do_rebin,
             )
         new_state = SimState(fields=f, species=tuple(binned),
                              step=state.step + 1, drift=drift_now)
@@ -334,10 +344,11 @@ def build_step(deck: Deck, device: torch.device):
 
 class Simulation:
     """User-facing entry point: holds a deck and a device, builds the initial
-    state, owns the step."""
+    state, owns the step.  The device is the card unless the caller asks
+    for another (``device="cpu"`` runs the plain versions)."""
 
     def __init__(self, deck: Deck, fields: Optional[FieldState] = None,
-                 seed: int = 0, *, device):
+                 seed: int = 0, *, device="cuda"):
         deck.validate()
         _check_supported(deck)
         self.device = torch.device(device)
@@ -359,6 +370,9 @@ class Simulation:
             step=torch.zeros((), dtype=torch.int32, device=self.device),
             drift=torch.zeros((), dtype=torch.float32, device=self.device))
         self._step = build_step(deck, self.device)
+        self._capmgrs = None  # per-species CapacityManagers, built lazily
+        self.capacity_changes = 0
+        self.overflow_total = 0  # particles dropped over `run` calls
 
     def step(self, n: int = 1) -> Optional[StepDiag]:
         diag = None
@@ -367,8 +381,59 @@ class Simulation:
         return diag
 
     def ensure_capacity(self, overflow: int = 0) -> bool:
-        raise NotImplementedError("adaptive capacity is not ported yet")
+        """Grow the buckets on overflow or high occupancy, shrink them after
+        a calm spell (``parallel.balance.CapacityManager``, one per
+        species), keeping the bucket quantum.  A shrink that the positional
+        census does not fit yet is deferred.  Returns True if a capacity
+        changed; the step takes the new shapes as they come."""
+        from .parallel.balance import CapacityManager, census, with_capacity
 
-    def run(self, n_steps=None, save_every=None, saver=None):
-        raise NotImplementedError("Simulation.run is not ported yet; "
-                                  "use Simulation.step")
+        if self._capmgrs is None:
+            self._capmgrs = [CapacityManager() for _ in self.state.species]
+        changed = False
+        species = list(self.state.species)
+        for i, (p, mgr) in enumerate(zip(species, self._capmgrs)):
+            new_cap = mgr.plan(census(p), overflow)
+            if new_cap is None:
+                continue
+            cap = align_capacity(self.deck, new_cap)
+            if cap > p.capacity:
+                species[i] = with_capacity(p, cap)
+                changed = True
+            elif cap < p.capacity:
+                try:
+                    species[i] = with_capacity(p, cap, self.deck.tiling)
+                    changed = True
+                except ValueError:
+                    pass
+        if changed:
+            self.state = self.state._replace(species=tuple(species))
+            self.capacity_changes += 1
+        return changed
+
+    def run(self, n_steps: Optional[int] = None,
+            save_every: Optional[int] = None,
+            saver: Optional[Callable] = None) -> Optional[StepDiag]:
+        """Run the deck (``deck.total_steps`` by default) and call
+        ``saver(state, step)`` at step 0 and every `save_every` steps
+        (``deck.save_frequency`` by default).  The buckets grow on the first
+        step that overflows and are checked every CAPACITY_CHECK_EVERY
+        steps (``ensure_capacity``), as in the JAX package; only a step that
+        re-binned can overflow, so only its overflow is read.
+        ``overflow_total`` adds up what was dropped.  Returns the last
+        StepDiag."""
+        n_steps = self.deck.total_steps if n_steps is None else n_steps
+        save_every = (self.deck.save_frequency if save_every is None
+                      else save_every)
+        if saver is not None:
+            saver(self.state, 0)
+        diag = None
+        for i in range(1, n_steps + 1):
+            self.state, diag = self._step(self.state)
+            ovf = int(diag.overflow) if diag.rebinned else 0
+            self.overflow_total += ovf
+            if ovf > 0 or i % CAPACITY_CHECK_EVERY == 0:
+                self.ensure_capacity(ovf)
+            if saver is not None and i % save_every == 0:
+                saver(self.state, i)
+        return diag

@@ -1,0 +1,170 @@
+"""The port's named decks (minipic_torch/decks/standard.py) against the JAX
+package's: every Deck field and derived size, the seeders on a handed-over
+state, and a two_stream step twin on the small-bucket re-bin route."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from minipic_tpu.decks import standard as jstd  # noqa: E402
+from minipic_tpu.simulation import Simulation as JSimulation  # noqa: E402
+from minipic_torch import bridge  # noqa: E402
+from minipic_torch.core import config as tcfg  # noqa: E402
+from minipic_torch.decks import standard as tstd  # noqa: E402
+from minipic_torch.diag import analysis as tan  # noqa: E402
+from minipic_torch.ops import rebin as rb  # noqa: E402
+from minipic_torch.simulation import Simulation, bucket_capacity  # noqa
+
+CPU = torch.device("cpu")
+PORTED = ("two_stream", "weibel", "landau")
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_deck_matches_jax(name):
+    jd, td = jstd.make(name).deck, tstd.make(name).deck
+    for f in dataclasses.fields(tcfg.Deck):
+        if f.name == "species":
+            continue
+        assert getattr(td, f.name) == getattr(jd, f.name), f.name
+    assert len(td.species) == len(jd.species)
+    for ts, js in zip(td.species, jd.species):
+        for f in dataclasses.fields(tcfg.SpeciesSpec):
+            assert getattr(ts, f.name) == getattr(js, f.name), f.name
+    cap = td.capacity()
+    assert cap == jd.capacity()
+    mc = td.mover_cap(cap)
+    assert mc == jd.mover_cap(cap)
+    assert td.mover_seg_cap(mc) == jd.mover_seg_cap(mc)
+    assert td.drift_threshold() == jd.drift_threshold()
+    assert td.total_steps == jd.total_steps
+    assert td.params_txt() == jd.params_txt()
+    # Every physics deck takes the small-bucket route of rebin_auto.
+    bc = bucket_capacity(td)
+    assert bc < 8 * td.mover_seg_cap(td.mover_cap(bc)) + 256
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_seed_state_matches_jax(name):
+    """The seeder on the JAX package's loaded state, handed over, in f32:
+    the perturbation to 2 ulps (sin may round 1 ulp differently, and the
+    product by its amplitude rounds once more), plus the 1-ulp rounding of
+    the sum it is added into."""
+    kw = dict(nx=32, ny=32)
+    jcase, tcase = jstd.make(name, **kw), tstd.make(name, **kw)
+    jsim = JSimulation(jcase.deck, seed=2)
+    before = bridge.sim_state_to_numpy(jsim.state)
+    state = bridge.sim_state_from_numpy(before, CPU)
+    want = bridge.sim_state_to_numpy(jcase.seed_state(jsim.state,
+                                                      jcase.deck))
+    got = bridge.sim_state_to_numpy(tcase.seed_state(state, tcase.deck))
+    assert sorted(got) == sorted(want)
+    changed = 0
+    for k in want:
+        if not k.startswith("s"):
+            continue
+        delta = np.abs(want[k] - before[k])
+        tol = 2 * np.spacing(delta) + np.spacing(np.abs(want[k]))
+        assert (np.abs(got[k] - want[k]) <= tol).all(), k
+        changed += int((delta > 0).any())
+    assert changed >= 1
+
+
+@pytest.mark.parametrize("name", [
+    "reference_pulse", "laser_plasma", "laser_wakefield_window",
+    "load_balance_stress", "load_balance_stress_counts",
+    "load_balance_bunching"])
+def test_unported_decks_raise(name):
+    assert name in jstd.CASES
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tstd.make(name)
+
+
+def test_unknown_deck_is_a_key_error():
+    with pytest.raises(KeyError):
+        tstd.make("no_such_deck")
+
+
+def test_analysis_matches_jax():
+    from minipic_tpu.diag import analysis as jan
+
+    rng = np.random.default_rng(0)
+    t = np.linspace(0.0, 10.0, 40)
+    e = np.exp(0.6 * t) * (1 + 0.01 * rng.random(40))
+    assert tan.growth_rate(t, e) == jan.growth_rate(t, e)
+    assert tan.growth_rate(t, e, (5, 30)) == jan.growth_rate(t, e, (5, 30))
+    hist = [(float(a), float(b)) for a, b in rng.random((20, 2))]
+    assert tan.energy_drift(hist) == jan.energy_drift(hist)
+    f = rng.random((8, 16))
+    np.testing.assert_array_equal(tan.field_spectrum_x(f),
+                                  jan.field_spectrum_x(f))
+    for k in (0.5, 2.0, 9.0):
+        assert (tan.two_stream_growth_theory(k, 0.2, 0.7)
+                == jan.two_stream_growth_theory(k, 0.2, 0.7))
+
+
+def test_two_stream_step_twin_with_a_forced_rebin():
+    """two_stream at 32^2 (buckets 1536, mover buffer 640, runs 512: the
+    sort route of the movers and append_incoming) against JAX's
+    use_pallas="on" step (interpreted kernels) from the handed-over seeded
+    state, 15 steps, all three species.  The cold beams move ~0.035 cells a
+    step, far from the 1.79-cell trigger, so step 7 sets the drift past the
+    force line on both sides: a forced re-bin, whose buckets must agree."""
+    jcase = jstd.make("two_stream", nx=32, ny=32)
+    tcase = tstd.make("two_stream", nx=32, ny=32)
+    jdeck = dataclasses.replace(jcase.deck, use_pallas="on")
+    jsim = JSimulation(jdeck, seed=1)
+    jsim.state = jcase.seed_state(jsim.state, jdeck)
+    tsim = Simulation(tcase.deck, device="cpu")
+    tsim.state = bridge.sim_state_from_numpy(
+        bridge.sim_state_to_numpy(jsim.state), CPU)
+    deck = tsim.deck
+    p0 = tsim.state.species[0]
+    mc = deck.mover_cap(p0.capacity)
+    assert p0.capacity < 8 * deck.mover_seg_cap(mc) + 256
+    n_live0 = int(sum((p.w > 0).sum() for p in tsim.state.species))
+    for k in rb.KERNELS.values():
+        k.reset()
+    rebins = 0
+    for i in range(15):
+        if i == 7:
+            far = deck.force_threshold() + 0.01
+            jsim.state = jsim.state._replace(drift=jnp.float32(far))
+            tsim.state = tsim.state._replace(
+                drift=torch.tensor(far, dtype=torch.float32))
+        dj, dt_ = jsim.step(), tsim.step()
+        np.testing.assert_allclose(float(dt_.field_energy),
+                                   float(dj.field_energy), rtol=1e-4,
+                                   atol=1e-12, err_msg=f"step {i}")
+        np.testing.assert_allclose(dt_.kinetic_energy.numpy(),
+                                   np.asarray(dj.kinetic_energy), rtol=1e-5,
+                                   err_msg=f"step {i}")
+        # Momentum to 1e-5 of the system's summed |w u|: the cold ions'
+        # total (~1e-13 of their own ~1e-8 sum at step 2) is round-off of
+        # the field's push, so their own sum is no scale for it.
+        mscale = sum(float((p.w.double() * (p.px.abs() + p.py.abs()
+                                            + p.pz.abs()).double()).sum())
+                     for p in tsim.state.species)
+        np.testing.assert_allclose(dt_.momentum.numpy(),
+                                   np.asarray(dj.momentum), rtol=0,
+                                   atol=1e-5 * mscale, err_msg=f"step {i}")
+        assert int(dt_.overflow) == 0 and int(dj.overflow) == 0
+        assert int(dt_.shard_live[0]) == n_live0
+        reset_t = float(tsim.state.drift) == 0.0
+        assert reset_t == (float(jsim.state.drift) == 0.0), f"step {i}"
+        if reset_t:
+            rebins += 1
+            for p, jp in zip(tsim.state.species, jsim.state.species):
+                w = p.w.numpy()
+                np.testing.assert_array_equal(w, np.asarray(jp.w))
+                np.testing.assert_allclose(p.x.numpy()[w > 0],
+                                           np.asarray(jp.x)[w > 0], rtol=0,
+                                           atol=1e-4)
+        np.testing.assert_allclose(float(tsim.state.drift),
+                                   float(jsim.state.drift), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"step {i}")
+    assert rebins == 1
+    # The plain versions stood in for the kernels: nothing was launched.
+    assert all(k.launches == 0 for k in rb.KERNELS.values())

@@ -242,7 +242,10 @@ def test_rebin_auto_on_the_card_matches_the_cpu(cuda, crowded):
     want, dropped_p, pending_p = rebin_auto(cpu, tiling, 1536, seg_cap=256)
     _equal(rb.ParticleState(*(a.cpu() for a in got)), want, "rebin_auto")
     assert int(dropped) == int(dropped_p) and int(pending) == int(pending_p)
-    assert all(k.launches == 1 for k in rb.KERNELS.values())
+    deal = ("split", "segment", "append", "defrag")
+    assert all(rb.KERNELS[n].launches == 1 for n in deal)
+    assert all(k.launches == 0 for n, k in rb.KERNELS.items()
+               if n not in deal)
     assert rb.defrag_kernel.taken_count() == int(crowded)
     assert rb.append_kernel.taken_count() == int(not crowded)
 
@@ -265,3 +268,130 @@ def test_rebin_wrappers_reject_bad_inputs(cuda):
         rb.append_kernel(p, seg, wm.long(), nbr, b_seg=128)
     with pytest.raises(ValueError):
         rb.defrag_kernel(p, seg, nbr.cpu(), b_seg=128)
+
+
+# ----------------------------------------------------------------------
+# append_incoming, append_runs and extract (csrc/rebin.cu) against their
+# plain versions, and the small-bucket rebin_auto and rebin_incremental
+# through the kernels against the CPU.
+
+_TILING = dict(tile_rows=4, tile_cols=4, tile_ny=8, tile_nx=8)
+
+
+@pytest.mark.parametrize("case", ["normal", "crowded", "inactive"])
+def test_append_incoming_kernel_matches_plain(cuda, case):
+    from minipic_torch.core.geometry import Tiling
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import route_movers
+
+    p = _stale(cuda, cap=1536, n_live=1000, spread=1.0)
+    p1, movers, wm, _ = rb.split_buckets_plain(p, **_GRID, b_cap=512)
+    inc, _ = route_movers(movers, Tiling(**_TILING), 512)
+    if case == "crowded":
+        wm = torch.where(torch.arange(16, device=cuda) % 2 == 1,
+                         wm + 600, wm).to(torch.int32)
+    want, want_d = rb.append_incoming_plain(p1, inc, wm)
+    got = rb.ParticleState(*(a.clone() for a in p1))
+    rb.append_incoming_kernel.reset()
+    got_d = rb.append_incoming_kernel(got, inc, wm,
+                                      active=case != "inactive")
+    if case == "inactive":
+        _equal(got, p1, "inactive")
+        assert not bool(got_d.any())
+        assert rb.append_incoming_kernel.taken_count() == 0
+        return
+    _equal(got, want, "append_incoming")
+    assert torch.equal(got_d, want_d)
+    assert bool((want_d > 0).any()) == (case == "crowded")
+    assert rb.append_incoming_kernel.taken_count() == 1
+
+
+def test_append_runs_kernel_matches_plain_and_the_fused_append(cuda):
+    from minipic_torch.ops import rebin as rb
+
+    p = _stale(cuda)
+    p1, movers, wm, _ = rb.split_buckets_plain(p, **_GRID, b_cap=1536)
+    seg, _ = rb.segment_movers_plain(movers, tile_rows=4, **_GRID,
+                                     b_seg=256)
+    nbr = rb.seg_neighbor_table(4, 4, cuda)
+    inc = rb.roll_segments(seg, nbr, 256)
+    want, want_d = rb.append_runs_plain(p1, inc, wm, b_seg=256)
+    got = rb.ParticleState(*(a.clone() for a in p1))
+    got_d = rb.append_runs_kernel(got, inc, wm, b_seg=256)
+    fused = rb.ParticleState(*(a.clone() for a in p1))
+    fused_d = rb.append_kernel(fused, seg, wm, nbr, b_seg=256)
+    _equal(got, want, "append_runs")
+    _equal(got, fused, "append_runs vs append")
+    assert torch.equal(got_d, want_d) and torch.equal(got_d, fused_d)
+
+
+def test_dense_defrag_kernel_matches_plain(cuda):
+    from minipic_torch.core.geometry import Tiling
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import route_movers
+
+    p = _stale(cuda, cap=1536, n_live=1400, spread=1.0)
+    _, movers, _, _ = rb.split_buckets_plain(p, **_GRID, b_cap=512)
+    inc, _ = route_movers(movers, Tiling(**_TILING), 512)
+    want, want_c, want_d = rb.defrag_buckets_plain(p, inc)
+    got = rb.ParticleState(*(a.clone() for a in p))
+    got_c, got_d = rb.defrag_kernel(got, inc)
+    _equal(got, want, "dense defrag")
+    assert torch.equal(got_c, want_c) and torch.equal(got_d, want_d)
+    assert bool((want_d > 0).any())
+
+
+@pytest.mark.parametrize("case", ["normal", "pending", "forced", "holes"])
+def test_extract_kernel_matches_plain(cuda, case):
+    from minipic_torch.ops import rebin as rb
+
+    p = _stale(cuda, cap=1536, n_live=1400,
+               spread=3.0 if case in ("pending", "forced") else 0.5)
+    if case == "holes":
+        holes = torch.rand(p.w.shape, device=cuda) < 0.3
+        p = p._replace(w=torch.where(holes, torch.zeros_like(p.w), p.w))
+    kw = dict(_GRID, b_cap=640, force=case == "forced")
+    n0 = rb.extract_kernel.launches
+    got = rb.extract_movers(p, **kw)
+    assert rb.extract_kernel.launches == n0 + 1
+    want = rb.extract_movers_plain(p, **kw)
+    _equal(got[0], want[0], "buckets")
+    _equal(got[1], want[1], "movers")
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert (int(want[3].sum()) > 0) == (case in ("pending", "forced"))
+
+
+@pytest.mark.parametrize("crowded", [False, True])
+def test_small_bucket_rebin_auto_on_the_card_matches_the_cpu(cuda, crowded):
+    from minipic_torch.core.geometry import Tiling
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import rebin_auto
+
+    p = _stale(cuda, cap=1536, n_live=1400 if crowded else 1000, spread=1.0)
+    tiling = Tiling(**_TILING)
+    for k in rb.KERNELS.values():
+        k.reset()
+    got, dropped, pending = rebin_auto(p, tiling, 512, seg_cap=256)
+    cpu = rb.ParticleState(*(a.cpu() for a in p))
+    want, dropped_p, pending_p = rebin_auto(cpu, tiling, 512, seg_cap=256)
+    _equal(rb.ParticleState(*(a.cpu() for a in got)), want, "rebin_auto")
+    assert int(dropped) == int(dropped_p) and int(pending) == int(pending_p)
+    assert rb.segment_kernel.launches == 0
+    assert rb.append_incoming_kernel.launches == 1
+    assert rb.defrag_kernel.taken_count() == int(crowded)
+    assert rb.append_incoming_kernel.taken_count() == int(not crowded)
+
+
+def test_rebin_incremental_on_the_card_matches_the_cpu(cuda):
+    from minipic_torch.core.geometry import Tiling
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import rebin_incremental
+
+    p = _stale(cuda, cap=1536, n_live=1000, spread=1.0)
+    cpu = rb.ParticleState(*(a.cpu() for a in p))
+    tiling = Tiling(**_TILING)
+    got, dropped, wm = rebin_incremental(p, tiling, 512)
+    want, dropped_p, wm_p = rebin_incremental(cpu, tiling, 512)
+    _equal(rb.ParticleState(*(a.cpu() for a in got)), want,
+           "rebin_incremental")
+    assert int(dropped) == int(dropped_p) and int(wm) == int(wm_p)

@@ -269,13 +269,6 @@ def test_rebin_auto_force_turns_pending_into_drops():
         assert int((p.w > 0).sum()) + int(dropped) == n0
 
 
-def test_rebin_auto_raises_below_the_deal_route_gate():
-    _, tp = _both(_state())
-    tt = Tiling(tile_rows=4, tile_cols=4, tile_nx=8, tile_ny=8)
-    with pytest.raises(NotImplementedError, match="B6"):
-        rebin_auto(tp, tt, 512, seg_cap=384)
-
-
 def test_rebin_wrappers_check_inputs_before_building():
     """The CUDA launchers validate dtype, shape and layout before they
     build or launch anything; a tensor on no supported device raises."""

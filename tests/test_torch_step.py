@@ -2,8 +2,6 @@
 package's (advance kernel interpreted) on small headline-shaped decks,
 from the same handed-over state: the sort re-bin, and the deal route
 ("auto", the default) against JAX's Pallas "auto" route."""
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -156,25 +154,18 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         Simulation(_deck(tcfg), device="cuda")
 
 
+def test_the_card_is_the_default_device(monkeypatch):
+    """Simulation runs on the card unless asked for the CPU, and never
+    falls back to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Simulation(_deck(tcfg))
+
+
 @pytest.mark.parametrize("kw", [
-    # ppc 8: 1024-slot buckets with a 512-slot mover buffer but under the
-    # deal route's 8 * 256 + 256 slots, so JAX takes its sort route with
-    # append_incoming (ROADMAP B6).
-    dict(rebin_mode="auto"), dict(rebin_mode="incremental"),
     dict(boundary="absorbing"),
     dict(boundary="absorbing", moving_window=True),
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError,
-                       match="B6" if "rebin_mode" in kw else None):
+    with pytest.raises(NotImplementedError):
         build_step(_deck(tcfg, **kw), torch.device("cpu"))
-
-
-def test_unported_entry_points_raise():
-    sim = Simulation(dataclasses.replace(_deck(tcfg), nx=16, ny=16,
-                                         box_x=1.6, box_y=1.6),
-                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        sim.run(2)
-    with pytest.raises(NotImplementedError):
-        sim.ensure_capacity()

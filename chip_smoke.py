@@ -9,9 +9,12 @@ Phases, each printing what it found; any failure exits non-zero:
    kernels (csrc/rebin.cu) from this checkout, one nvcc each, at once;
 2. kernel: the advance kernel against its plain torch version on the card,
    on 64 tiles of the headline tile shape (8x8, guard 4, 27136 slots,
-   thermal particles, non-zero fields) in int8 and f32 modes, TSC and CIC;
-   then each re-bin kernel against its plain version on 64-tile subsets
-   with stale buckets, equal in every channel of every slot: the split
+   thermal particles, non-zero fields) in int8 and f32 modes, TSC and CIC,
+   in three layouts: lattice order as loaded (a warp's lanes share few
+   bases), displaced particles in shuffled slots, and lattice order with a
+   few particles in the window-edge fold (int8 operands past 127); then
+   each re-bin kernel against its plain version on 64-tile subsets with
+   stale buckets, equal in every channel of every slot: the split
    (normal, pending, forced), the segment (overflow, a >1-hop mover), the
    append, append_runs (also equal to the append), the extract (normal,
    pending, forced, holes) and the defrag (merged, hole-ridden) at the
@@ -39,7 +42,8 @@ Phases, each printing what it found; any failure exits non-zero:
    int8, whole-bucket chunks, the default deal-route re-bin), 60
    ``Simulation.step`` calls on the card; then each kernel against its plain
    version on the run's final state, at the main path's shapes, and each
-   one's time, with the whole deal-route re-bin (fused and through
+   one's time (the advance also on a copy with each bucket's live slots
+   shuffled), with the whole deal-route re-bin (fused and through
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
    that state;
 8. device time: append_incoming on the decks' states and the two copy
@@ -202,9 +206,33 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def _subset(order: int, dev):
-    """64 tiles of the headline tile shape with thermal particles displaced
-    up to 1 cell off their tiles (stale buckets) and smooth fields."""
+def _shuffle_slots(p, counts, gen):
+    """`p` with each tile's slots below its watermark `counts` in a random
+    order; the slots past it stay where they are."""
+    import torch
+
+    T, cap = p.x.shape
+    slot = torch.arange(cap, device=p.x.device)[None, :]
+    keys = torch.where(slot < counts[:, None],
+                       torch.rand((T, cap), generator=gen,
+                                  device=p.x.device),
+                       2.0 + slot / cap)
+    perm = torch.argsort(keys, dim=1)
+    return type(p)(*(torch.gather(a, 1, perm) for a in p))
+
+
+SUBSET_LAYOUTS = ("lattice", "shuffled", "edge")
+
+
+def _subset(order: int, dev, layout: str = "shuffled"):
+    """64 tiles of the headline tile shape with thermal particles and
+    smooth fields.  `layout`: "lattice" as loaded (each cell's particles in
+    consecutive slots); "shuffled": displaced up to 1 cell off their tiles
+    (stale buckets), each bucket's slots in random order; "edge": lattice
+    order, with every 97th particle moved 3.9-4.3 cells below and left of
+    its tile and every 89th 3.1-3.4 cells above and right of it, so that
+    their centre cells are the window's edge rows and columns, where the
+    edge fold lifts TSC's int8 operands past 127 (the scatter route)."""
     import torch
 
     from minipic_torch import headline
@@ -222,13 +250,31 @@ def _subset(order: int, dev):
     p = load_species(deck.species[0], deck.domain, t, cap, gen,
                      torch.float32, dev)
     live = p.w > 0
-    shift = [torch.rand(p.x.shape, generator=gen, device=dev) * 2.0 - 1.0
-             for _ in range(2)]
-    x = torch.where(live, torch.remainder(p.x + shift[0], deck.nx), p.x)
-    y = torch.where(live, torch.remainder(p.y + shift[1], deck.ny), p.y)
+    if layout == "shuffled":
+        shift = [torch.rand(p.x.shape, generator=gen, device=dev) * 2.0
+                 - 1.0 for _ in range(2)]
+        x = p.x + shift[0]
+        y = p.y + shift[1]
+    elif layout == "edge":
+        s = torch.arange(cap, device=dev)[None, :]
+        tid = torch.arange(t.num_tiles, device=dev)[:, None]
+        ox = (tid % t.tile_cols * t.tile_nx).float()
+        oy = (tid // t.tile_cols * t.tile_ny).float()
+        low, high = s % 97 == 0, (s % 89 == 0) & (s % 97 != 0)
+        x = torch.where(low, ox - 4.3 + 0.4 * (p.x % 1), p.x)
+        y = torch.where(low, oy - 4.3 + 0.4 * (p.y % 1), p.y)
+        x = torch.where(high, ox + t.tile_nx + 3.1 + 0.3 * (p.x % 1), x)
+        y = torch.where(high, oy + t.tile_ny + 3.1 + 0.3 * (p.y % 1), y)
+    else:
+        check(layout == "lattice", f"subset layout {layout}")
+        x, y = p.x, p.y
+    x = torch.where(live, torch.remainder(x, deck.nx), p.x)
+    y = torch.where(live, torch.remainder(y, deck.ny), p.y)
     x = torch.where(x >= deck.nx, x - deck.nx, x)
     y = torch.where(y >= deck.ny, y - deck.ny, y)
     p = p._replace(x=x, y=y)
+    if layout == "shuffled":
+        p = _shuffle_slots(p, (live.sum(1)).to(torch.int32), gen)
     j = torch.arange(deck.ny, device=dev, dtype=torch.float32)[:, None]
     i = torch.arange(deck.nx, device=dev, dtype=torch.float32)[None, :]
     k = 2 * torch.pi / deck.nx
@@ -329,13 +375,17 @@ def _compare(p, ft, counts, kw, label: str) -> float:
 
 
 def phase_kernel(dev) -> None:
-    """Kernel against plain version on the 64-tile subset, both orders and
-    both modes, with the int8 continuity residual."""
+    """Kernel against plain version on the 64-tile subsets of each layout,
+    both orders and both modes, with the int8 continuity residual."""
+    import itertools
+
     from minipic_torch.ops.advance import live_watermark
 
-    for order, mode in ((2, "int8"), (2, "f32"), (1, "int8"), (1, "f32")):
-        deck, p, ft = _subset(order, dev)
-        label = f"subset o{order} {mode}"
+    for layout, (order, mode) in itertools.product(
+            SUBSET_LAYOUTS, ((2, "int8"), (2, "f32"), (1, "int8"),
+                             (1, "f32"))):
+        deck, p, ft = _subset(order, dev, layout)
+        label = f"subset {layout} o{order} {mode}"
         err = _compare(p, ft, live_watermark(p.w), _kw(deck, mode), label)
         msg = (f"kernel: {label}: {int((p.w > 0).sum())} particles, max abs "
                f"err {err:.3e}")
@@ -1191,7 +1241,20 @@ def phase_main(dev, card: str) -> dict:
         plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **kw), 2),
         **bound(4 * (11 * n_wm + 9 * win + T),
                 ADVANCE_OPS_PER_PARTICLE * _live(p)))
-    del ft
+    # The same work with each bucket's live slots in random order: a warp's
+    # lanes then hold up to 32 bases.
+    ps = _shuffle_slots(p, counts,
+                        torch.Generator(device=dev).manual_seed(3))
+    err_s = _compare(ps, ft, counts, kw, "main-path shape, shuffled slots")
+    shuffled_ms = cuda_ms(lambda: advance_kernel(ps, ft, counts, **kw), 5)
+    del ps, ft
+    nyg, nxg = t.tile_ny + 2 * deck.guard, t.tile_nx + 2 * deck.guard
+    print(f"main: advance at the main path's final state "
+          f"{numbers['advance']['ms']:.3f} ms, with its slots shuffled "
+          f"{shuffled_ms:.3f} ms (max abs err {err_s:.3e}); bound "
+          f"{numbers['advance']['bound_ms']:.3f} ms; "
+          f"{advance_kernel.blocks_per_sm(2, 'int8', nyg, nxg)} blocks of "
+          f"256 threads per SM [{card}]")
 
     mc = deck.mover_cap(cap)
     sc = deck.mover_seg_cap(mc)

@@ -6,36 +6,66 @@
 // Plain torch version of the same arithmetic: minipic_torch/ops/advance.py,
 // advance_plain (see that module's docstring for the step-by-step contract).
 //
-// Layout.  One thread block per tile (grid = num_tiles), 256 threads.  The
+// Layout.  One thread block per tile (grid = num_tiles), 8 warps.  The
 // block loads the tile's six field windows [nyg, nxg] into shared memory and
-// zeroes three J windows there; threads stride over the bucket's slots.
-// Slots at or past counts[t] (the live watermark) and dead slots (w == 0)
-// are copied through untouched.  Particles are written to NEW output
-// tensors (x, y, px, py, pz; w is not written).  J windows are written
-// whole, before the prefix sums (the caller applies them, and in int8 mode
-// the q*max(w) scale, in torch).
+// zeroes three J windows there.  Each warp walks the bucket in slabs of 32
+// consecutive slots, one per lane (loads stay coalesced), up to the live
+// watermark counts[t] rounded up to 32, so all 32 lanes run the same trip
+// count; the next slab's six values are loaded before the current slab's
+// arithmetic.  Lanes at or past the watermark, and dead slots (w == 0), are
+// copied through untouched and contribute nothing; the slots past the
+// rounded watermark are copied through in a loop of their own.  Particles
+// are written to NEW output tensors (x, y, px, py, pz; w is not written).
+// J windows are written whole, before the prefix sums (the caller applies
+// them, and in int8 mode the q*max(w) scale, in torch).
 //
-// Modes (compile-time): ORDER 1 (CIC) or 2 (TSC); QUANT false (f32 shapes,
-// f32 shared-memory atomics for all of J) or true (int8 matched
-// quantization: shape values round(S*s) with the centre-cell partition fold
-// and the window-edge fold; jx/jy accumulate integer products in int32 —
-// exact in any atomic order, |q0+q1| <= 127 — and are converted once to f32
-// times -1/(2 S^2 dt d{y,x}); jz is an f32 sum whose atomic order varies).
+// Modes (compile-time): ORDER 1 (CIC) or 2 (TSC); QUANT false (f32 shapes
+// and f32 J) or true (int8 matched quantization: shape values round(S*s)
+// with the centre-cell partition fold and the window-edge fold; jx/jy are
+// integer sums, converted once to f32 times -1/(2 S^2 dt d{y,x}); jz is an
+// f32 sum).  NP: the int8 product's column tiles, in pairs of 8 (nxg <= 16
+// NP 1, <= 32 NP 2, <= 64 NP 4; the int8 window rule admits nxg <= 64 and
+// nyg 8 or 16).
+//
+// The int8 deposit runs on the tensor cores, as the TPU kernel's is a
+// contraction over the particle axis (ppd_kernel.py:745-875): for a slab of
+// 32 particles jx = A B with A[row][k] = q0y+q1y and B[k][col] = q1x-q0x of
+// particle k (jy: q1y-q0y and q0x+q1x), dense over the window, clipped to
+// it.  Each lane writes its particle's (at most) 4 nonzero elements of each
+// operand into the warp's staging area (Stage) and clears those of its last
+// slab; the warp then loads its mma fragments from there and runs mma.sync
+// m16n8k32 s8 x s8 -> s32 (M = nyg padded to 16, N = nxg in steps of 8),
+// keeping the s32 sums in registers across its whole walk of the bucket;
+// once, at the end, each warp adds them to the block's int32 windows.
+// Exact in any order, so equal to the plain version.  The window-edge fold
+// can give a centre value up to S = 83, so q0+q1 can leave int8: a particle
+// with any operand outside [-127, 127] writes no int8 operands and adds its
+// jx/jy terms with int32 shared atomics instead (exact too; the TPU kernel
+// casts such a value to int8).  jz carries an f32 factor per particle: it
+// is the same kind of product over k = 2*particle + term with integer
+// columns (exact in bf16) and f32 rows split into three bf16 words,
+// mma.sync m16n8k16 bf16 x bf16 -> f32, each slab summed from zero and then
+// added to f32 sums in registers (see Operands).
+//
+// f32 mode (off the headline) keeps f32 products: the warp groups its lanes
+// by their 4x4 base (__match_any_sync); when it holds at most kMaxGroups
+// bases it sums each group's 48 values by shuffle trees and one lane per
+// cell adds each sum with one atomic; otherwise each lane adds its own.
 //
 // What bounds it on this card.  Per particle it moves about 44 bytes of HBM
-// (read x, y, px, py, pz, w; write x, y, px, py, pz), about 4.9 GB per step
-// at 1e8 particles: ~1.5 ms at 3.35 TB/s.  Against that it does per
-// particle ~54 shared-memory field reads, ~300 flops of shape, gather and
-// push arithmetic, and 48 shared-memory atomics into a 16x16 window that
-// all 256 threads of the block hit.  Measured on an H100 80GB HBM3 at
-// 700 W, 1e8 particles in 4096 x 27136 slots: 13.7-20.7 ms, 9-14x the HBM
-// floor; with the atomics made no-ops, 3.3 ms.  Contended shared atomics
-// bound it: consecutive slots hold particles of one cell, so a warp's
-// lanes hit the same 16 cells.  The design keeps every window in shared
-// memory (no global atomics at all), reads and writes particle streams
-// coalesced (consecutive threads, consecutive slots), and makes int8
-// jx/jy integer atomics.  Pre-reducing within the warp before the atomics
-// is the next step.
+// (read x, y, px, py, pz, w; write x, y, px, py, pz), about 4.4 GB per step
+// at the headline (1e8 particles): 1.32 ms at 3.35 TB/s; its ~400 f32
+// operations a particle take 0.6 ms at 67 TFLOP/s.  The first kernel (48
+// shared atomics a particle, all 32 lanes of a warp on the same 16 cells:
+// consecutive slots hold particles of one cell) took 13.7 ms on an H100
+// 80GB HBM3 at 700 W.  This one takes ~6.2 ms there: ~2.9 without its
+// deposit (the gather reads a support inside the window without bounds
+// checks), ~1.6 in the staging stores (clear and write; shared-memory
+// store traffic and address arithmetic), ~1.0 in the jz products, ~0.3 in
+// the int8 products (minipic_torch/probe_atomics.py --variants).  Not
+// HBM but instruction issue and shared memory, at 2 blocks (16 warps) per
+// SM, which both its 128 registers and its 107 KB of shared memory a block
+// allow.
 //
 // Numerics.  Build with --fmad=false and without --use_fast_math: a
 // multiply-add contracted at one site and not at another breaks the
@@ -46,6 +76,12 @@
 // version's reciprocal(sqrt(v)); CUDA's approximate rsqrtf is not used.
 
 #include <cuda_runtime.h>
+
+// Defined to 1 only by minipic_torch/probe_atomics.py's build: the kernel
+// without its deposit (J stays zero), to time the rest.
+#ifndef MINIPIC_NO_DEPOSIT
+#define MINIPIC_NO_DEPOSIT 0
+#endif
 
 struct AdvanceParams {
   int num_tiles, capacity, tile_cols, tile_nx, tile_ny, guard;
@@ -65,7 +101,23 @@ struct AdvanceParams {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// f32 mode: bases a warp pre-reduces (one shuffle tree each) before it
+// falls back to per-lane atomics.
+constexpr int kMaxGroups = 4;
+constexpr bool kDeposit = !MINIPIC_NO_DEPOSIT;
 constexpr float kThird = (float)(1.0 / 3.0);
+constexpr float kSixth = (float)(1.0 / 6.0);
+
+// Staging bytes of one warp for its tensor-core products, at NP pairs of
+// 8-column tiles: int8 A of jx and of jy (16 rows x 32 particles, 512 each)
+// and B (16 NP columns x 32 particles, 512 NP each); jz's A (16 rows x 32
+// particles, both terms in three bf16 words, 16 bytes: 8192) and B (16 NP
+// columns x 32 particles, both terms in bf16: 2048 NP).
+__host__ __device__ constexpr int stage_bytes(int np) {
+  return 9216 + 3072 * np;
+}
 
 template <int ORDER>
 __device__ __forceinline__ float shape_val(float u) {
@@ -75,6 +127,14 @@ __device__ __forceinline__ float shape_val(float u) {
   const float o = 1.5f - au;
   const float outer = 0.5f * (o * o);
   return au <= 0.5f ? inner : (au <= 1.5f ? outer : 0.0f);
+}
+
+// shape_val for |u| in [0.5, 1.5].
+template <int ORDER>
+__device__ __forceinline__ float shape_outer(float u) {
+  if (ORDER == 1) return shape_val<1>(u);
+  const float o = 1.5f - fabsf(u);
+  return 0.5f * (o * o);
 }
 
 // Centre cell c (returned, as float) and the support values at c-1, c, c+1
@@ -90,8 +150,10 @@ __device__ __forceinline__ float support3(float pos, bool half, int n_rows,
       tm = tm - 0.5f;
       tp = tp - 0.5f;
     }
-    const float qm = rintf(shape_val<ORDER>(tm) * S);
-    const float qp = rintf(shape_val<ORDER>(tp) * S);
+    // |tm|, |tp| lie in [0.5, 1.5]: TSC's outer branch alone gives the
+    // same value there (both branches give 0.5 at 0.5).
+    const float qm = rintf(shape_outer<ORDER>(tm) * S);
+    const float qp = rintf(shape_outer<ORDER>(tp) * S);
     float qc = (S - qm) - qp;
     const float cr = c + (float)g;
     if (cr <= 0.0f) qc = qc + qm;
@@ -132,6 +194,24 @@ __device__ __forceinline__ float gather(const float* F, int cy,
   return e;
 }
 
+// gather() of a support inside the window, from F at its first cell: no
+// checks, and the plain version's order (the first term is not added to a
+// zero).
+__device__ __forceinline__ float gather_in(const float* F, int nxg,
+                                           const float sy[3],
+                                           const float sx[3]) {
+  float e = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float* row = F + j * nxg;
+    float m = row[0] * sx[0];
+    m = m + row[1] * sx[1];
+    m = m + row[2] * sx[2];
+    e = j == 0 ? m * sy[0] : e + m * sy[j];
+  }
+  return e;
+}
+
 __device__ __forceinline__ float fold(float pos, float origin, float gn,
                                       float half, float inv) {
   const float xi = pos - origin;
@@ -155,8 +235,289 @@ __device__ __forceinline__ void place4(float base, float c, const float v[3],
   }
 }
 
-template <int ORDER, bool QUANT>
-__global__ void __launch_bounds__(kThreads)
+// place4 where c - base is 1 (at1) or 2: the union support of two centres
+// at most a cell apart, base = min(c0, c1) - 1.
+__device__ __forceinline__ void place4_near(bool at1, const float v[3],
+                                            float out[4]) {
+  out[0] = at1 ? v[0] : 0.0f;
+  out[1] = at1 ? v[1] : v[0];
+  out[2] = at1 ? v[2] : v[1];
+  out[3] = at1 ? 0.0f : v[2];
+}
+
+// s8 x s8 -> s32: c += A (16 x 32, row) B (32 x 8, col).
+__device__ __forceinline__ void mma_s8(int c[4], const uint4& a, unsigned b0,
+                                       unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// bf16 x bf16 -> f32: c += A (16 x 16, row) B (16 x 8, col).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint4& a,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// lo and hi rounded to bf16 (to nearest, ties to even) as one bf16x2
+// register, lo in the low half (the even k).
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// One lane's operands over its 4x4 support.  int8 (jx = ay x ax, jy =
+// ry x rx): ay = q0y+q1y, ax = q1x-q0x, ry = q1y-q0y, rx = q0x+q1x.  jz =
+// sum_e lz_e x rz_e with lz0 = czq q0y / 2, lz1 = czq (q1y-q0y) / 6 and the
+// integers rz0 = q0x+q1x, rz1 = q0x+2 q1x (|rz| <= 249: exact in bf16); the
+// same terms as lz0 rz0 + lz1 rz1 of the plain version, factors moved.  Each
+// lz goes to the tensor cores as three bf16 words (hi + mid + lo, ~24 bits),
+// so that the bf16 products are f32-accurate.
+struct Operands {
+  int ay[4], ax[4], ry[4], rx[4];
+  float lz[2][4];
+  unsigned zc[4];  // [column]: bf16x2 (rz0, rz1)
+
+  // Returns whether every int8 operand fits [-127, 127].
+  __device__ __forceinline__ bool set(const float q0x[4], const float q1x[4],
+                                      const float q0y[4], const float q1y[4],
+                                      float czq) {
+    bool ok = true;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ay[i] = (int)(q0y[i] + q1y[i]);
+      ax[i] = (int)(q1x[i] - q0x[i]);
+      ry[i] = (int)(q1y[i] - q0y[i]);
+      rx[i] = (int)(q0x[i] + q1x[i]);
+      // |q1 - q0| <= S <= 83: only the sums can leave int8.
+      ok = ok && abs(ay[i]) <= 127 && abs(rx[i]) <= 127;
+      lz[0][i] = 0.5f * (q0y[i] * czq);
+      lz[1][i] = ((q1y[i] - q0y[i]) * czq) * kSixth;
+      zc[i] = bf16x2((float)rx[i], (float)(rx[i] + (int)q1x[i]));
+    }
+    return ok;
+  }
+};
+
+// One warp's staging area (stage_bytes(NP) bytes), seen from one lane: the
+// particle k = lane of each slab.  Each element's offset is linear in its
+// row (or column), so a lane finds its four with one multiply-add each;
+// xors on the particle index spread a warp's loads over the banks.  int8
+// (m16n8k32 .s8), bytes: A of jx and of jy at 32*row + k; B of jx and of jy
+// at 32*col + k.  jz (m16n8k16 .bf16, k = 2*particle + term, the two terms
+// in one 32-bit word): A as 16 bytes (words 0-2: the three bf16 words of
+// lz) at uint4 32*row + (k ^ 4*(row&1)); B (rz) at word 32*col + (pair(k)
+// ^ 4*(col&7)), where pair() puts particles 8i + t and 8i + 4 + t side by
+// side (one 8-byte load).  Each slab clears the lane's elements of the last
+// slab and writes its own, so the area is zero wherever no particle of the
+// slab has an element.
+template <int NP>
+struct Stage {
+  static constexpr int kBytes = stage_bytes(NP);
+  unsigned char *ax, *ay, *bx, *by;
+  uint4* za;
+  unsigned* zb;
+  int k;
+
+  __device__ Stage(unsigned char* p, int lane)
+      : ax(p), ay(p + 512), bx(p + 1024), by(p + 1024 + 512 * NP),
+        za(reinterpret_cast<uint4*>(p + 1024 + 1024 * NP)),
+        zb(reinterpret_cast<unsigned*>(p + 9216 + 1024 * NP)), k(lane) {}
+
+  __device__ static int pair(int p) {
+    return (p & ~7) | ((p & 3) << 1) | ((p >> 2) & 1);
+  }
+
+  // Writes this lane's row elements (A: jz's, and int8's when prod) from
+  // support row row0, when live; with clear, zeroes them instead (o is not
+  // read).  jz A's xor flips with the row's parity.
+  __device__ __forceinline__ void put_rows(const Operands& o, bool live,
+                                           bool prod, int row0, int nyg,
+                                           bool clear) {
+    if (!live) return;
+    const int zr = 32 * row0 + (k ^ ((row0 & 1) << 2)), ar = 32 * row0 + k;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = row0 + j;
+      if (r < 0 || r >= nyg) continue;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (!clear) {
+        float l0 = o.lz[0][j], l1 = o.lz[1][j];
+        v.x = bf16x2(l0, l1);
+        l0 = l0 - __uint_as_float(v.x << 16);
+        l1 = l1 - __uint_as_float(v.x & 0xffff0000u);
+        v.y = bf16x2(l0, l1);
+        l0 = l0 - __uint_as_float(v.y << 16);
+        l1 = l1 - __uint_as_float(v.y & 0xffff0000u);
+        v.z = bf16x2(l0, l1);
+      }
+      za[(zr + 32 * j) ^ ((j & 1) << 2)] = v;
+      if (prod) {
+        ax[ar + 32 * j] = clear ? 0 : (unsigned char)(signed char)o.ay[j];
+        ay[ar + 32 * j] = clear ? 0 : (unsigned char)(signed char)o.ry[j];
+      }
+    }
+  }
+
+  // The same for the column elements (B) from support column col0.
+  __device__ __forceinline__ void put_cols(const Operands& o, bool live,
+                                           bool prod, int col0, int nxg,
+                                           bool clear) {
+    if (!live) return;
+    const int bc = 32 * col0 + k, pk = pair(k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + j;
+      if (c < 0 || c >= nxg) continue;
+      zb[32 * c + (pk ^ ((c & 7) << 2))] = clear ? 0u : o.zc[j];
+      if (prod) {
+        bx[bc + 32 * j] = clear ? 0 : (unsigned char)(signed char)o.ax[j];
+        by[bc + 32 * j] = clear ? 0 : (unsigned char)(signed char)o.rx[j];
+      }
+    }
+  }
+
+  // The slab's int8 products into the s32 sums: A rows grp and grp+8 x
+  // particles 4t.. and 16+4t.. (4 bytes each), B column grp of each column
+  // tile x the same particles.
+  __device__ __forceinline__ void int8_products(int lane, int accx[][4],
+                                                int accy[][4]) const {
+    const int grp = lane >> 2, t4 = 4 * (lane & 3);
+    const auto word = [](const unsigned char* m, int at) {
+      return *reinterpret_cast<const unsigned*>(m + at);
+    };
+    const uint4 fx = make_uint4(word(ax, 32 * grp + t4),
+                                word(ax, 32 * grp + 256 + t4),
+                                word(ax, 32 * grp + 16 + t4),
+                                word(ax, 32 * grp + 272 + t4));
+    const uint4 fy = make_uint4(word(ay, 32 * grp + t4),
+                                word(ay, 32 * grp + 256 + t4),
+                                word(ay, 32 * grp + 16 + t4),
+                                word(ay, 32 * grp + 272 + t4));
+#pragma unroll
+    for (int nt = 0; nt < 2 * NP; ++nt) {
+      const int at = 32 * (8 * nt + grp) + t4;
+      mma_s8(accx[nt], fx, word(bx, at), word(bx, at + 16));
+      mma_s8(accy[nt], fy, word(by, at), word(by, at + 16));
+    }
+  }
+
+  // The slab's jz product (4 k-steps x 3 words), summed from zero and then
+  // added to the f32 sums: the tensor cores' own f32 adds stay within a
+  // slab.  k-step ks: A rows grp and grp+8 x particles 8ks + t and 8ks +
+  // 4 + t (both terms each), B column grp of each column tile x the same.
+  __device__ __forceinline__ void jz_products(int lane,
+                                              float accz[][4]) const {
+    const int grp = lane >> 2, t = lane & 3;
+    float d[2 * NP][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NP; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[n][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int p0 = 8 * ks + t, p1 = p0 + 4;
+      const int sw = (grp & 1) << 2;  // rows grp and grp+8: same parity
+      const uint4 a0 = za[32 * grp + (p0 ^ sw)];
+      const uint4 a1 = za[32 * (grp + 8) + (p0 ^ sw)];
+      const uint4 a2 = za[32 * grp + (p1 ^ sw)];
+      const uint4 a3 = za[32 * (grp + 8) + (p1 ^ sw)];
+#pragma unroll
+      for (int nt = 0; nt < 2 * NP; ++nt) {
+        // Particles p0 and p1 = p0 + 4 side by side (pair()).
+        const uint2 b = *reinterpret_cast<const uint2*>(
+            zb + 32 * (8 * nt + grp) + ((8 * ks + 2 * t) ^ (grp << 2)));
+        mma_bf16(d[nt], make_uint4(a0.x, a1.x, a2.x, a3.x), b.x, b.y);
+        mma_bf16(d[nt], make_uint4(a0.y, a1.y, a2.y, a3.y), b.x, b.y);
+        mma_bf16(d[nt], make_uint4(a0.z, a1.z, a2.z, a3.z), b.x, b.y);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * NP; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accz[n][e] = accz[n][e] + d[n][e];
+  }
+};
+
+// One stage of reduce16: lanes 2*HALF apart swap half of their remaining
+// 2*HALF values and add the other half.
+template <int HALF>
+__device__ __forceinline__ void tree_stage(float v[16], int lane) {
+  const bool up = (lane & (2 * HALF)) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF];
+    const float keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, 2 * HALF);
+  }
+}
+
+// The warp's sum of value (lane >> 1) & 15 of v[16] (v is overwritten).
+__device__ __forceinline__ float reduce16(float v[16], int lane) {
+  tree_stage<8>(v, lane);
+  tree_stage<4>(v, lane);
+  tree_stage<2>(v, lane);
+  tree_stage<1>(v, lane);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
+}
+
+// f32 mode: adds the jx, jy and jz terms v[3][16] (cell (row0 + k/4, col0
+// + k%4) for k = 0..15) of every depositing lane to the windows win[3]: per
+// 4x4 base, summed in the warp by shuffle trees, when the warp holds at
+// most kMaxGroups bases; else lane by lane.
+__device__ __forceinline__ void warp_deposit(float* const win[3],
+                                             float v[3][16], bool dep,
+                                             int row0, int col0, int lane,
+                                             int nyg, int nxg) {
+  // A base off the window by 4 or more adds nothing: clamp it to make a key.
+  const unsigned rk = (unsigned)(min(max(row0, -4), nyg) + 4);
+  const unsigned ck = (unsigned)(min(max(col0, -4), nxg) + 4);
+  const unsigned key = dep ? (rk << 16) | ck : kFull;
+  const unsigned grp = __match_any_sync(kFull, key);
+  const unsigned leaders =
+      __ballot_sync(kFull, dep && (__ffs(grp) - 1) == lane);
+  if (__popc(leaders) <= kMaxGroups) {
+    const int idx = (lane >> 1) & 15;
+    for (unsigned todo = leaders; todo; todo &= todo - 1) {
+      const unsigned lkey = __shfl_sync(kFull, key, __ffs(todo) - 1);
+      const bool mine = key == lkey;
+      const int r = (int)(lkey >> 16) - 4 + (idx >> 2);
+      const int c = (int)(lkey & 0xffffu) - 4 + (idx & 3);
+      const bool add = (lane & 1) == 0 && r >= 0 && r < nyg && c >= 0 &&
+                       c < nxg;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        float t[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) t[k] = mine ? v[n][k] : 0.0f;
+        const float s = reduce16(t, lane);
+        if (add) atomicAdd(&win[n][r * nxg + c], s);
+      }
+    }
+  } else if (dep) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = row0 + j;
+      if (r < 0 || r >= nyg) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = col0 + i;
+        if (c < 0 || c >= nxg) continue;
+#pragma unroll
+        for (int n = 0; n < 3; ++n)
+          atomicAdd(&win[n][r * nxg + c], v[n][j * 4 + i]);
+      }
+    }
+  }
+}
+
+template <int ORDER, bool QUANT, int NP>
+__global__ void __launch_bounds__(kThreads, 2)
 advance_kernel(AdvanceParams P,
                const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ px, const float* __restrict__ py,
@@ -170,7 +531,8 @@ advance_kernel(AdvanceParams P,
                float* __restrict__ pzo,
                float* __restrict__ jxo, float* __restrict__ jyo,
                float* __restrict__ jzo, float* __restrict__ dmax) {
-  extern __shared__ float smem[];
+  constexpr int NT = 2 * NP;  // column tiles of 8
+  extern __shared__ __align__(16) float smem[];
   __shared__ int s_dmax;
   const int g = P.guard;
   const int nxg = P.tile_nx + 2 * g;
@@ -187,6 +549,24 @@ advance_kernel(AdvanceParams P,
   float* s_jz = s_jy + nwin;
   int* i_jx = reinterpret_cast<int*>(s_jx);
   int* i_jy = reinterpret_cast<int*>(s_jy);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // QUANT: this warp's staging (nwin is a multiple of 8: 16-byte aligned).
+  Stage<NP> st(reinterpret_cast<unsigned char*>(s_jz + nwin) +
+                   warp * Stage<NP>::kBytes,
+               lane);
+  // What this lane staged last, for Stage::put to clear.
+  bool last_live = false, last_prod = false;
+  int last_row0 = 0, last_col0 = 0;
+  int accx[NT][4], accy[NT][4];
+  float accz[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      accx[n][e] = accy[n][e] = 0;
+      accz[n][e] = 0.0f;
+    }
 
   const int t = blockIdx.x;
   const size_t fbase = (size_t)t * nwin;
@@ -201,146 +581,244 @@ advance_kernel(AdvanceParams P,
     s_jy[i] = 0.0f;
     s_jz[i] = 0.0f;
   }
+  if (QUANT) {
+    unsigned* words = reinterpret_cast<unsigned*>(s_jz + nwin);
+    for (int i = threadIdx.x; i < kWarps * Stage<NP>::kBytes / 4;
+         i += blockDim.x)
+      words[i] = 0u;
+  }
   if (threadIdx.x == 0) s_dmax = 0;
   __syncthreads();
 
   const int count = counts[t];
+  const int count32 = min(P.capacity, (count + 31) & ~31);
   const size_t pbase = (size_t)t * P.capacity;
   const float ox = (float)((t % P.tile_cols) * P.tile_nx);
   const float oy = (float)((t / P.tile_cols) * P.tile_ny);
   const float S = P.S;
+  float* const wins[3] = {s_jx, s_jy, s_jz};
   float local_max = 0.0f;
 
-  for (int s = threadIdx.x; s < P.capacity; s += blockDim.x) {
-    const size_t k = pbase + s;
-    const float x0 = x[k], y0 = y[k];
-    const float ux = px[k], uy = py[k], uz = pz[k];
-    const float wv = w[k];
-    if (s >= count || wv == 0.0f) {
-      xo[k] = x0;
-      yo[k] = y0;
-      pxo[k] = ux;
-      pyo[k] = uy;
-      pzo[k] = uz;
-      continue;
+  // The slab loop: trip count uniform across the warp; six values of the
+  // next slab in flight while this one computes.
+  float nx0 = 0.0f, ny0 = 0.0f, nux = 0.0f, nuy = 0.0f, nuz = 0.0f,
+        nwv = 0.0f;
+  {
+    const int s = warp * 32 + lane;
+    if (s < count32) {
+      const size_t k = pbase + s;
+      nx0 = x[k]; ny0 = y[k]; nux = px[k]; nuy = py[k]; nuz = pz[k];
+      nwv = w[k];
     }
-    const float xi = fold(x0, ox, P.grid_nx, P.half_x, P.inv_nx);
-    const float eta = fold(y0, oy, P.grid_ny, P.half_y, P.inv_ny);
-
-    float sxi[3], sxh[3], syi[3], syh[3];
-    const float cxi = support3<ORDER, QUANT>(xi, false, nxg, g, S, sxi);
-    const float cxh = support3<ORDER, QUANT>(xi, true, nxg, g, S, sxh);
-    const float cyi = support3<ORDER, QUANT>(eta, false, nyg, g, S, syi);
-    const float cyh = support3<ORDER, QUANT>(eta, true, nyg, g, S, syh);
-    const int ixi = (int)cxi, ixh = (int)cxh, iyi = (int)cyi, iyh = (int)cyh;
-
-    const float e1 = gather(f_ex, iyi, syi, ixh, sxh, g, nyg, nxg);
-    const float e2 = gather(f_ey, iyh, syh, ixi, sxi, g, nyg, nxg);
-    const float e3 = gather(f_ez, iyi, syi, ixi, sxi, g, nyg, nxg);
-    const float b1 = gather(f_bx, iyh, syh, ixi, sxi, g, nyg, nxg);
-    const float b2 = gather(f_by, iyi, syi, ixh, sxh, g, nyg, nxg);
-    const float b3 = gather(f_bz, iyh, syh, ixh, sxh, g, nyg, nxg);
-
-    // Boris rotation (ppd_kernel.py:649-661, same association).
-    const float h = P.h;
-    const float pxm = ux + h * e1;
-    const float pym = uy + h * e2;
-    const float pzm = uz + h * e3;
-    const float gi = 1.0f / sqrtf(1.0f + pxm * pxm + pym * pym + pzm * pzm);
-    const float tx = h * b1 * gi, ty = h * b2 * gi, tz = h * b3 * gi;
-    const float sf = 2.0f / (1.0f + tx * tx + ty * ty + tz * tz);
-    const float sxr = tx * sf, syr = ty * sf, szr = tz * sf;
-    const float ppx = pxm + (pym * tz - pzm * ty);
-    const float ppy = pym + (pzm * tx - pxm * tz);
-    const float ppz = pzm + (pxm * ty - pym * tx);
-    const float pxn = pxm + (ppy * szr - ppz * syr) + h * e1;
-    const float pyn = pym + (ppz * sxr - ppx * szr) + h * e2;
-    const float pzn = pzm + (ppx * syr - ppy * sxr) + h * e3;
-    const float gn = 1.0f / sqrtf(1.0f + pxn * pxn + pyn * pyn + pzn * pzn);
-    const float xn = x0 + pxn * gn * P.dtdx;
-    const float yn = y0 + pyn * gn * P.dtdy;
-    const float x1 = wrap(xn, P.grid_nx, P.inv_nx);
-    const float y1 = wrap(yn, P.grid_ny, P.inv_ny);
-    xo[k] = x1;
-    yo[k] = y1;
-    pxo[k] = pxn;
-    pyo[k] = pyn;
-    pzo[k] = pzn;
-    local_max = fmaxf(local_max, fmaxf(fabsf(xn - x0), fabsf(yn - y0)));
-
-    // Esirkepov over the union support, 4 cells from min(c0, c1) - 1; s1
-    // from the stored position through the same ops as next step's s0.
-    const float xi1 = fold(x1, ox, P.grid_nx, P.half_x, P.inv_nx);
-    const float eta1 = fold(y1, oy, P.grid_ny, P.half_y, P.inv_ny);
-    float q1x3[3], q1y3[3];
-    const float c1x = support3<ORDER, QUANT>(xi1, false, nxg, g, S, q1x3);
-    const float c1y = support3<ORDER, QUANT>(eta1, false, nyg, g, S, q1y3);
-    const float basex = fminf(cxi, c1x) - 1.0f;
-    const float basey = fminf(cyi, c1y) - 1.0f;
-    const int col0 = (int)basex + g;
-    const int row0 = (int)basey + g;
-    const float qw = P.q * wv;
-    const float cz = qw * (pzn * gn) * P.cz;
-
-    float a_x[4], a_y[4], r_x[4], r_y[4];  // jx: a_y x a_x; jy: r_y x r_x
-    float lz0[4], lz1[4], rz0[4], rz1[4];  // jz: lz0 x rz0 + lz1 x rz1
-    if (QUANT) {
-      float q0x[4], q1x[4], q0y[4], q1y[4];
-      place4(basex, cxi, sxi, q0x);
-      place4(basex, c1x, q1x3, q1x);
-      place4(basey, cyi, syi, q0y);
-      place4(basey, c1y, q1y3, q1y);
-      const float czq = cz * P.czq;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a_y[i] = q0y[i] + q1y[i];
-        a_x[i] = q1x[i] - q0x[i];
-        r_y[i] = q1y[i] - q0y[i];
-        r_x[i] = q0x[i] + q1x[i];
-        lz0[i] = q0y[i] * czq;
-        lz1[i] = (q1y[i] - q0y[i]) * czq;
-        rz0[i] = 0.5f * (q0x[i] + q1x[i]);
-        rz1[i] = 0.5f * q0x[i] + kThird * (q1x[i] - q0x[i]);
+  }
+  for (int sbase = warp * 32; sbase < count32; sbase += kThreads) {
+    const int s = sbase + lane;
+    const size_t k = pbase + s;
+    const float x0 = nx0, y0 = ny0, ux = nux, uy = nuy, uz = nuz, wv = nwv;
+    if (s + kThreads < count32) {
+      const size_t kn = k + kThreads;
+      nx0 = x[kn]; ny0 = y[kn]; nux = px[kn]; nuy = py[kn]; nuz = pz[kn];
+      nwv = w[kn];
+    }
+    const bool live = s < count && wv != 0.0f;
+    bool prod = false;  // int8 jx/jy through the tensor cores
+    int row0 = 0, col0 = 0;
+    Operands ops;      // QUANT
+    float v[3][16];    // f32 mode: jx, jy, jz terms
+    if (!live) {
+      if (s < count32) {
+        xo[k] = x0;
+        yo[k] = y0;
+        pxo[k] = ux;
+        pyo[k] = uy;
+        pzo[k] = uz;
       }
     } else {
-      const float wjx = qw * P.cjx, wjy = qw * P.cjy;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float cx = basex + (float)i, cy = basey + (float)i;
-        const float s0x = shape_val<ORDER>(xi - cx);
-        const float s1x = shape_val<ORDER>(xi1 - cx);
-        const float s0y = shape_val<ORDER>(eta - cy);
-        const float s1y = shape_val<ORDER>(eta1 - cy);
-        const float dsx = s1x - s0x, dsy = s1y - s0y;
-        a_y[i] = (s0y + 0.5f * dsy) * wjx;
-        a_x[i] = dsx;
-        r_y[i] = dsy * wjy;
-        r_x[i] = s0x + 0.5f * dsx;
-        lz0[i] = s0y * cz;
-        lz1[i] = dsy * cz;
-        rz0[i] = r_x[i];
-        rz1[i] = 0.5f * s0x + kThird * dsx;
+      const float xi = fold(x0, ox, P.grid_nx, P.half_x, P.inv_nx);
+      const float eta = fold(y0, oy, P.grid_ny, P.half_y, P.inv_ny);
+
+      float sxi[3], sxh[3], syi[3], syh[3];
+      const float cxi = support3<ORDER, QUANT>(xi, false, nxg, g, S, sxi);
+      const float cxh = support3<ORDER, QUANT>(xi, true, nxg, g, S, sxh);
+      const float cyi = support3<ORDER, QUANT>(eta, false, nyg, g, S, syi);
+      const float cyh = support3<ORDER, QUANT>(eta, true, nyg, g, S, syh);
+      const int ixi = (int)cxi, ixh = (int)cxh, iyi = (int)cyi,
+                iyh = (int)cyh;
+
+      float e1, e2, e3, b1, b2, b3;
+      if (min(iyi, iyh) + g >= 1 && max(iyi, iyh) + g <= nyg - 2 &&
+          min(ixi, ixh) + g >= 1 && max(ixi, ixh) + g <= nxg - 2) {
+        // Both staggers' 3x3 supports inside the window (nearly always).
+        const int ri = (iyi - 1 + g) * nxg, rh = (iyh - 1 + g) * nxg;
+        const int ci = ixi - 1 + g, ch = ixh - 1 + g;
+        e1 = gather_in(f_ex + ri + ch, nxg, syi, sxh);
+        e2 = gather_in(f_ey + rh + ci, nxg, syh, sxi);
+        e3 = gather_in(f_ez + ri + ci, nxg, syi, sxi);
+        b1 = gather_in(f_bx + rh + ci, nxg, syh, sxi);
+        b2 = gather_in(f_by + ri + ch, nxg, syi, sxh);
+        b3 = gather_in(f_bz + rh + ch, nxg, syh, sxh);
+      } else {
+        e1 = gather(f_ex, iyi, syi, ixh, sxh, g, nyg, nxg);
+        e2 = gather(f_ey, iyh, syh, ixi, sxi, g, nyg, nxg);
+        e3 = gather(f_ez, iyi, syi, ixi, sxi, g, nyg, nxg);
+        b1 = gather(f_bx, iyh, syh, ixi, sxi, g, nyg, nxg);
+        b2 = gather(f_by, iyi, syi, ixh, sxh, g, nyg, nxg);
+        b3 = gather(f_bz, iyh, syh, ixh, sxh, g, nyg, nxg);
       }
-    }
+
+      // Boris rotation (ppd_kernel.py:649-661, same association).
+      const float h = P.h;
+      const float pxm = ux + h * e1;
+      const float pym = uy + h * e2;
+      const float pzm = uz + h * e3;
+      const float gi =
+          1.0f / sqrtf(1.0f + pxm * pxm + pym * pym + pzm * pzm);
+      const float tx = h * b1 * gi, ty = h * b2 * gi, tz = h * b3 * gi;
+      const float sf = 2.0f / (1.0f + tx * tx + ty * ty + tz * tz);
+      const float sxr = tx * sf, syr = ty * sf, szr = tz * sf;
+      const float ppx = pxm + (pym * tz - pzm * ty);
+      const float ppy = pym + (pzm * tx - pxm * tz);
+      const float ppz = pzm + (pxm * ty - pym * tx);
+      const float pxn = pxm + (ppy * szr - ppz * syr) + h * e1;
+      const float pyn = pym + (ppz * sxr - ppx * szr) + h * e2;
+      const float pzn = pzm + (ppx * syr - ppy * sxr) + h * e3;
+      const float gn =
+          1.0f / sqrtf(1.0f + pxn * pxn + pyn * pyn + pzn * pzn);
+      const float xn = x0 + pxn * gn * P.dtdx;
+      const float yn = y0 + pyn * gn * P.dtdy;
+      const float x1 = wrap(xn, P.grid_nx, P.inv_nx);
+      const float y1 = wrap(yn, P.grid_ny, P.inv_ny);
+      xo[k] = x1;
+      yo[k] = y1;
+      pxo[k] = pxn;
+      pyo[k] = pyn;
+      pzo[k] = pzn;
+      local_max = fmaxf(local_max, fmaxf(fabsf(xn - x0), fabsf(yn - y0)));
+
+      if (kDeposit) {
+        // Esirkepov over the union support, 4 cells from min(c0, c1) - 1;
+        // s1 from the stored position through the same ops as next step's
+        // s0.
+        const float xi1 = fold(x1, ox, P.grid_nx, P.half_x, P.inv_nx);
+        const float eta1 = fold(y1, oy, P.grid_ny, P.half_y, P.inv_ny);
+        float q1x3[3], q1y3[3];
+        const float c1x = support3<ORDER, QUANT>(xi1, false, nxg, g, S, q1x3);
+        const float c1y = support3<ORDER, QUANT>(eta1, false, nyg, g, S, q1y3);
+        const float basex = fminf(cxi, c1x) - 1.0f;
+        const float basey = fminf(cyi, c1y) - 1.0f;
+        col0 = (int)basex + g;
+        row0 = (int)basey + g;
+        const float qw = P.q * wv;
+        const float cz = qw * (pzn * gn) * P.cz;
+        if constexpr (QUANT) {
+          float q0x[4], q1x[4], q0y[4], q1y[4];
+          if (fabsf(cxi - c1x) <= 1.0f && fabsf(cyi - c1y) <= 1.0f) {
+            place4_near(cxi == basex + 1.0f, sxi, q0x);
+            place4_near(c1x == basex + 1.0f, q1x3, q1x);
+            place4_near(cyi == basey + 1.0f, syi, q0y);
+            place4_near(c1y == basey + 1.0f, q1y3, q1y);
+          } else {
+            place4(basex, cxi, sxi, q0x);
+            place4(basex, c1x, q1x3, q1x);
+            place4(basey, cyi, syi, q0y);
+            place4(basey, c1y, q1y3, q1y);
+          }
+          const float czq = cz * P.czq;
+          prod = ops.set(q0x, q1x, q0y, q1y, czq);
+          if (!prod) {
+            // Out of int8 (window-edge fold): exact int32 atomics.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = row0 + j;
-      if (r < 0 || r >= nyg) continue;
+            for (int j = 0; j < 4; ++j) {
+              const int r = row0 + j;
+              if (r < 0 || r >= nyg) continue;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = col0 + i;
-        if (c < 0 || c >= nxg) continue;
-        const int cell = r * nxg + c;
-        if (QUANT) {
-          atomicAdd(&i_jx[cell], (int)a_y[j] * (int)a_x[i]);
-          atomicAdd(&i_jy[cell], (int)r_y[j] * (int)r_x[i]);
+              for (int i = 0; i < 4; ++i) {
+                const int c = col0 + i;
+                if (c < 0 || c >= nxg) continue;
+                atomicAdd(&i_jx[r * nxg + c], ops.ay[j] * ops.ax[i]);
+                atomicAdd(&i_jy[r * nxg + c], ops.ry[j] * ops.rx[i]);
+              }
+            }
+          }
         } else {
-          atomicAdd(&s_jx[cell], a_y[j] * a_x[i]);
-          atomicAdd(&s_jy[cell], r_y[j] * r_x[i]);
+          // jx: a_y x a_x; jy: r_y x r_x; jz: lz0 x rz0 + lz1 x rz1.
+          const float wjx = qw * P.cjx, wjy = qw * P.cjy;
+          float a_x[4], a_y[4], r_x[4], r_y[4];
+          float lz0[4], lz1[4], rz0[4], rz1[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float cx = basex + (float)i, cy = basey + (float)i;
+            const float s0x = shape_val<ORDER>(xi - cx);
+            const float s1x = shape_val<ORDER>(xi1 - cx);
+            const float s0y = shape_val<ORDER>(eta - cy);
+            const float s1y = shape_val<ORDER>(eta1 - cy);
+            const float dsx = s1x - s0x, dsy = s1y - s0y;
+            a_y[i] = (s0y + 0.5f * dsy) * wjx;
+            a_x[i] = dsx;
+            r_y[i] = dsy * wjy;
+            r_x[i] = s0x + 0.5f * dsx;
+            lz0[i] = s0y * cz;
+            lz1[i] = dsy * cz;
+            rz0[i] = r_x[i];
+            rz1[i] = 0.5f * s0x + kThird * dsx;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              v[0][j * 4 + i] = a_y[j] * a_x[i];
+              v[1][j * 4 + i] = r_y[j] * r_x[i];
+              v[2][j * 4 + i] = lz0[j] * rz0[i] + lz1[j] * rz1[i];
+            }
         }
-        atomicAdd(&s_jz[cell], lz0[j] * rz0[i] + lz1[j] * rz1[i]);
       }
     }
+    if (!kDeposit) continue;
+
+    if constexpr (QUANT) {
+      // Stage this lane's operand elements (only lane k writes particle
+      // k's), run the slab's products.
+      if (!__any_sync(kFull, live)) continue;
+      st.put_rows(ops, last_live, last_prod, last_row0, nyg, true);
+      st.put_cols(ops, last_live, last_prod, last_col0, nxg, true);
+      st.put_rows(ops, live, prod, row0, nyg, false);
+      st.put_cols(ops, live, prod, col0, nxg, false);
+      last_live = live;
+      last_prod = prod;
+      last_row0 = row0;
+      last_col0 = col0;
+      __syncwarp();
+      if (__any_sync(kFull, prod)) st.int8_products(lane, accx, accy);
+      st.jz_products(lane, accz);
+      __syncwarp();
+    } else {
+      warp_deposit(wins, v, live, row0, col0, lane, nyg, nxg);
+    }
+  }
+
+  if (QUANT && kDeposit) {
+    // Each warp's sums into the block's windows, once.
+    const int grp = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = grp + 8 * (e >> 1);
+        const int c = 8 * n + 2 * tq + (e & 1);
+        if (r < nyg && c < nxg) {
+          atomicAdd(&i_jx[r * nxg + c], accx[n][e]);
+          atomicAdd(&i_jy[r * nxg + c], accy[n][e]);
+          atomicAdd(&s_jz[r * nxg + c], accz[n][e]);
+        }
+      }
+  }
+  for (int s = count32 + threadIdx.x; s < P.capacity; s += blockDim.x) {
+    const size_t k = pbase + s;
+    xo[k] = x[k];
+    yo[k] = y[k];
+    pxo[k] = px[k];
+    pyo[k] = py[k];
+    pzo[k] = pz[k];
   }
 
   // Displacements are >= 0, so their float bits order as ints.
@@ -359,7 +837,13 @@ advance_kernel(AdvanceParams P,
   if (threadIdx.x == 0) dmax[t] = __int_as_float(s_dmax);
 }
 
-template <int ORDER, bool QUANT>
+// Dynamic shared memory of one block: nine windows, and the int8 staging.
+size_t smem_bytes(bool quant, int np, int nwin) {
+  return (size_t)9 * nwin * sizeof(float) +
+         (quant ? (size_t)kWarps * stage_bytes(np) : 0);
+}
+
+template <int ORDER, bool QUANT, int NP>
 cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
                    const float* px, const float* py, const float* pz,
                    const float* w, const int* counts, const float* ex,
@@ -368,8 +852,12 @@ cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
                    float* pxo, float* pyo, float* pzo, float* jx, float* jy,
                    float* jz, float* dmax, cudaStream_t stream) {
   const int nwin = (P.tile_nx + 2 * P.guard) * (P.tile_ny + 2 * P.guard);
-  const size_t smem = (size_t)9 * nwin * sizeof(float);
-  advance_kernel<ORDER, QUANT><<<P.num_tiles, kThreads, smem, stream>>>(
+  const size_t smem = smem_bytes(QUANT, NP, nwin);
+  auto* kernel = advance_kernel<ORDER, QUANT, NP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<P.num_tiles, kThreads, smem, stream>>>(
       P, x, y, px, py, pz, w, counts, ex, ey, ez, bx, by, bz, xo, yo, pxo,
       pyo, pzo, jx, jy, jz, dmax);
   return cudaGetLastError();
@@ -378,7 +866,8 @@ cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Returns the CUDA error code of
-// the launch (0 on success); launches on `stream`, allocates nothing.
+// the launch (0 on success); launches on `stream`, allocates nothing.  The
+// int8 mode needs nyg 8 or 16 and nxg <= 64 (the wrapper checks).
 extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
                                const float* x, const float* y,
                                const float* px, const float* py,
@@ -391,13 +880,52 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
                                float* jy, float* jz, float* dmax,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MINIPIC_LAUNCH(O, Q)                                                \
-  return (int)launch<O, Q>(P, x, y, px, py, pz, w, counts, ex, ey, ez, bx, \
-                           by, bz, xo, yo, pxo, pyo, pzo, jx, jy, jz, dmax, s)
-  if (order == 1 && !quant) MINIPIC_LAUNCH(1, false);
-  if (order == 1 && quant) MINIPIC_LAUNCH(1, true);
-  if (order == 2 && !quant) MINIPIC_LAUNCH(2, false);
-  if (order == 2 && quant) MINIPIC_LAUNCH(2, true);
+  const int nxg = P.tile_nx + 2 * P.guard;
+  const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
+#define MINIPIC_LAUNCH(O, Q, N)                                               \
+  return (int)launch<O, Q, N>(P, x, y, px, py, pz, w, counts, ex, ey, ez, bx, \
+                              by, bz, xo, yo, pxo, pyo, pzo, jx, jy, jz, dmax, \
+                              s)
+  if (!quant) {
+    if (order == 1) MINIPIC_LAUNCH(1, false, 1);
+    if (order == 2) MINIPIC_LAUNCH(2, false, 1);
+  } else if (nxg <= 64) {
+    if (order == 1 && np == 1) MINIPIC_LAUNCH(1, true, 1);
+    if (order == 1 && np == 2) MINIPIC_LAUNCH(1, true, 2);
+    if (order == 1 && np == 4) MINIPIC_LAUNCH(1, true, 4);
+    if (order == 2 && np == 1) MINIPIC_LAUNCH(2, true, 1);
+    if (order == 2 && np == 2) MINIPIC_LAUNCH(2, true, 2);
+    if (order == 2 && np == 4) MINIPIC_LAUNCH(2, true, 4);
+  }
 #undef MINIPIC_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks per SM of the kernel that minipic_advance would launch
+// for this window (the occupancy calculator's answer), or -1 on error.
+extern "C" int minipic_advance_blocks_per_sm(int order, int quant, int nyg,
+                                             int nxg) {
+  const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
+  const size_t smem = smem_bytes(quant != 0, np, nyg * nxg);
+  int blocks = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+#define MINIPIC_OCC(O, Q, N)                                                  \
+  do {                                                                        \
+    auto* k = advance_kernel<O, Q, N>;                                        \
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                               (int)smem);                                    \
+    if (err == cudaSuccess)                                                   \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,         \
+                                                          kThreads, smem);    \
+  } while (0)
+  if (!quant && order == 1) MINIPIC_OCC(1, false, 1);
+  if (!quant && order == 2) MINIPIC_OCC(2, false, 1);
+  if (quant && order == 1 && np == 1) MINIPIC_OCC(1, true, 1);
+  if (quant && order == 1 && np == 2) MINIPIC_OCC(1, true, 2);
+  if (quant && order == 1 && np == 4) MINIPIC_OCC(1, true, 4);
+  if (quant && order == 2 && np == 1) MINIPIC_OCC(2, true, 1);
+  if (quant && order == 2 && np == 2) MINIPIC_OCC(2, true, 2);
+  if (quant && order == 2 && np == 4) MINIPIC_OCC(2, true, 4);
+#undef MINIPIC_OCC
+  return err == cudaSuccess ? blocks : -1;
 }

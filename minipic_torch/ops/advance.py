@@ -5,7 +5,8 @@ Port of ``minipic_tpu.ops.pallas.ppd_kernel.fused_push_deposit``.  Two
 implementations of one function, ``advance_tiles``:
 
 * ``csrc/advance.cu`` — the hand-written CUDA kernel, launched for CUDA
-  tensors (one thread block per tile, see the note in that file);
+  tensors (one thread block per tile; the int8 deposit as products on the
+  tensor cores, see the note in that file);
 * ``advance_plain`` — the same arithmetic as plain torch ops, over each
   particle's 3-point support.  ``advance_tiles`` takes it only for CPU
   tensors; ``chip_smoke.py`` holds the kernel against it on the card.
@@ -32,8 +33,10 @@ passes through untouched):
 Both sides use one reciprocal-square-root expression, ``1/sqrt``, and the
 CUDA build contracts no multiply-add.  On an H100 the kernel's particles
 agree with the plain version's to 1-2 ulp of the momenta (<= 2e-8
-absolute at the headline deck), int8 jx/jy cell for cell, and the f32 sums
-(jz, f32-mode J) to their atomic order.
+absolute at the headline deck), int8 jx/jy cell for cell (integer sums,
+exact in any order), int8 jz to its f32 summation order (the kernel's runs
+on the tensor cores with each row factor in three bf16 words), and f32-mode
+J to its atomic order.
 
 ``fused_push_deposit`` then applies, in torch, what the JAX wrapper applies
 after its ``pallas_call``: the uniform q*max(w) scale of int8 jx/jy and the
@@ -52,6 +55,17 @@ from ..particles.shapes import shape_values
 _THIRD = 1.0 / 3.0
 # Slots per block of tiles in the plain version (see advance_plain).
 _PLAIN_BLOCK_SLOTS = 1 << 22
+# Shared memory one block of the kernel may use on Hopper (227 KB).
+_SMEM_LIMIT = 232448
+
+
+def kernel_smem_bytes(nyg: int, nxg: int, mode: str) -> int:
+    """Dynamic shared memory of one block of csrc/advance.cu: nine f32
+    windows, and in int8 mode each of its 8 warps' operand staging (9 KB
+    of rows, 3 KB per pair of 8-column tiles: 1, 2 or 4 pairs)."""
+    pairs = 1 if nxg <= 16 else (2 if nxg <= 32 else 4)
+    stage = 8 * (9216 + 3072 * pairs) if mode == "int8" else 0
+    return 36 * nyg * nxg + stage
 
 
 def qshape_scale(order: int) -> float:
@@ -374,8 +388,22 @@ class AdvanceKernel:
             fn.argtypes = ([ctypes.c_int, ctypes.c_int, AdvanceParams]
                            + [ctypes.c_void_p] * 23)
             fn.restype = ctypes.c_int
+            occ = lib.minipic_advance_blocks_per_sm
+            occ.argtypes = [ctypes.c_int] * 4
+            occ.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def blocks_per_sm(self, order: int, mode: str, nyg: int,
+                      nxg: int) -> int:
+        """Resident blocks per SM of the kernel launched for this window
+        (the CUDA occupancy calculator's answer, from registers and shared
+        memory)."""
+        n = self._load().minipic_advance_blocks_per_sm(
+            order, int(mode == "int8"), nyg, nxg)
+        if n < 0:
+            raise RuntimeError("advance kernel: occupancy query failed")
+        return n
 
     def __call__(self, p: ParticleState, ftiles: FieldState,
                  counts: torch.Tensor, *, qm, q, order, tile_ny, tile_nx,
@@ -390,9 +418,13 @@ class AdvanceKernel:
         _check(counts, "counts", torch.int32, (T,), dev)
         if order not in (1, 2) or mode not in ("f32", "int8"):
             raise ValueError(f"order {order} / mode {mode!r} not built")
-        if 9 * nyg * nxg * 4 > 48 * 1024:
-            raise ValueError(f"window {nyg}x{nxg} exceeds the kernel's "
-                             "48 KB of shared memory")
+        if mode == "int8" and (nyg not in (8, 16) or nxg > 64):
+            raise ValueError(f"int8 window {nyg}x{nxg}: the tensor-core "
+                             "deposit takes nyg 8 or 16 and nxg <= 64")
+        if kernel_smem_bytes(nyg, nxg, mode) > _SMEM_LIMIT:
+            raise ValueError(f"window {nyg}x{nxg} needs more than the "
+                             f"{_SMEM_LIMIT} bytes of shared memory a block "
+                             "may use")
         if T % tile_cols:
             raise ValueError(f"{T} tiles not a multiple of {tile_cols} cols")
         lib = self._load()

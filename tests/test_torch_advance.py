@@ -3,6 +3,8 @@ JAX package's fused Pallas kernel, run in interpret mode, on the same
 particles and fields."""
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -220,6 +222,9 @@ def test_kernel_wrapper_checks_inputs_before_building():
         (pt, ft, counts.long(), kw),
         (pt, ft, counts, dict(kw, mode="f16")),
         (pt, ft, counts, dict(kw, order=3)),
+        # 14x14 windows: outside the tensor-core deposit's int8 rule.
+        (pt, FieldState(*(a[:, 1:-1, 1:-1].contiguous() for a in ft)),
+         counts, dict(kw, g=3)),
     ]
     for args in bad:
         with pytest.raises(ValueError):
@@ -230,16 +235,382 @@ def test_kernel_wrapper_checks_inputs_before_building():
         advance_tiles(meta, ft, counts, **kw)
 
 
-def test_no_atomics_probe_source_differs_only_by_its_define():
+@pytest.mark.parametrize("name", ["no-staging", "no-jz-products",
+                                  "no-int8-products", "checked-gather"])
+def test_probe_variants_edit_the_source_once(name):
+    """Each of the probe's part-removing copies matches the kernel source
+    once and changes only that text."""
     from minipic_torch.ops._build import CSRC
-    from minipic_torch.probe_atomics import no_atomics_source
+    from minipic_torch.probe_atomics import VARIANTS, variant_source
 
     src = (CSRC / "advance.cu").read_text()
-    probe = no_atomics_source()
-    define = "#define atomicAdd(addr, val) ((void)0)\n"
+    old, new = VARIANTS[name]
+    assert src.count(old) == 1
+    assert variant_source(name) == src.replace(old, new) != src
+
+
+def test_no_atomics_probe_source_differs_only_by_its_define():
+    from minipic_torch.ops._build import CSRC
+    from minipic_torch.probe_atomics import no_deposit_source
+
+    src = (CSRC / "advance.cu").read_text()
+    probe = no_deposit_source()
+    define = "#define MINIPIC_NO_DEPOSIT 1\n"
     assert probe.count(define) == 1
-    # The define follows the CUDA include, so it reaches only the kernel's
-    # own atomicAdd calls, and nothing else changes.
+    # The define follows the CUDA include and comes before the source's own
+    # default, which it overrides; nothing else changes.
     assert probe.index(define) > probe.index("#include <cuda_runtime.h>")
-    assert probe.index(define) < probe.index("atomicAdd(&")
+    assert probe.index(define) < probe.index("#ifndef MINIPIC_NO_DEPOSIT")
+    assert "kDeposit = !MINIPIC_NO_DEPOSIT" in src
     assert probe.replace(define, "", 1) == src
+
+
+# ----------------------------------------------------------------------
+# The kernel's int8 deposit as csrc/advance.cu decomposes it, emulated in
+# numpy: 32-slot warp slabs, dense int8 operand rows over the window, one
+# int32 product per slab (mma.sync m16n8k32 on the card), and the particles
+# with an operand outside int8 routed to an int32 scatter.
+
+def _int8_operands(pt, counts, x1, y1, kw):
+    """Per slot, what a lane of the kernel computes for the int8 product,
+    from the plain version's own helpers: (live [T, cap], row0 and col0 of
+    the 4x4 union support in window cells, and the operands a_y = q0y+q1y,
+    a_x = q1x-q0x (jx), r_y = q1y-q0y, r_x = q0x+q1x (jy), [T, cap, 4]
+    int64).  x1, y1: the stored (wrapped) positions after the push."""
+    from minipic_torch.ops import advance as adv
+
+    T, cap = pt.x.shape
+    g, order = kw["g"], kw["order"]
+    nyg, nxg = kw["tile_ny"] + 2 * g, kw["tile_nx"] + 2 * g
+    c32 = {n: adv._f(v, pt.x) for n, v in adv._constants(
+        qm=kw["qm"], q=kw["q"], order=order, tile_ny=kw["tile_ny"],
+        tile_nx=kw["tile_nx"], dt=kw["dt"], dx=kw["dx"], dy=kw["dy"],
+        grid=kw["grid"], mode="int8").items()}
+    t = torch.arange(T)[:, None]
+    ox = ((t % kw["tile_cols"]) * kw["tile_nx"]).float()
+    oy = ((t // kw["tile_cols"]) * kw["tile_ny"]).float()
+    fx = (c32["grid_nx"], c32["half_x"], c32["inv_nx"])
+    fy = (c32["grid_ny"], c32["half_y"], c32["inv_ny"])
+    four = torch.arange(4, dtype=torch.float32)
+
+    def axis(p0, p1, origin, fo, n_rows):
+        a0 = adv._fold(p0, origin, *fo).reshape(-1)
+        a1 = adv._fold(p1, origin, *fo).reshape(-1)
+        c0, v0 = adv._support(a0, False, n_rows, g, order, True, c32["S"])
+        c1, v1 = adv._support(a1, False, n_rows, g, order, True, c32["S"])
+        base = torch.minimum(c0, c1) - 1.0
+        cells = base[:, None] + four
+        q0, q1 = adv._place4(cells, c0, v0), adv._place4(cells, c1, v1)
+        as_int = lambda a: a.numpy().astype(np.int64).reshape(T, cap, 4)
+        return (base.long() + g).numpy().reshape(T, cap), as_int(q0), \
+            as_int(q1)
+
+    row0, q0y, q1y = axis(pt.y, y1, oy, fy, nyg)
+    col0, q0x, q1x = axis(pt.x, x1, ox, fx, nxg)
+    slot = np.arange(cap)[None, :]
+    live = (slot < counts.numpy()[:, None]) & (pt.w.numpy() != 0)
+    return live, row0, col0, q0y + q1y, q1x - q0x, q1y - q0y, q0x + q1x
+
+
+def _product_route(ops):
+    """The kernel's rule: a live particle goes to the product when all 16
+    of its operand values fit int8's [-127, 127]; else to the scatter."""
+    live, _, _, *vals = ops
+    fits = (np.abs(np.concatenate(vals, axis=-1)) <= 127).all(-1)
+    return live & fits, live & ~fits
+
+
+def _emulate_int8_deposit(ops, nyg, nxg):
+    """int32 jx, jy windows [T, nyg, nxg] summed as the kernel sums them."""
+    live, row0, col0, ay, ax, ry, rx = ops
+    T, cap = live.shape
+    n_slab = -(-cap // 32)
+    npad = 16 * (1 if nxg <= 16 else (2 if nxg <= 32 else 4))
+    prod, scatter = _product_route(ops)
+    # Dense operands per slab, clipped to the window: A [16 rows, 32
+    # particles] (rows past nyg stay zero), B [32 particles, npad columns].
+    A = np.zeros((2, T, n_slab, 16, 32), np.int8)
+    B = np.zeros((2, T, n_slab, 32, npad), np.int8)
+    for j in range(4):
+        for base, lim, dense, pair, trans in ((row0, nyg, A, (ay, ry), False),
+                                              (col0, nxg, B, (ax, rx), True)):
+            at = base + j
+            t, s = np.nonzero(prod & (at >= 0) & (at < lim))
+            for m, op in enumerate(pair):
+                vals = op[t, s, j]
+                assert np.abs(vals).max(initial=0) <= 127
+                if trans:
+                    dense[m, t, s // 32, s % 32, at[t, s]] = vals
+                else:
+                    dense[m, t, s // 32, at[t, s], s % 32] = vals
+    out = []
+    for m, (lo, hi) in enumerate(((ay, ax), (ry, rx))):
+        win = np.matmul(A[m].astype(np.int32), B[m].astype(np.int32))
+        win = win.sum(axis=1, dtype=np.int64)[:, :nyg, :nxg]
+        for j in range(4):
+            for i in range(4):
+                r, c = row0 + j, col0 + i
+                t, s = np.nonzero(scatter & (r >= 0) & (r < nyg) & (c >= 0)
+                                  & (c < nxg))
+                np.add.at(win, (t, r[t, s], c[t, s]),
+                          lo[t, s, j] * hi[t, s, i])
+        out.append(win)
+    return out, prod, scatter
+
+
+def _bf16_words(v, n=3):
+    """f32 values split as the kernel splits them: n bf16 words (round to
+    nearest even), largest first, each as f32; their sum is v to ~2^-24."""
+    words = []
+    for _ in range(n):
+        u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+        u = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+        wv = u.view(np.float32)
+        words.append(wv)
+        v = (np.asarray(v, np.float32) - wv).astype(np.float32)
+    return words
+
+
+def _emulate_jz(ops, pt, out, kw, c32, nyg, nxg):
+    """jz [T, nyg, nxg] as the kernel's bf16 tensor-core product forms it:
+    rows lz0 = czq q0y / 2 and lz1 = czq (q1y - q0y) / 6 in three bf16
+    words, integer columns rz0 = q0x + q1x and rz1 = q0x + 2 q1x; summed in
+    f64 here (the card's products of bf16 words are exact in f32)."""
+    live, row0, col0, ay, ax, ry, rx = ops
+    q0y, q1y = (ay - ry) // 2, (ay + ry) // 2
+    q0x, q1x = (rx - ax) // 2, (rx + ax) // 2
+    pxn, pyn, pzn = out[2:5]
+    gn = torch.reciprocal(torch.sqrt(1.0 + pxn * pxn + pyn * pyn
+                                     + pzn * pzn))
+    cz = (c32["q"] * pt.w) * (pzn * gn) * c32["cz"]
+    czq = (cz * c32["czq"]).numpy()[..., None]
+    f32 = np.float32
+    l0 = f32(0.5) * (q0y.astype(f32) * czq)
+    l1 = ((q1y - q0y).astype(f32) * czq) * f32(1.0 / 6.0)
+    L0 = sum(w.astype(np.float64) for w in _bf16_words(l0))
+    L1 = sum(w.astype(np.float64) for w in _bf16_words(l1))
+    R0, R1 = (q0x + q1x).astype(np.float64), (q0x + 2 * q1x).astype(
+        np.float64)
+    assert max(np.abs(R0).max(), np.abs(R1).max()) <= 256  # exact in bf16
+    win = np.zeros((live.shape[0], nyg, nxg))
+    for j in range(4):
+        for i in range(4):
+            r, c = row0 + j, col0 + i
+            t, s = np.nonzero(live & (r >= 0) & (r < nyg) & (c >= 0)
+                              & (c < nxg))
+            np.add.at(win, (t, r[t, s], c[t, s]),
+                      L0[t, s, j] * R0[t, s, i] + L1[t, s, j] * R1[t, s, i])
+    return win
+
+
+def _shuffled(p, seed=5):
+    """`p` with each tile's slots in a random order (dead slots mixed in)."""
+    rng = np.random.default_rng(seed)
+    T, cap = np.asarray(p.x).shape
+    perm = np.argsort(rng.random((T, cap)), axis=1)
+    return type(p)(*(np.take_along_axis(np.asarray(a), perm, axis=1)
+                     for a in p))
+
+
+@pytest.mark.parametrize("layout", ["lattice", "shuffled"])
+@pytest.mark.parametrize("kchunk", [32, 0])
+@pytest.mark.parametrize("order", [1, 2])
+def test_int8_tensor_core_decomposition_matches_plain_and_pallas(
+        order, kchunk, layout):
+    """The emulated decomposition equals advance_plain's raw int8 jx/jy bit
+    for bit, and after the epilogue JAX's interpreted kernel within the
+    int8 bar of test_plain_advance_matches_pallas_interpret; its jz (bf16
+    words) equals the plain jz to 1e-6 of the peak (the card is held to
+    1e-5, its f32 sums run in another order)."""
+    deck, tiling, p, ftiles = _fixture(order=order, guard=4, kchunk=kchunk)
+    if layout == "shuffled":
+        p = _shuffled(p)
+    pt = _torch(p, ParticleState)
+    ft = _torch(ftiles, FieldState)
+    counts = live_watermark(pt.w)
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
+              tile_cols=4, g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy,
+              grid=(32, 32), mode="int8")
+    out, (jx, jy, jz), _ = advance_plain(pt, ft, counts, **kw)
+    ops = _int8_operands(pt, counts, out[0], out[1], kw)
+    (wx, wy), prod, scatter = _emulate_int8_deposit(ops, 16, 16)
+    assert prod.sum() == int((pt.w > 0).sum()) and not scatter.any()
+    from minipic_torch.ops import advance as adv
+    k32 = {n: adv._f(v, pt.x) for n, v in adv._constants(
+        qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8, dt=deck.dt,
+        dx=deck.dx, dy=deck.dy, grid=(32, 32), mode="int8").items()}
+    ez = _emulate_jz(ops, pt, out, kw, k32, 16, 16)
+    np.testing.assert_allclose(ez, jz.numpy(), rtol=0,
+                               atol=1e-6 * float(jz.abs().max()))
+    c32 = {n: torch.tensor(v, dtype=torch.float32) for n, v in
+           (("cjx", -1.0 / (2 * qshape_scale(order) ** 2 * deck.dt
+                            * deck.dy)),
+            ("cjy", -1.0 / (2 * qshape_scale(order) ** 2 * deck.dt
+                            * deck.dx)))}
+    ex = torch.from_numpy(wx).to(torch.float32) * c32["cjx"]
+    ey = torch.from_numpy(wy).to(torch.float32) * c32["cjy"]
+    assert torch.equal(ex, jx) and torch.equal(ey, jy)
+
+    _, (jxj, jyj, _), _ = _jax_advance(deck, tiling, p, ftiles, "int8")
+    qws = torch.tensor(-1.0) * pt.w.max()
+    for name, raw, dim, ref in (("jx", ex, -1, jxj), ("jy", ey, -2, jyj)):
+        got = torch.cumsum(raw * qws, dim=dim).numpy()
+        ref = np.asarray(ref)
+        scale = max(1e-12, float(np.abs(ref).max()))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=3e-6 * scale,
+                                   err_msg=name)
+
+
+# The staging layouts of csrc/advance.cu (Stage), transcribed: where each
+# operand element (row or column, particle k) goes, and what each lane
+# loads for its mma fragments.
+def _int8_at(rc, k):
+    return 32 * rc + k  # byte; A by row, B by column
+
+
+def _za_at(r, k):
+    return 32 * r + (k ^ ((r & 1) << 2))  # 16-byte chunk
+
+
+def _zb_at(c, k):
+    pair = (k & ~7) | ((k & 3) << 1) | ((k >> 2) & 1)
+    return 32 * c + (pair ^ ((c & 7) << 2))  # 32-bit word
+
+
+@pytest.mark.parametrize("pairs", [1, 2, 4])
+def test_staging_layout_gives_each_lane_its_mma_fragments(pairs):
+    """Each lane's loads (Stage::int8_products, Stage::jz_products) must
+    fetch its mma.sync fragments (PTX ISA), lane = 4 grp + t.  int8
+    (m16n8k32 .s8): A registers a0..a3 hold rows grp, grp+8, grp, grp+8 x
+    particles 4t + 0..3 (+16 for the 3rd and 4th); B registers b0, b1 of
+    column tile nt hold column grp x particles 4t + 0..3 (+16 for b1).  jz
+    (m16n8k16 .bf16, k = 2 particle + term, one 32-bit word a particle):
+    per k-step ks, A registers rows grp, grp+8, grp, grp+8 x particles
+    8ks + t, t, 4+t, 4+t; B registers column grp x particles 8ks + t, 4+t.
+    Every element has its own place, and the loads spread over the banks."""
+    ncol = 16 * pairs
+    a_seen = {_int8_at(r, k): (r, k) for r in range(16) for k in range(32)}
+    b_seen = {_int8_at(c, k): (c, k) for c in range(ncol) for k in range(32)}
+    za_seen = {_za_at(r, k): (r, k) for r in range(16) for k in range(32)}
+    zb_seen = {_zb_at(c, k): (c, k) for c in range(ncol) for k in range(32)}
+    assert sorted(a_seen) == list(range(512))
+    assert sorted(b_seen) == list(range(512 * pairs))
+    assert sorted(za_seen) == list(range(512))
+    assert sorted(zb_seen) == list(range(512 * pairs))
+    a_banks, zb_banks = [], []
+    for lane in range(32):
+        grp, t = lane >> 2, lane & 3
+        # int8: the kernel's word addresses 32 grp + {0, 256, 16, 272} + 4t.
+        for reg, off in enumerate((0, 256, 16, 272)):
+            at = 32 * grp + off + 4 * t
+            for e in range(4):
+                assert a_seen[at + e] == (grp + 8 * (reg & 1),
+                                          4 * t + e + 16 * (reg >> 1))
+            if reg == 0:
+                a_banks.append((at // 4) % 32)
+        for nt in range(2 * pairs):
+            for reg in range(2):
+                at = 32 * (8 * nt + grp) + 4 * t + 16 * reg
+                for e in range(4):
+                    assert b_seen[at + e] == (8 * nt + grp,
+                                              4 * t + e + 16 * reg)
+        # jz
+        sw = (grp & 1) << 2
+        for ks in range(4):
+            p0, p1 = 8 * ks + t, 8 * ks + 4 + t
+            for reg, (row, p) in enumerate(((grp, p0), (grp + 8, p0),
+                                            (grp, p1), (grp + 8, p1))):
+                assert za_seen[32 * row + (p ^ sw)] == (
+                    grp + 8 * (reg & 1), 8 * ks + 4 * (reg >> 1) + t)
+            for nt in range(2 * pairs):
+                c = 8 * nt + grp
+                at = 32 * c + ((8 * ks + 2 * t) ^ (grp << 2))  # 8 bytes
+                assert at % 2 == 0
+                for reg in range(2):
+                    assert zb_seen[at + reg] == (c, 8 * ks + 4 * reg + t)
+                if ks == 0 and nt == 0:
+                    zb_banks += [at % 32, (at + 1) % 32]
+    # int8 A: two lanes a bank; jz B (8-byte loads): two lanes a bank, the
+    # 2 passes of 256 bytes; jz A (16-byte loads): four lanes to each group
+    # of four banks, the 4 passes of 512 bytes.
+    assert max(a_banks.count(b) for b in a_banks) == 2
+    assert max(zb_banks.count(b) for b in zb_banks) == 2
+    for ks in range(4):
+        groups = [(32 * (lane >> 2) + ((8 * ks + (lane & 3))
+                                       ^ (((lane >> 2) & 1) << 2))) % 8
+                  for lane in range(32)]
+        assert max(groups.count(g) for g in groups) == 4
+
+
+@settings(max_examples=200, deadline=None)
+@given(ey=st.floats(-4.6, 11.6), ex=st.floats(-4.6, 11.6),
+       dy=st.floats(-0.45, 0.45), dx=st.floats(-0.45, 0.45),
+       order=st.sampled_from([1, 2]))
+def test_int8_operands_fit_or_take_the_scatter(ey, ex, dy, dx, order):
+    """Over positions across the whole 16x16 window, its edge cells
+    included: every operand the emulation sends to the product lies in
+    [-127, 127]; a particle whose centre cells stay off the window's edge
+    rows and columns always takes the product."""
+    ops, nudge = _one_particle_ops(ex, ey, dx, dy, order)
+    prod, scatter = _product_route(ops)
+    assert prod[0, 0] != scatter[0, 0]
+    (wx, wy), _, _ = _emulate_int8_deposit(ops, 16, 16)  # asserts the range
+    c = [np.floor(v + 0.5) + 4 for v in (ex, ey, ex + nudge[0],
+                                          ey + nudge[1])]
+    if all(1 <= v <= 14 for v in c):
+        assert prod[0, 0]
+
+
+def _one_particle_ops(ex, ey, dx, dy, order):
+    """Operands of one particle of tile 0 (32^2 grid, 8x8 tiles, guard 4)
+    at tile-local (ex, ey), moved by (dx, dy) cells."""
+    T, cap = 16, 32
+    x0 = np.zeros((T, cap), np.float32)
+    y0 = np.zeros((T, cap), np.float32)
+    w = np.zeros((T, cap), np.float32)
+    x0[0, 0], y0[0, 0], w[0, 0] = np.float32(ex % 32), np.float32(ey % 32), 1
+    x1 = np.remainder(x0 + np.float32(dx), np.float32(32))
+    y1 = np.remainder(y0 + np.float32(dy), np.float32(32))
+    pt = ParticleState(*(torch.from_numpy(a) for a in
+                         (x0, y0, x0, x0, x0, w)))
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
+              tile_cols=4, g=4, dt=0.1, dx=0.1, dy=0.1, grid=(32, 32))
+    ops = _int8_operands(pt, live_watermark(pt.w), torch.from_numpy(x1),
+                         torch.from_numpy(y1), kw)
+    return ops, (dx, dy)
+
+
+def test_edge_fold_particle_takes_the_scatter_and_matches_plain():
+    """A TSC particle at rest whose centre cell is guard row and column 0
+    (tile-local -3.9): the edge fold lifts its centre value to 68, q0+q1
+    to 136, out of int8; the emulation sends it to the scatter and still
+    equals advance_plain's raw jx/jy."""
+    ops, _ = _one_particle_ops(-3.9, -3.9, 0.0, 0.0, 2)
+    prod, scatter = _product_route(ops)
+    assert scatter[0, 0] and not prod.any()
+    assert int(ops[3][0, 0].max()) > 127  # a_y = q0y + q1y
+
+    deck, tiling, p, ftiles = _fixture(order=2, guard=4, kchunk=0)
+    pt = _torch(p, ParticleState)
+    every = np.zeros(pt.w.shape, bool)
+    every[:, ::7] = True
+    edge = torch.from_numpy(every) & (pt.w > 0)
+    t = torch.arange(pt.x.shape[0])[:, None]
+    ex = torch.remainder((t % 4) * 8 - 3.9 + 0.2 * (pt.x % 1), 32).float()
+    ey = torch.remainder((t // 4) * 8 - 3.9 + 0.2 * (pt.y % 1), 32).float()
+    pt = pt._replace(x=torch.where(edge, ex, pt.x),
+                     y=torch.where(edge, ey, pt.y))
+    ft = _torch(ftiles, FieldState)
+    counts = live_watermark(pt.w)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,
+              g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=(32, 32),
+              mode="int8")
+    (x1, y1, *_), (jx, jy, _), _ = advance_plain(pt, ft, counts, **kw)
+    ops = _int8_operands(pt, counts, x1, y1, kw)
+    (wx, wy), prod, scatter = _emulate_int8_deposit(ops, 16, 16)
+    assert scatter.sum() > 0 and prod.sum() > scatter.sum()
+    c = -1.0 / (2 * 83.0 ** 2 * deck.dt)
+    assert torch.equal(torch.from_numpy(wx).float()
+                       * torch.tensor(c / deck.dy, dtype=torch.float32), jx)
+    assert torch.equal(torch.from_numpy(wy).float()
+                       * torch.tensor(c / deck.dx, dtype=torch.float32), jy)

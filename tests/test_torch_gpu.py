@@ -14,7 +14,7 @@ from minipic_torch.core.state import FieldState, ParticleState  # noqa: E402
 from minipic_torch.ops.advance import (  # noqa: E402
     AdvanceKernel, advance_kernel, advance_plain, advance_tiles,
     live_watermark)
-from minipic_torch.probe_atomics import no_atomics_source  # noqa: E402
+from minipic_torch.probe_atomics import no_deposit_source  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -75,6 +75,92 @@ def test_kernel_matches_plain_on_the_card(cuda, order, mode):
     torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0)
 
 
+def _lattice(p, every=0):
+    """`p` with its 700 live particles per tile put in lattice order (11 to
+    a cell, consecutive slots in one cell, so a warp's lanes share few
+    bases); with `every`, each every-th of them moved 3.6-3.9 cells below
+    and left of its tile, into the window-edge fold (centre cell at guard
+    row and column 0), where q0+q1 leaves int8."""
+    dev = p.x.device
+    T, cap = p.x.shape
+    s = torch.arange(cap, device=dev)[None, :].expand(T, cap)
+    t = torch.arange(T, device=dev)[:, None]
+    cell = s // 11
+    x = (t % 4) * 8 + (cell % 8) + ((s % 11) + 0.5) / 11
+    y = (t // 4) * 8 + (cell // 8) % 8 + 0.5
+    if every:
+        edge = (s % every == 0)
+        x = torch.where(edge, (t % 4) * 8 - 3.9 + 0.3 * p.x / 32, x)
+        y = torch.where(edge, (t // 4) * 8 - 3.9 + 0.3 * p.y / 32, y)
+    live = p.w > 0
+    return p._replace(
+        x=torch.where(live, torch.remainder(x.float(), 32), p.x),
+        y=torch.where(live, torch.remainder(y.float(), 32), p.y))
+
+
+@pytest.mark.parametrize("mode", ["int8", "f32"])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("every", [0, 16])
+def test_kernel_matches_plain_in_lattice_order_and_the_edge_fold(
+        cuda, every, order, mode):
+    """Lattice order takes the warp pre-reduction of jz (and of f32 J); the
+    edge fold sends int8 jx/jy through the scatter beside the product."""
+    p, ft = _inputs(cuda)
+    p = _lattice(p, every)
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
+              tile_cols=4, g=4, dt=0.035, dx=0.1, dy=0.1, grid=(32, 32),
+              mode=mode)
+    pk, jk, dk = advance_tiles(p, ft, counts, **kw)
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(pk, pp):
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=2e-6)
+    for name, a, b in zip(("jx", "jy", "jz"), jk, jp):
+        if mode == "int8" and name != "jz":
+            assert torch.equal(a, b), name
+        else:
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("tile_nx", [16, 32])
+def test_int8_kernel_matches_plain_on_wider_windows(cuda, tile_nx):
+    """Windows 16 x 24 and 16 x 40 (2 and 4 pairs of column tiles in the
+    tensor-core products; the headline's are 16 x 16)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    T, cap, g = 4, 1024, 4
+    nx, ny = 2 * tile_nx, 16
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=cuda)
+
+    t = torch.arange(T, device=cuda)[:, None]
+    x = torch.remainder((t % 2) * tile_nx + rnd(T, cap) * (tile_nx + 2) - 1,
+                        nx)
+    y = torch.remainder((t // 2) * 8 + rnd(T, cap) * 10 - 1, ny)
+    mom = [(rnd(T, cap) - 0.5) * 0.4 for _ in range(3)]
+    w = ((torch.arange(cap, device=cuda)[None, :] < 900).float()
+         * 0.004).expand(T, cap).contiguous()
+    p = ParticleState(x, y, *mom, w)
+    ft = FieldState(*((rnd(T, 16, tile_nx + 2 * g) - 0.5) * 0.2
+                      for _ in range(6)))
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=tile_nx,
+              tile_cols=2, g=g, dt=0.035, dx=0.1, dy=0.1, grid=(nx, ny),
+              mode="int8")
+    pk, jk, dk = advance_tiles(p, ft, counts, **kw)
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(pk, pp):
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=2e-6)
+    assert torch.equal(jk[0], jp[0]) and torch.equal(jk[1], jp[1])
+    torch.testing.assert_close(jk[2], jp[2], rtol=0,
+                               atol=1e-5 * float(jp[2].abs().max()))
+    torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0)
+
+
 def test_kernel_wrapper_rejects_bad_inputs(cuda):
     p, ft = _inputs(cuda)
     counts = live_watermark(p.w)
@@ -96,8 +182,8 @@ def test_no_atomics_probe_pushes_alike_and_deposits_nothing(cuda, tmp_path,
                                                             mode):
     """The probe's variant (probe_atomics) differs from the kernel only in
     the deposit: same particles and displacements, all-zero J."""
-    src = tmp_path / "advance_noatomics.cu"
-    src.write_text(no_atomics_source())
+    src = tmp_path / "advance_nodeposit.cu"
+    src.write_text(no_deposit_source())
     p, ft = _inputs(cuda)
     counts = live_watermark(p.w)
     kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,

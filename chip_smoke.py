@@ -6,7 +6,8 @@
 Phases, each printing what it found; any failure exits non-zero:
 
 1. build: compiles the advance kernel (csrc/advance.cu) and the re-bin
-   kernels (csrc/rebin.cu) from this checkout, one nvcc each, at once;
+   kernels (csrc/rebin.cu) from this checkout, one nvcc each, at once,
+   and prints each kernel's registers, shared memory and spills (ptxas);
 2. kernel: the advance kernel against its plain torch version on the card,
    on 64 tiles of the headline tile shape (8x8, guard 4, 27136 slots,
    thermal particles, non-zero fields) in int8 and f32 modes, TSC and CIC,
@@ -16,8 +17,9 @@ Phases, each printing what it found; any failure exits non-zero:
    each re-bin kernel against its plain version on 64-tile subsets with
    stale buckets, equal in every channel of every slot: the split
    (normal, pending, forced), the segment (overflow, a >1-hop mover), the
-   append, append_runs (also equal to the append), the extract (normal,
-   pending, forced, holes) and the defrag (merged, hole-ridden) at the
+   append, append_runs (also equal to the append, and with empty runs),
+   the extract (normal, pending, forced, holes, and a ragged 27099-slot
+   bucket unforced and forced) and the defrag (merged, hole-ridden) at the
    headline's tile shape; append_incoming (normal, a tile that does not
    fit, inactive) and the defrag with a dense incoming slab at the physics
    decks' (1536 slots); and ``rebin_auto`` on both routes and
@@ -46,9 +48,10 @@ Phases, each printing what it found; any failure exits non-zero:
    shuffled), with the whole deal-route re-bin (fused and through
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
    that state;
-8. device time: append_incoming on the decks' states and the two copy
-   kernels of the main path, from one torch.profiler run (their wrappers
-   take longer on the host than they do on the card).
+8. device time: the launch floor (a one-element ``zero_()``),
+   append_incoming on the decks' states and the two copy kernels of the
+   main path, from one torch.profiler run (their wrappers take longer on
+   the host than they do on the card).
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that drives it, its error against the plain version, both
@@ -144,8 +147,9 @@ def device_times(jobs) -> list:
     """Mean device time in ms of each job's kernel, from one torch.profiler
     run: for kernels shorter than their wrapper's host time, where CUDA
     events around a loop of calls measure the host.  `jobs` is a list of
-    (fn, reps, kernel name); each job runs `reps` times in order, and its
-    launches are told from the next job's by their order on the stream.
+    (fn, reps, kernel name or tuple of names); each job runs `reps` times
+    in order, and its launches are told from the next job's by their order
+    on the stream.
     Call it last: in one process, profiling slows what runs after it, and
     a second profile sees no kernels."""
     import torch
@@ -165,7 +169,9 @@ def device_times(jobs) -> list:
                      key=lambda e: e.time_range.start)
     out, used = [], set()
     for _, reps, name in jobs:
-        mine = [e for e in kernels if name in e.name and id(e) not in used]
+        names = (name,) if isinstance(name, str) else name
+        mine = [e for e in kernels if id(e) not in used
+                and any(n in e.name for n in names)]
         check(len(mine) >= reps, f"profiler saw {len(mine)} {name} "
               f"launches for {reps}")
         mine = mine[:reps]
@@ -200,10 +206,16 @@ def phase_build() -> None:
         print(f"build: minipic_torch/csrc/{src} -> "
               f"{b.path.relative_to(ROOT)} in {b.seconds:.1f} s")
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("Function properties", "registers",
+                                       "spill")):
                 print(f"build: ptxas: {line.strip()}")
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s")
+    from minipic_torch.ops.rebin import extract_smem_bytes
+
+    print("build: extract_kernel: dynamic shared memory "
+          f"{extract_smem_bytes(27136)} bytes a block at the headline's "
+          "27136-slot buckets (ballot words and per-warp totals)")
 
 
 def _shuffle_slots(p, counts, gen):
@@ -606,24 +618,42 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
     _same(got_d, fused_d, "append_runs dropped against the fused append")
     print(f"kernel: append_runs: {int((inc.w > 0).sum())} arrivals in runs "
           f"of {sc}: equal to its plain version and to the fused append")
+    # The same runs with runs 0, 3 and 7 of every tile emptied: the flat
+    # copy steps over them.
+    gone = torch.zeros(8, dtype=torch.bool, device=dev)
+    gone[[0, 3, 7]] = True
+    gone = gone.repeat_interleave(sc)[None, :]
+    sparse = type(inc)(*(torch.where(gone, torch.zeros_like(a), a)
+                         for a in inc))
+    want, want_d = rb.append_runs_plain(p1, sparse, wm, b_seg=sc)
+    got = _clone(p1)
+    got_d = rb.append_runs_kernel(got, sparse, wm, b_seg=sc)
+    _same(got, want, "append_runs with empty runs")
+    _same(got_d, want_d, "append_runs with empty runs dropped")
+    print(f"kernel: append_runs with runs 0, 3 and 7 empty: "
+          f"{int((sparse.w > 0).sum())} arrivals: equal")
 
     holes = torch.rand(p.w.shape, device=dev) < 0.3
     ridden = p._replace(w=torch.where(holes, torch.zeros_like(p.w), p.w))
-    for label, q, b_cap, force in (("normal", p, mc, False),
-                                   ("pending", p, 1024, False),
-                                   ("forced", p, 1024, True),
-                                   ("holes", ridden, mc, False)):
+    # 27099 slots: the last ballot word is ragged, and the JAX rule's chunk
+    # is the whole bucket, so an unforced tile with movers does not extract
+    # (its w is put back).
+    ragged = type(p)(*(a[:, :cap - 37].contiguous() for a in p))
+    for label, q, b_cap, force, short in (
+            ("normal", p, mc, False, False), ("pending", p, 1024, False, True),
+            ("forced", p, 1024, True, True), ("holes", ridden, mc, False, False),
+            ("ragged", ragged, mc, False, True),
+            ("ragged forced", ragged, mc, True, False)):
         kw = dict(grid, b_cap=b_cap, force=force)
         got = rb.extract_kernel(q, **kw)
         want = rb.extract_movers_plain(q, **kw)
         for i, (a, b) in enumerate(zip(got, want)):
             _same(a, b, f"extract {label} output {i}")
         n_pend = int(want[3].sum())
-        print(f"kernel: extract {label}: buffer {b_cap}, "
-              f"{_live(want[1])} movers out, {n_pend} "
+        print(f"kernel: extract {label}: buckets {q.x.shape[1]}, buffer "
+              f"{b_cap}, {_live(want[1])} movers out, {n_pend} "
               f"{'dropped' if force else 'pending'}: equal")
-        check((n_pend > 0) == (label in ("pending", "forced")),
-              f"extract {label}: {n_pend} not kept")
+        check((n_pend > 0) == short, f"extract {label}: {n_pend} not kept")
 
     sdeck, scap, sp = _physics_subset(dev)
     st = sdeck.tiling
@@ -1454,14 +1484,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     numbers, jobs = phase_main(dev, card)
     numbers["append_runs"]["launches"] = runs_launches
-    # Device times last, in one profile (device_times).
+    # Device times last, in one profile (device_times).  First the launch
+    # floor: the smallest kernel PyTorch launches, a one-element zero_(), by
+    # the name of its fill kernel (or a memset); it runs before anything
+    # else fills in the profile.
     decks = list(b6)
-    times = device_times([b6[d].pop("job") for d in decks] + jobs)
+    one = torch.ones(1, device=dev)
+    floor_job = (one.zero_, 20, ("FillFunctor", "fill", "Memset"))
+    floor_ms, *times = device_times(
+        [floor_job] + [b6[d].pop("job") for d in decks] + jobs)
     for d, ms in zip(decks, times):
         v = b6[d]
         v["ms"] = ms
         print(f"device: append_incoming on {d}'s final state ({v['shape']}): "
-              f"kernel {ms:.4f} ms on the device (profiler), "
+              f"kernel {ms:.4f} ms on the device (profiler), launch floor "
+              f"(a one-element zero_()) {floor_ms:.4f} ms, "
               f"{v['wrapper_ms']:.4f} ms a call through the wrapper (CUDA "
               f"events), plain {v['plain_ms']:.3f} ms, bound "
               f"{v['bound_ms']:.4f} ms [{card}]")

@@ -25,17 +25,23 @@
 // other channels once and writes every bucket slot (~6.7 GB); the segment
 // reads the mover buffers and writes the runs (~0.5 GB); the append copies
 // only the arrivals (~0.05 GB).  The defrag, when it runs, reads and writes
-// every bucket slot.  So HBM bounds them: measured on an H100 80GB HBM3 at
-// 700 W, the split takes 2.56 ms (~2.5 TB/s), the segment 0.36 ms, the
-// append 0.1 ms and the defrag 2.1 ms.  The design keeps each tile's
-// streams coalesced (consecutive threads, consecutive slots) and does the
-// ranking in registers and a few shared words, with no global atomics on
-// the data path.
+// every bucket slot.  HBM bounds the work, but a chunk loop with barriers
+// need not reach it: measured on an H100 80GB HBM3 at 700 W, the split takes
+// 2.56 ms (~2.5 TB/s, 0.65 of its bound), the segment 0.36 ms, the append
+// 0.08 ms and the defrag 2.1 ms, while the first extract, the same chunk
+// loop over a third of the bytes, took 2.19 ms, 0.28 of its bound: a tile
+// was a dependent chain of 53 chunk scans, three barriers each, so latency
+// bound it.  The extract and the row append (below) are built the other
+// way: one pass over each stream with loads in flight, ranks from ballot
+// words kept in shared memory, one block phase per tile.  Every kernel
+// keeps each tile's streams coalesced (consecutive threads, consecutive
+// slots) and does the ranking in registers and shared words, with no
+// global atomics on the data path.
 //
 // Branch choice on the device.  rebin_auto launches the append and the defrag
 // together with complementary 0-d flags (all buckets keep 256 slots of
-// headroom, or not); a block whose flag is clear returns at once, so the
-// choice needs no host read.  Block 0 of the active kernel adds one to its
+// headroom, or not); a block whose flag is clear returns at once (the row
+// append after its count loads), so the choice needs no host read.  Block 0 of the active kernel adds one to its
 // `taken` counter.
 
 #include <cuda_runtime.h>
@@ -97,6 +103,17 @@ __device__ __forceinline__ int block_sum(int v, int* sh) {
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += sh[w];
   __syncthreads();
   return s;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 __device__ __forceinline__ int block_max(int v, int* sh) {
@@ -389,15 +406,27 @@ __global__ void defrag_kernel(DefragArgs a) {
 //
 // Replaces rebin_kernels.py _append_kernel (:1220) and _append_runs_kernel
 // (:1474).  Each run is live-compacted, so its count of w > 0 is its length;
-// the runs are written one after another at [wm, wm + n_in).  Bytes: the
-// incoming w row is read twice (the fits total, then per-run counts) and
-// only the live arrivals are copied, 6 channels read and written, so HBM
-// bounds it at ~(2*4*b_in + 48*n_in) bytes per tile.  The TPU kernels
-// stream a 128-aligned slab around the watermark and keep 128 slots of
-// slack for its anchor; here every thread copies one slot per pass, so
-// the write starts at wm exactly and a tile fits when wm + n_in <= cap.
+// the runs are written one after another at [wm, wm + n_in).
+//
+// Bytes bound it: the incoming w row read once and the live arrivals' six
+// channels read and written, ~(4 * runs * b_run + 48 * n_in) bytes a tile
+// (0.045 ms at the headline's 8 runs of 768; ~0.2 us for the physics decks'
+// one row over 64-256 tiles, below any launch).  The first design lost to
+// latency: it read the w row twice (the fit total, then each run's count),
+// paid two barriers a run, and copied run after run, each run's few
+// arrivals spread over the whole block.  This one counts each run once
+// (runs == 8: warp r counts run r, as the append does; one run: every warp
+// a share of the row; else warps take runs in turn), sums the counts behind
+// one barrier, and copies [0, n_in) in one flat loop: arrival i is slot
+// i - off[r] of the run r with off[r] <= i < off[r + 1], so every thread
+// copies and no run waits for the one before it.  The flag, the watermark
+// and the w row are loaded together: one round trip before the barrier,
+// one after it.  The TPU kernels stream a 128-aligned slab around the
+// watermark and keep 128 slots of slack for its anchor; here the write
+// starts at wm exactly and a tile fits when wm + n_in <= cap.
 
 constexpr int kAppendRowsThreads = 256;
+constexpr int kMaxRuns = 64;
 
 struct AppendRowsArgs {
   int cap, runs, b_run;
@@ -408,35 +437,58 @@ struct AppendRowsArgs {
   int* taken;
 };
 
-__global__ void append_rows_kernel(AppendRowsArgs a) {
-  if (!*a.active) return;
-  __shared__ int sh[32];
+__global__ void __launch_bounds__(kAppendRowsThreads)
+    append_rows_kernel(AppendRowsArgs a) {
+  // Live counts: of run r at [r] (runs > 1), of warp w's share at [w] (one
+  // run).
+  __shared__ int cnt[kMaxRuns];
   const int t = blockIdx.x;
-  if (t == 0 && threadIdx.x == 0) atomicAdd(a.taken, 1);
-  const int width = a.runs * a.b_run;
-  const size_t src = (size_t)t * width;
-  const float* iw = a.inc.c[5] + src;
-  int c = 0;
-  for (int i = threadIdx.x; i < width; i += blockDim.x) c += iw[i] > 0.0f;
-  const int n_in = block_sum(c, sh);
   const int wm = a.wm[t];
+  const bool active = *a.active;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const size_t src = (size_t)t * a.runs * a.b_run;
+  const float* iw = a.inc.c[5] + src;
+  if (a.runs == 1) {
+    int c = 0;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < a.b_run; i += blockDim.x) c += iw[i] > 0.0f;
+    c = warp_sum(c);
+    if (lane == 0) cnt[warp] = c;
+  } else {
+    for (int r = warp; r < a.runs; r += nwarps) {
+      const float* rw = iw + (size_t)r * a.b_run;
+      int c = 0;
+#pragma unroll 8
+      for (int i = lane; i < a.b_run; i += 32) c += rw[i] > 0.0f;
+      c = warp_sum(c);
+      if (lane == 0) cnt[r] = c;
+    }
+  }
+  // The flag is tested only now, so that its load, the watermark's and the
+  // counts' are in flight together (an inactive block reads the w row).
+  if (!active) return;
+  if (t == 0 && threadIdx.x == 0) atomicAdd(a.taken, 1);
+  __syncthreads();
+  const int nc = a.runs == 1 ? nwarps : a.runs;
+  int n_in = 0;
+  for (int k = 0; k < nc; ++k) n_in += cnt[k];
   if (wm + n_in > a.cap) {  // all or nothing
     if (threadIdx.x == 0) a.dropped[t] = n_in;
     return;
   }
   const size_t dst = (size_t)t * a.cap + wm;
-  int off = 0;
-  for (int r = 0; r < a.runs; ++r) {
-    const size_t rs = src + (size_t)r * a.b_run;
-    int n = 0;
-    for (int i = threadIdx.x; i < a.b_run; i += blockDim.x)
-      n += iw[(size_t)r * a.b_run + i] > 0.0f;
-    n = block_sum(n, sh);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) a.p.c[k][dst + off + i] = a.inc.c[k][rs + i];
+  // A thread's i only rise, so its run cursor (r, [off, end)) only moves
+  // forward; empty runs are stepped over.
+  int r = 0, off = 0, end = a.runs == 1 ? n_in : cnt[0];
+  for (int i = threadIdx.x; i < n_in; i += blockDim.x) {
+    while (i >= end) {
+      off = end;
+      end += cnt[++r];
     }
-    off += n;
+    float v[6];
+    load6(a.inc, src + (size_t)r * a.b_run + (i - off), v);
+    store6(a.p, dst + i, v);
   }
   if (threadIdx.x == 0) a.dropped[t] = 0;
 }
@@ -453,14 +505,37 @@ __global__ void append_rows_kernel(AppendRowsArgs a) {
 // order (the TPU kernel ranks by a triangular matmul).  A tile that does not
 // extract is left as it was and reports its mover count.  The watermark is
 // 1 + the index of the last live stayer, not a count: the stayers are not
-// compacted, so leavers leave holes.  Bytes: x, y and w of every slot are
-// read twice (count, then extract) and w written once; movers' six channels
-// are read and written once: ~(28 * cap + 48 * movers) bytes per tile, HBM
-// bound.  Coalesced: consecutive threads take consecutive slots, the ranks
-// come from a warp ballot and a scan of the warp counts (block_scan), and
-// nothing but the movers is copied.
+// compacted, so leavers leave holes.
+//
+// Bytes bound it: x, y and w of every slot read and w written once, 16 B a
+// slot, plus 48 B a mover and the buffer's zeroed tail (0.61 ms at the
+// headline's final state).  The first design reached 0.28 of that: it read
+// x, y and w twice (count, then extract), and its second pass was a chain
+// of 512-slot chunks, each a block scan with three barriers, one load per
+// thread in flight; latency, not HBM, set its pace.  This one reads each
+// stream once:
+//   1. Warp v owns the ballot words [j0, j1) of the tile (word j: slots
+//      32j .. 32j + 31), kExtractWords words a step in flight.  It ballots
+//      the mover predicate of each word into shared memory (cap / 8 bytes),
+//      writes w_out as if the tile extracts (a mover's w 0, every other
+//      slot's copied), sums its words' popcounts, and keeps the last live
+//      slot and the last live stayer.
+//   2. One barrier: each thread sums the warps' totals (the tile's movers,
+//      and its warp's offset: the movers of the words before j0) and takes
+//      the two watermark maxima.  The decision follows.
+//   3. A tile that extracts: warp v walks its words again in shared memory;
+//      a set bit's rank is offset + popc(word & lanes below), so forward
+//      slot order, and a mover ranked below b_cap copies its six channels
+//      (kCopyWords words' loads in flight).  A tile that does not (rare: the
+//      pending case) puts w back at its mover slots only.  Then the buffer
+//      tail is zeroed; no further barrier.
+// The words of a bucket must fit a block's shared memory (227 KB: about
+// 1.8 M slots); the wrapper raises past it.
 
 constexpr int kExtractThreads = 512;
+constexpr int kExtractWords = 8;  // pass 1: words a warp loads per step
+constexpr int kCopyWords = 4;     // pass 3: words whose movers copy together
+constexpr int kExtractRed = 96;   // per-warp totals and maxima: [3][32]
 
 struct ExtractArgs {
   int cap, b_cap, fit_cap, tile_cols;
@@ -473,55 +548,119 @@ struct ExtractArgs {
   int* pending;
 };
 
-__global__ void extract_kernel(ExtractArgs a) {
-  __shared__ int sh[1][33];
+__global__ void __launch_bounds__(kExtractThreads)
+    extract_kernel(ExtractArgs a) {
+  // [nw] ballot words of the mover predicate, then [3][32] per warp: its
+  // movers, 1 + its last live stayer, 1 + its last live slot.
+  extern __shared__ unsigned ext_sh[];
+  const int nw = (a.cap + 31) >> 5;
+  unsigned* bits = ext_sh;
+  int* red = reinterpret_cast<int*>(ext_sh + nw);
   const int t = blockIdx.x;
+  const bool force = *a.force;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int per = (nw + nwarps - 1) / nwarps;
+  const int j0 = min(warp * per, nw), j1 = min(j0 + per, nw);
   const float my_row = (float)(t / a.tile_cols);
   const float my_col = (float)(t % a.tile_cols);
   const size_t row = (size_t)t * a.cap;
   const float* x = a.in.c[0] + row;
   const float* y = a.in.c[1] + row;
   const float* w = a.in.c[5] + row;
-  int n_mov = 0;
-  for (int s = threadIdx.x; s < a.cap; s += blockDim.x) {
-    if (w[s] > 0.0f)
-      n_mov += (floorf(x[s] * a.inv_nx) != my_col) ||
-               (floorf(y[s] * a.inv_ny) != my_row);
+  float* wo = a.w_out + row;
+
+  // 1. One pass over x, y and w.
+  int n_mov = 0, last_stay = 0, last_live = 0;
+  for (int j = j0; j < j1; j += kExtractWords) {
+    float xv[kExtractWords], yv[kExtractWords], wv[kExtractWords];
+#pragma unroll
+    for (int u = 0; u < kExtractWords; ++u) {
+      const int s = ((j + u) << 5) + lane;
+      const bool in = j + u < j1 && s < a.cap;
+      xv[u] = in ? x[s] : 0.0f;
+      yv[u] = in ? y[s] : 0.0f;
+      wv[u] = in ? w[s] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kExtractWords; ++u) {
+      const int s = ((j + u) << 5) + lane;
+      const bool live = wv[u] > 0.0f;
+      const bool mv = live && ((floorf(xv[u] * a.inv_nx) != my_col) ||
+                               (floorf(yv[u] * a.inv_ny) != my_row));
+      const unsigned b = __ballot_sync(0xffffffffu, mv);
+      if (j + u < j1) {
+        if (s < a.cap) wo[s] = mv ? 0.0f : wv[u];
+        if (lane == 0) bits[j + u] = b;
+      }
+      n_mov += __popc(b);
+      if (live) {
+        last_live = s + 1;
+        if (!mv) last_stay = s + 1;
+      }
+    }
   }
-  const int total = block_sum(n_mov, sh[0]);
-  const bool extract = total <= a.fit_cap || *a.force;
+  last_stay = warp_max(last_stay);
+  last_live = warp_max(last_live);
+  if (lane == 0) {
+    red[warp] = n_mov;
+    red[32 + warp] = last_stay;
+    red[64 + warp] = last_live;
+  }
+
+  // 2. The tile's one block phase.
+  __syncthreads();
+  int total = 0, before = 0, wm_stay = 0, wm_live = 0;
+  for (int v = 0; v < nwarps; ++v) {
+    const int c = red[v];
+    before += v < warp ? c : 0;
+    total += c;
+    wm_stay = max(wm_stay, red[32 + v]);
+    wm_live = max(wm_live, red[64 + v]);
+  }
+  const bool extract = total <= a.fit_cap || force;
+  const int kept = extract ? min(total, a.b_cap) : 0;
   const size_t mrow = (size_t)t * a.b_cap;
-  int m_cur = 0, last = 0;
-  for (int base = 0; base < a.cap; base += blockDim.x) {
-    const int s = base + threadIdx.x;
-    bool mv = false;
-    if (s < a.cap) {
-      const float wv = w[s];
-      const bool live = wv > 0.0f;
-      mv = live && extract &&
-           ((floorf(x[s] * a.inv_nx) != my_col) ||
-            (floorf(y[s] * a.inv_ny) != my_row));
-      a.w_out[row + s] = mv ? 0.0f : wv;
-      if (live && !mv) last = s + 1;
+
+  // 3. Copy the movers, or put their w back.
+  if (extract) {
+    const unsigned below = (1u << lane) - 1u;
+    int run = before;  // movers in the words before j (uniform in the warp)
+    for (int j = j0; j < j1 && run < a.b_cap; j += kCopyWords) {
+      int rank[kCopyWords];
+#pragma unroll
+      for (int u = 0; u < kCopyWords; ++u) {
+        const unsigned word = j + u < j1 ? bits[j + u] : 0u;
+        rank[u] = (word >> lane) & 1u ? run + __popc(word & below) : a.b_cap;
+        run += __popc(word);
+      }
+      float v[kCopyWords][6];
+#pragma unroll
+      for (int u = 0; u < kCopyWords; ++u)
+        if (rank[u] < a.b_cap) load6(a.in, row + ((j + u) << 5) + lane, v[u]);
+#pragma unroll
+      for (int u = 0; u < kCopyWords; ++u)
+        if (rank[u] < a.b_cap) store6(a.mov, mrow + rank[u], v[u]);
     }
-    const bool f[1] = {mv};
-    int ex[1], tot[1];
-    block_scan<1>(f, ex, tot, sh);
-    if (mv && m_cur + ex[0] < a.b_cap) {
-      float v[6];
-      load6(a.in, row + s, v);
-      store6(a.mov, mrow + m_cur + ex[0], v);
+  } else {
+    for (int j = j0; j < j1; ++j) {
+      if ((bits[j] >> lane) & 1u) {
+        const int s = (j << 5) + lane;
+        wo[s] = w[s];
+      }
     }
-    m_cur += tot[0];
   }
-  const int wm = block_max(last, sh[0]);
-  const int kept = min(m_cur, a.b_cap);
   for (int s = kept + threadIdx.x; s < a.b_cap; s += blockDim.x)
     zero6(a.mov, mrow + s);
   if (threadIdx.x == 0) {
-    a.wm[t] = wm;
+    a.wm[t] = extract ? wm_stay : wm_live;
     a.pending[t] = total - kept;  // a tile that did not extract: kept == 0
   }
+}
+
+// Dynamic shared memory of one extract block for buckets of `cap` slots.
+size_t extract_smem_bytes(int cap) {
+  return sizeof(unsigned) * ((size_t)(cap + 31) / 32 + kExtractRed);
 }
 
 int finish() { return (int)cudaGetLastError(); }
@@ -576,6 +715,7 @@ extern "C" int minipic_append_rows(int num_tiles, int cap, int runs,
                                    const bool* active, Channels p,
                                    Channels inc, int* dropped, int* taken,
                                    void* stream) {
+  if (runs < 1 || runs > kMaxRuns) return (int)cudaErrorInvalidValue;
   AppendRowsArgs a{cap, runs, b_run, wm, active, p, inc, dropped, taken};
   append_rows_kernel<<<num_tiles, kAppendRowsThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(a);
@@ -587,9 +727,16 @@ extern "C" int minipic_extract(int num_tiles, int cap, int b_cap,
                                float inv_ny, Channels in, const bool* force,
                                float* w_out, Channels mov, int* wm,
                                int* pending, void* stream) {
+  const size_t smem = extract_smem_bytes(cap);  // the wrapper bounds it
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        extract_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   ExtractArgs a{cap, b_cap, fit_cap, tile_cols, inv_nx, inv_ny, in, force,
                 w_out, mov, wm, pending};
-  extract_kernel<<<num_tiles, kExtractThreads, 0,
+  extract_kernel<<<num_tiles, kExtractThreads, smem,
                    static_cast<cudaStream_t>(stream)>>>(a);
   return finish();
 }

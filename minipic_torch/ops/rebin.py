@@ -73,7 +73,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.state import ParticleState
-from .advance import _check
+from .advance import _SMEM_LIMIT as SMEM_LIMIT, _check
 
 # Deal-route direction order: d = (dr+1)*3 + (dc+1) with self (0, 0)
 # removed; DIR_OFFSETS[d] = (dr, dc) of the destination tile relative to the
@@ -283,6 +283,20 @@ def extract_chunk(cap: int, b_cap: int) -> int:
                 return d
         return cap
     return kc
+
+
+# The kernels' fixed sizes (csrc/rebin.cu): the row append takes at most
+# kMaxRuns runs; an extract block keeps one ballot word per 32 slots of its
+# bucket, and kExtractRed per-warp totals, in shared memory.
+MAX_RUNS = 64
+_EXTRACT_RED = 96
+
+
+def extract_smem_bytes(cap: int) -> int:
+    """Shared memory of one extract block for buckets of `cap` slots: the
+    mover ballot words and the per-warp totals (csrc/rebin.cu
+    extract_smem_bytes)."""
+    return 4 * (-(-cap // 32) + _EXTRACT_RED)
 
 
 def extract_movers_plain(p: ParticleState, *, tile_cols: int, tile_ny: int,
@@ -525,6 +539,9 @@ class _AppendRowsKernel(_Kernel):
         if b_run <= 0 or width % b_run:
             raise ValueError(f"incoming width {width} is not a whole number "
                              f"of runs of {b_run}")
+        if width // b_run > MAX_RUNS:
+            raise ValueError(f"{width // b_run} runs; the kernel takes at "
+                             f"most {MAX_RUNS}")
         _check_p(inc, "incoming", (T, width), dev)
         _check(wm, "wm", torch.int32, (T,), dev)
         active = _flag(active, dev)
@@ -563,6 +580,10 @@ class ExtractKernel(_Kernel):
         _check_p(p, "p", (T, cap), dev)
         if T % tile_cols:
             raise ValueError(f"{T} tiles not a multiple of {tile_cols} cols")
+        smem = extract_smem_bytes(cap)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"buckets of {cap} slots need {smem} bytes of "
+                             f"ballot words; a block may use {SMEM_LIMIT}")
         kc = extract_chunk(cap, b_cap)
         force = _flag(force, dev)
         lib = _lib()

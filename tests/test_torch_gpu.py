@@ -481,3 +481,87 @@ def test_rebin_incremental_on_the_card_matches_the_cpu(cuda):
     _equal(rb.ParticleState(*(a.cpu() for a in got)), want,
            "rebin_incremental")
     assert int(dropped) == int(dropped_p) and int(wm) == int(wm_p)
+
+
+_EXTRACT_EDGES = {
+    # name: (cap, live slots, spread, b_cap, force)
+    "ragged cap": (1000, 900, 0.5, 1000, False),
+    "ragged cap forced": (1000, 900, 3.0, 256, True),
+    # Tiles 1, 6 and 11 moved a tile east: all their particles are movers,
+    # over the buffer, so they do not extract and their w is put back.
+    "restore": (1536, 1400, 0.5, 512, False),
+    # 12,504 ballot words: 50 KB of shared memory, past the 48 KB default.
+    "past 48 KB": (400_128, 390_000, 0.05, 16384, False),
+    "past 48 KB forced": (400_128, 390_000, 0.05, 4096, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_EXTRACT_EDGES))
+def test_extract_kernel_edge_cases_match_plain(cuda, case):
+    from minipic_torch.ops import rebin as rb
+
+    cap, n_live, spread, b_cap, force = _EXTRACT_EDGES[case]
+    p = _stale(cuda, cap=cap, n_live=n_live, spread=spread)
+    if case == "restore":
+        east = torch.zeros(16, 1, dtype=torch.bool, device=cuda)
+        east[[1, 6, 11]] = True
+        x = torch.remainder(p.x + 8.0, 32.0)
+        p = p._replace(x=torch.where(east & (p.w > 0), x, p.x))
+    kw = dict(_GRID, b_cap=b_cap, force=force)
+    got = rb.extract_movers(p, **kw)
+    want = rb.extract_movers_plain(p, **kw)
+    torch.cuda.synchronize()
+    _equal(got[0], want[0], "buckets")
+    _equal(got[1], want[1], "movers")
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    kept = (want[1].w > 0).sum(1)
+    assert int(kept.sum()) > 0
+    if case == "restore":
+        # The tiles that did not extract keep their w as it was.
+        deferred = (kept == 0) & (want[3] > 0)
+        assert deferred.nonzero().flatten().tolist() == [1, 6, 11]
+        assert torch.equal(got[0].w[deferred], p.w[deferred])
+    assert (int(want[3].sum()) > 0) == force or case == "restore"
+    if case.startswith("ragged"):
+        assert cap % 32
+    if case.startswith("past"):
+        assert rb.extract_smem_bytes(cap) > 48 * 1024
+
+
+def test_extract_wrapper_raises_past_shared_memory(cuda):
+    """Buckets whose ballot words do not fit a block's 227 KB raise; nothing
+    falls back or launches."""
+    from minipic_torch.ops import rebin as rb
+
+    cap = 32 * (rb.SMEM_LIMIT // 4 - rb._EXTRACT_RED) + 1
+    p = rb.ParticleState(*(torch.zeros((4, cap), device=cuda)
+                           for _ in range(6)))
+    n0 = rb.extract_kernel.launches
+    with pytest.raises(ValueError, match="ballot words"):
+        rb.extract_movers(p, **_GRID, b_cap=512)
+    assert rb.extract_kernel.launches == n0
+
+
+@pytest.mark.parametrize("empty", [(0, 3, 7), tuple(range(8))])
+def test_append_runs_kernel_with_empty_runs_matches_plain(cuda, empty):
+    """Runs 0, 3 and 7 of every tile empty (the flat copy steps over
+    them), or all eight (nothing to copy)."""
+    from minipic_torch.ops import rebin as rb
+
+    p = _stale(cuda)
+    p1, movers, wm, _ = rb.split_buckets_plain(p, **_GRID, b_cap=1536)
+    seg, _ = rb.segment_movers_plain(movers, tile_rows=4, **_GRID,
+                                     b_seg=256)
+    inc = rb.roll_segments(seg, rb.seg_neighbor_table(4, 4, cuda), 256)
+    gone = torch.zeros(8, dtype=torch.bool, device=cuda)
+    gone[list(empty)] = True
+    gone = gone.repeat_interleave(256)[None, :]
+    inc = rb.ParticleState(*(torch.where(gone, torch.zeros_like(a), a)
+                             for a in inc))
+    want, want_d = rb.append_runs_plain(p1, inc, wm, b_seg=256)
+    got = rb.ParticleState(*(a.clone() for a in p1))
+    got_d = rb.append_runs_kernel(got, inc, wm, b_seg=256)
+    _equal(got, want, "append_runs")
+    assert torch.equal(got_d, want_d)
+    n_in = int((inc.w > 0).sum())
+    assert (n_in == 0) == (len(empty) == 8)

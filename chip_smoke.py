@@ -23,7 +23,13 @@ Phases, each printing what it found; any failure exits non-zero:
    headline's tile shape; append_incoming (normal, a tile that does not
    fit, inactive) and the defrag with a dense incoming slab at the physics
    decks' (1536 slots); and ``rebin_auto`` on both routes and
-   ``rebin_incremental`` through the kernels against the CPU;
+   ``rebin_incremental`` through the kernels against the CPU.  Open
+   kernel: the advance in its open mode (grid None, the decks with
+   absorbing walls) against its plain version at laser_plasma's shape
+   (CIC, 20^2 windows, 1536 slots) and laser_wakefield_window's (TSC,
+   16^2, 512 slots), f32, with particles leaving through every wall and
+   corner and dead slots: positions and momenta equal, J within 2e-5 of
+   its peak; the periodic mode on the same subsets as before;
 3. small step: three 32^2 decks stepped on the card (kernels) against the
    same state stepped on the CPU (plain versions): the sort route, the
    deal route (ppc 40, buckets big enough for it), and the deal route with
@@ -31,13 +37,30 @@ Phases, each printing what it found; any failure exits non-zero:
 4. decks: ``two_stream``, ``weibel`` and ``landau`` at their default sizes,
    seeded by their ``seed_state``, stepped on the card and on the CPU from
    one state with a re-bin forced half way (the small-bucket route:
-   split, sort of the movers, append_incoming or the defrag);
+   split, sort of the movers, append_incoming or the defrag); open
+   twins: ``reference_pulse`` (64^2), ``laser_plasma`` (64^2, ppc 2) and
+   ``laser_wakefield_window`` (64x32, ppc 2, through two window shifts)
+   stepped on the card and on the CPU from one state;
 5. physics: on the card through ``Simulation.run``, the 10k-step
    two-stream energy acceptance run (``scripts/energy_probe.py``'s deck,
    max |dE|/E0 < 1e-3, overflow 0), ``weibel`` for its full run (in-plane
    B energy grows more than 100x), and ``two_stream`` for its full run;
    every drop counted and followed at once by growth, and printed with
-   its step and the stage that dropped;
+   its step and the stage that dropped.  Open decks at their default
+   sizes: ``reference_pulse`` for its 63,639 steps with the mid-y Bz
+   lineout history kept on the device (speed within 2e-4 of the report's
+   0.99977 c and at most 1.0001 c, the two peaks at t = 500 within 3% of
+   0.0833 / 0.0683); ``laser_plasma`` for its sim_time (total energy never
+   above 1.01 x its start), then the advance's open mode timed on its
+   final state, and for each species the re-bin kernels of the route its
+   buckets take there (the electrons' grown buckets the deal route, the
+   ions' the small-bucket route), each against its plain version;
+   ``laser_wakefield_window`` for its sim_time, timed (shifts on the f32
+   schedule; each species' live count after the first full transit, held
+   to a tenth of its tile column unless it leaves through the walls),
+   then again with its walls, shifts and injections counted on the device
+   (every injected weight the profile's at absolute x to 1e-6, the live
+   count's books exact: net injection less the kills at each wall);
 6. sort route: the headline deck with ``rebin_mode="sort"``, 20 steps with
    one forced re-bin;
 7. main path: bench.py's headline deck exactly (1e8 particles, 512^2, TSC,
@@ -49,16 +72,20 @@ Phases, each printing what it found; any failure exits non-zero:
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
    that state;
 8. device time: the launch floor (a one-element ``zero_()``),
-   append_incoming on the decks' states and the two copy kernels of the
-   main path, from one torch.profiler run (their wrappers take longer on
-   the host than they do on the card).
+   append_incoming on the decks' states, the two copy kernels of the main
+   path, and the re-bin kernels on laser_plasma's final state, from one
+   torch.profiler run (their wrappers take longer on the host than they
+   do on the card).
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that drives it, its error against the plain version, both
 times (CUDA events; the profiler's device time for the three appends) and
-its bound at the shape timed; the last line is ``{"ok": true, "device":
-{...}}``.  Needs CUDA: without a card it fails before printing
-any result.
+its bound at the shape timed (the advance's entry also its open mode's
+numbers at laser_plasma's final state, under "open"; the re-bin kernels
+that laser_plasma's run launched, their launches there and their numbers
+at its final state per species, under "laser_plasma"); the last line is
+``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it fails
+before printing any result.
 """
 from __future__ import annotations
 
@@ -81,6 +108,23 @@ ENERGY_STEPS = 10000
 ENERGY_EVERY = 200
 WEIBEL_EVERY = 5
 TWO_STREAM_EVERY = 10
+# The open-boundary phases: the decks cut for the open-mode kernel subsets
+# (laser_plasma's CIC 20^2 windows of 1536 slots, the window deck's TSC
+# 16^2 of 512), the small twins (cut, steps), the pulse's lineouts over
+# its span, the sampling of the full runs, and the window deck's steps (0:
+# its full sim_time).
+OPEN_SUBSETS = {"laser_plasma": dict(nx=64, ny=64),
+                "laser_wakefield_window": dict(nx=64, ny=32)}
+OPEN_TWINS = {"reference_pulse": (dict(nx=64, ny=64), 200),
+              "laser_plasma": (dict(nx=64, ny=64, ppc=2), 30),
+              "laser_wakefield_window": (dict(nx=64, ny=32, ppc=2), 47)}
+PULSE_SAMPLES = 260
+OPEN_ENERGY_EVERY = 25
+OPEN_WINDOW_EVERY = 50
+OPEN_WINDOW_STEPS = 0
+# f32 J of the open mode against its plain version: atomics in another
+# order, 2e-5 of the window's peak (ROADMAP C).
+OPEN_J_TOL = 2e-5
 ADVANCE_SOURCE = "minipic_torch/csrc/advance.cu"
 REBIN_SOURCE = "minipic_torch/csrc/rebin.cu"
 RK = "minipic_tpu/ops/pallas/rebin_kernels.py"
@@ -801,40 +845,6 @@ def _energies(state, deck):
     return float(field_energy(state.fields, deck.dx, deck.dy)), ke
 
 
-def _append_incoming_numbers(p, deck, reps=20) -> dict:
-    """append_incoming at a physics deck's shape: the split and the route
-    of `p`'s movers, then the kernel against its plain version, the time of
-    a call through its wrapper and of the plain version, and a job for
-    device_times."""
-    from minipic_torch.ops import rebin as rb
-    from minipic_torch.particles.binning import route_movers
-
-    t = deck.tiling
-    mc = deck.mover_cap(p.capacity)
-    p1, movers, wm, _ = rb.split_kernel(
-        p, tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
-        b_cap=mc)
-    inc, _ = route_movers(movers, t, mc)
-    want, want_d = rb.append_incoming_plain(p1, inc, wm)
-    got = _clone(p1)
-    got_d = rb.append_incoming_kernel(got, inc, wm)
-    err = max(_same(got, want, "append_incoming on the deck"),
-              _same(got_d, want_d, "append_incoming dropped on the deck"))
-    # The append is idempotent on its own output (same arrivals, same
-    # watermarks), so repeated launches time it fairly.
-    n_in = int((inc.w > 0).sum())
-    T, cap = p.x.shape
-    return dict(
-        max_abs_err=err,
-        wrapper_ms=cuda_ms(lambda: rb.append_incoming_kernel(got, inc, wm),
-                           reps),
-        plain_ms=cuda_ms(lambda: rb.append_incoming_plain(p1, inc, wm), 3),
-        shape=f"{T} tiles x {cap} slots, incoming {mc}",
-        job=(lambda: rb.append_incoming_kernel(got, inc, wm), reps,
-             "append_rows_kernel"),
-        **bound(4 * T * mc + 4 * T + 2 * 24 * n_in))
-
-
 def phase_decks(dev) -> dict:
     """two_stream, weibel and landau from decks.make at their default sizes,
     seeded, stepped on the card and on the CPU from one state; a re-bin is
@@ -896,7 +906,7 @@ def phase_decks(dev) -> dict:
               f"energy {fe[0]:.6e} vs {fe[1]:.6e}); {launches}")
         numbers[name] = dict(
             launches=launches["append_incoming"],
-            **_append_incoming_numbers(gpu.state.species[0], deck))
+            **_route_numbers(gpu.state.species[0], deck)["append_incoming"])
     return numbers
 
 
@@ -971,70 +981,80 @@ class _DropSources:
         return out
 
 
+def timed_run(sim, steps, every, sample, label, card, closed=True,
+              stages=True):
+    """sim.run, timed, with sample(state, step) at step 0 and every
+    `every` steps; checks that every re-bin went through the re-bin
+    kernels and that each drop was counted and grew the buckets at once
+    (the JAX package's policy: a second drop needs a tile fuller than
+    the grown buckets).  Prints each step that dropped, with the change
+    of total energy over that step and which stage dropped
+    (``_DropSources``).  `closed`: no particle leaves or enters the box
+    (periodic, no window), so every particle lost must be a counted drop.
+    `stages`: wrap the dropping stages (``_DropSources``, a few reductions
+    a re-bin); off where the run's ms/step is the number kept.  Returns
+    the re-bin launches and the wall time in seconds."""
+    import contextlib
+
+    import torch
+
+    from minipic_torch.ops import rebin as rb
+
+    n_live = sum(_live(p) for p in sim.state.species)
+    for k in rb.KERNELS.values():
+        k.reset()
+    drops, prev = [], [sim.state]
+
+    def saver(st, i):
+        new = sim.overflow_total - sum(n for _, n, _ in drops)
+        if new:
+            e = [sum(_energies(s, sim.deck)) for s in (prev[0], st)]
+            drops.append((i, new, (e[1] - e[0]) / e[0]))
+        prev[0] = st
+        if i % every == 0:
+            sample(st, i)
+
+    torch.cuda.synchronize()
+    with _DropSources() if stages else contextlib.nullcontext() as sources:
+        t0 = time.perf_counter()
+        sim.run(steps, save_every=1, saver=saver)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rebins = rb.split_kernel.launches
+    launches = _auto_route_launches(label, small_only=False)
+    live = sum(_live(p) for p in sim.state.species)
+    print(f"physics: {label}: {steps} steps in {wall:.2f} s, "
+          f"{1e3 * wall / steps:.4f} ms/step, "
+          f"{n_live * steps / wall:.4e} pushes/s, "
+          f"{rebins // len(sim.deck.species)} re-bins, "
+          f"{sim.capacity_changes} capacity changes (buckets now "
+          f"{[p.capacity for p in sim.state.species]}), overflow "
+          f"{sim.overflow_total}, live {live} (was {n_live}); "
+          f"{launches} [{card}]")
+    check(all(bool(torch.isfinite(c).all()) for c in sim.state.fields),
+          f"{label}: fields not finite")
+    check(not closed or live + sim.overflow_total == n_live,
+          f"{label}: particles lost without being counted")
+    if drops:
+        by_stage = sources.read(sim.overflow_total) if stages else "not read"
+        print(f"physics: {label}: dropped by stage (particles, tiles) "
+              f"{by_stage}; steps that dropped "
+              f"(step, particles, total energy change over the step): "
+              f"{[(i, n, f'{de:.4e}') for i, n, de in drops]}")
+    check(len(drops) <= sim.capacity_changes,
+          f"{label}: {len(drops)} steps dropped, "
+          f"{sim.capacity_changes} capacity changes")
+    return launches, wall
+
+
 def phase_physics(dev, card: str) -> int:
     """The physics bars on the card, through Simulation.run.  Returns
     append_incoming's launches in the two_stream run."""
-    import torch
-
     from minipic_torch.decks import standard
     from minipic_torch.diag.analysis import (energy_drift, field_spectrum_x,
                                              growth_rate,
                                              two_stream_growth_theory)
-    from minipic_torch.ops import rebin as rb
     from minipic_torch.simulation import Simulation
-
-    def timed_run(sim, steps, every, sample, label):
-        """sim.run, timed, with sample(state, step) at step 0 and every
-        `every` steps; checks that every re-bin went through the re-bin
-        kernels and that each drop was counted and grew the buckets at once
-        (the JAX package's policy: a second drop needs a tile fuller than
-        the grown buckets).  Prints each step that dropped, with the change
-        of total energy over that step and which stage dropped
-        (``_DropSources``)."""
-        n_live = sum(_live(p) for p in sim.state.species)
-        for k in rb.KERNELS.values():
-            k.reset()
-        drops, prev = [], [sim.state]
-
-        def saver(st, i):
-            new = sim.overflow_total - sum(n for _, n, _ in drops)
-            if new:
-                e = [sum(_energies(s, sim.deck)) for s in (prev[0], st)]
-                drops.append((i, new, (e[1] - e[0]) / e[0]))
-            prev[0] = st
-            if i % every == 0:
-                sample(st, i)
-
-        torch.cuda.synchronize()
-        with _DropSources() as sources:
-            t0 = time.perf_counter()
-            sim.run(steps, save_every=1, saver=saver)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rebins = rb.split_kernel.launches
-        launches = _auto_route_launches(label, small_only=False)
-        live = sum(_live(p) for p in sim.state.species)
-        print(f"physics: {label}: {steps} steps in {wall:.2f} s, "
-              f"{1e3 * wall / steps:.4f} ms/step, "
-              f"{n_live * steps / wall:.4e} pushes/s, "
-              f"{rebins // len(sim.deck.species)} re-bins, "
-              f"{sim.capacity_changes} capacity changes (buckets now "
-              f"{[p.capacity for p in sim.state.species]}), overflow "
-              f"{sim.overflow_total}, live {live} (was {n_live}); "
-              f"{launches} [{card}]")
-        check(all(bool(torch.isfinite(c).all()) for c in sim.state.fields),
-              f"{label}: fields not finite")
-        check(live + sim.overflow_total == n_live,
-              f"{label}: particles lost without being counted")
-        if drops:
-            print(f"physics: {label}: dropped by stage (particles, tiles) "
-                  f"{sources.read(sim.overflow_total)}; steps that dropped "
-                  f"(step, particles, total energy change over the step): "
-                  f"{[(i, n, f'{de:.4e}') for i, n, de in drops]}")
-        check(len(drops) <= sim.capacity_changes,
-              f"{label}: {len(drops)} steps dropped, "
-              f"{sim.capacity_changes} capacity changes")
-        return launches
 
     # The energy acceptance deck exactly as scripts/energy_probe.py builds
     # it at docs/energy_tpu_10k_int8q.json's settings: 64^2, ppc 16, u0
@@ -1051,7 +1071,7 @@ def phase_physics(dev, card: str) -> int:
     hist = []
     timed_run(sim, ENERGY_STEPS, ENERGY_EVERY,
               lambda st, i: hist.append((i, *_energies(st, deck))),
-              "two-stream energy acceptance (energy_probe's deck)")
+              "two-stream energy acceptance (energy_probe's deck)", card)
     check(len(hist) == ENERGY_STEPS // ENERGY_EVERY + 1, "energy samples")
     check(sim.overflow_total == 0, f"energy deck: overflow "
           f"{sim.overflow_total}")
@@ -1077,7 +1097,7 @@ def phase_physics(dev, card: str) -> int:
                             * deck.dx * deck.dy)))
 
     e0 = _energies(sim.state, deck)
-    timed_run(sim, deck.total_steps, WEIBEL_EVERY, b_energy, "weibel")
+    timed_run(sim, deck.total_steps, WEIBEL_EVERY, b_energy, "weibel", card)
     e1 = _energies(sim.state, deck)
     steps = [i for i, _ in eb[1:]]
     times = [i * deck.dt for i in steps]
@@ -1118,8 +1138,8 @@ def phase_physics(dev, card: str) -> int:
         mode1.append((i * deck.dt,
                       float(field_spectrum_x(st.fields.ex.cpu().numpy())[1])))
 
-    launches = timed_run(sim, deck.total_steps, TWO_STREAM_EVERY, spectrum,
-                         "two_stream")
+    launches, _ = timed_run(sim, deck.total_steps, TWO_STREAM_EVERY,
+                            spectrum, "two_stream", card)
     e1 = _energies(sim.state, deck)
     # Cold symmetric beams at +-u0, each of density 1/2; the deck's box
     # holds mode 1 near peak growth.
@@ -1146,6 +1166,611 @@ def phase_physics(dev, card: str) -> int:
           f"t = 3/theory in the JAX test's window (power 3e-4 to 3e-2) "
           f"{fit} (cold-beam theory {theory:.4f}) [{card}]")
     return launches["append_incoming"]
+
+
+def _open_subset(name: str, dev, seed=31):
+    """A cut of deck `name` (OPEN_SUBSETS: its tile shape, guard, order,
+    bucket size and f32 deposit) loaded on the card: the electrons up to
+    0.3 cells off their tiles inside the box, momenta x20 (uth 0.2), every
+    7th slot dead, and in the tiles at each wall particles within 0.2
+    cells of it moving out at |u| = 3, through each wall and, diagonally,
+    each corner; fields: the deck's laser plus a 0.02 wave on every
+    component."""
+    import torch
+
+    from minipic_torch.decks import standard
+    from minipic_torch.fields.halo import pad_fields_periodic
+    from minipic_torch.fields.tiles import extract_field_tiles
+    from minipic_torch.particles.species import load_species
+    from minipic_torch.simulation import bucket_capacity
+    from minipic_torch.testing import push_out_through_walls
+
+    case = standard.make(name, **OPEN_SUBSETS[name])
+    deck = case.deck
+    t = deck.tiling
+    cap = bucket_capacity(deck)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = load_species(deck.species[0], deck.domain, t, cap, gen,
+                     torch.float32, dev)
+
+    def rnd():
+        return torch.rand(p.x.shape, generator=gen, device=dev)
+
+    live = p.w > 0
+    nx, ny = float(deck.nx), float(deck.ny)
+    x = torch.where(live, (p.x + 0.6 * rnd() - 0.3).clamp(0.01, nx - 0.01),
+                    p.x)
+    y = torch.where(live, (p.y + 0.6 * rnd() - 0.3).clamp(0.01, ny - 0.01),
+                    p.y)
+    px, py, pz = p.px * 20.0, p.py * 20.0, p.pz * 20.0
+    tid = torch.arange(t.num_tiles, device=dev)[:, None]
+    ox, oy = tid % t.tile_cols * t.tile_nx, tid // t.tile_cols * t.tile_ny
+    x, y, px, py = push_out_through_walls(x, y, px, py, live, ox, oy,
+                                          t.tile_nx, t.tile_ny, nx, ny,
+                                          0.2 * rnd())
+    slot = torch.arange(cap, device=dev)[None, :]
+    w = torch.where(slot % 7 == 5, torch.zeros_like(p.w), p.w)
+    p = type(p)(x, y, px, py, pz, w)
+    f = case.init_fields(deck, device=dev)
+    j = torch.arange(deck.ny, device=dev, dtype=torch.float32)[:, None]
+    i = torch.arange(deck.nx, device=dev, dtype=torch.float32)[None, :]
+    k = 2 * torch.pi / deck.nx
+    f = type(f)(*(a + 0.02 * torch.sin(k * ((c + 1) * i + (2 - c) * j) + c)
+                  for c, a in enumerate(f)))
+    ft = extract_field_tiles(pad_fields_periodic(f, deck.guard), t.tile_rows,
+                             t.tile_cols, t.tile_ny, t.tile_nx, deck.guard)
+    return deck, p, ft
+
+
+def _open_kw(deck, spec=None):
+    t = deck.tiling
+    spec = deck.species[0] if spec is None else spec
+    return dict(qm=spec.charge / spec.mass, q=spec.charge,
+                order=spec.shape_order, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+                tile_cols=t.tile_cols, g=deck.guard, dt=deck.dt, dx=deck.dx,
+                dy=deck.dy, grid=None, mode="f32")
+
+
+def _compare_open(deck, p, ft, label: str, kw=None) -> float:
+    """The advance kernel against its plain version in the open mode on
+    the same inputs: live particles' positions and momenta equal, dead
+    slots untouched, J within OPEN_J_TOL of its peak; returns the largest
+    absolute difference of J (the particles' is 0)."""
+    import torch
+
+    from minipic_torch.ops.advance import (advance_kernel, advance_plain,
+                                           live_watermark)
+
+    kw = _open_kw(deck) if kw is None else kw
+    counts = live_watermark(p.w)
+    pk, jk, dk = advance_kernel(p, ft, counts, **kw)
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    live = p.w > 0
+    for name, a, b, old in zip(("x", "y", "px", "py", "pz"), pk, pp, p):
+        d = (a - b)[live].abs()
+        check(torch.equal(a[live], b[live]),
+              f"{label} {name}: {int((d > 0).sum())} of {int(live.sum())} "
+              f"live particles differ, by up to {float(d.max()):.3e}")
+        check(torch.equal(a[~live], old[~live]),
+              f"{label} {name}: dead slots changed")
+    err = 0.0
+    for name, a, b in zip(("jx", "jy", "jz"), jk, jp):
+        scale = float(b.abs().max())
+        d = float((a - b).abs().max())
+        check(d <= OPEN_J_TOL * scale,
+              f"{label} {name}: {d} > {OPEN_J_TOL} * {scale}")
+        err = max(err, d)
+    check(abs(float(dk.max()) - float(dp.max())) <= 1e-6 * float(dp.max()),
+          f"{label}: dmax differs")
+    return err
+
+
+def phase_open_kernel(dev) -> None:
+    """The advance in its open mode (grid None) against its plain version
+    at the laser decks' shapes, leavers through every wall and corner and
+    dead slots included; the periodic mode on the same subsets still
+    matches."""
+    from minipic_torch.ops.advance import advance_kernel, live_watermark
+
+    for name in OPEN_SUBSETS:
+        deck, p, ft = _open_subset(name, dev)
+        t = deck.tiling
+        label = (f"open {name} shape (order {deck.species[0].shape_order}, "
+                 f"{t.tile_ny + 2 * deck.guard}^2 windows, "
+                 f"{p.capacity} slots, f32)")
+        err = _compare_open(deck, p, ft, label)
+        # The leavers' moves, stored unwrapped: out through every wall.
+        (x1, y1, *_), _, _ = advance_kernel(p, ft, live_watermark(p.w),
+                                            **_open_kw(deck))
+        live = p.w > 0
+        x1, y1 = x1[live], y1[live]
+        out = [int(o.sum()) for o in (x1 < 0, x1 >= deck.nx, y1 < 0,
+                                      y1 >= deck.ny)]
+        corners = int((((x1 < 0) | (x1 >= deck.nx))
+                       & ((y1 < 0) | (y1 >= deck.ny))).sum())
+        check(min(out) >= 4 and corners >= 4,
+              f"{label}: leavers {out}, through corners {corners}")
+        perr = _compare(p, ft, live_watermark(p.w),
+                        dict(_open_kw(deck), grid=(deck.nx, deck.ny)),
+                        f"{label}, periodic mode")
+        print(f"kernel: {label}: {int(live.sum())} particles, leavers "
+              f"(x<0, x>=nx, y<0, y>=ny) {out}, through corners {corners}: "
+              f"positions and momenta equal, J max abs err {err:.3e}; the "
+              f"periodic mode on the same subset max abs err {perr:.3e}")
+
+
+def phase_open_twins(dev) -> None:
+    """The open-boundary decks at small sizes (OPEN_TWINS) stepped on the
+    card and on the CPU from one state, as phase_decks does: the pulse
+    alone, laser_plasma between absorbing walls, laser_wakefield_window
+    through two window shifts (its injection is drawn on the host, the
+    same plasma on both devices)."""
+    from minipic_torch import bridge
+    from minipic_torch.decks import standard
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.ops.advance import advance_kernel
+
+    for name, (kw, steps) in OPEN_TWINS.items():
+        case = standard.make(name, **kw)
+        deck = case.deck
+        cpu = case.simulation(seed=1, device="cpu")
+        gpu = case.simulation(seed=1, device=dev)
+        gpu.state = bridge.sim_state_from_numpy(
+            bridge.sim_state_to_numpy(cpu.state), dev)
+        n_live = sum(_live(p) for p in gpu.state.species)
+        advance_kernel.launches = 0
+        for k in rb.KERNELS.values():
+            k.reset()
+        rebins = 0
+        for i in range(steps):
+            dc, dg = cpu.step(), gpu.step()
+            fe = (float(dg.field_energy), float(dc.field_energy))
+            check(abs(fe[0] - fe[1]) <= 1e-4 * abs(fe[1]) + 1e-12,
+                  f"{name} step {i}: field energy {fe}")
+            kg, kc = dg.kinetic_energy.cpu(), dc.kinetic_energy
+            tol = 1e-5 * kc.abs() + 1e-7 * float(kc.sum())
+            check(bool(((kg - kc).abs() <= tol).all()),
+                  f"{name} step {i}: kinetic energy {kg} vs {kc}")
+            check(int(dg.shard_live[0]) == int(dc.shard_live[0]),
+                  f"{name} step {i}: live {int(dg.shard_live[0])} vs "
+                  f"{int(dc.shard_live[0])}")
+            check(dg.rebinned == dc.rebinned and int(dg.overflow) == 0
+                  and int(dc.overflow) == 0,
+                  f"{name} step {i}: re-bin or overflow differs")
+            rebins += dg.rebinned
+        w0 = None
+        if deck.moving_window:
+            w0 = (int(gpu.state.window_x0), int(cpu.state.window_x0))
+            check(w0[0] == w0[1] == 2 * deck.tile_nx,
+                  f"{name}: window_x0 {w0}")
+        n_species = len(deck.species)
+        check(advance_kernel.launches == steps * n_species,
+              f"{name}: {advance_kernel.launches} advance launches")
+        check(rb.split_kernel.launches == rebins * n_species,
+              f"{name}: {rb.split_kernel.launches} split launches for "
+              f"{rebins} re-bins")
+        check(not n_species or rebins >= 1, f"{name}: no re-bin")
+        live = sum(_live(p) for p in gpu.state.species)
+        print(f"open twins: {name} {deck.nx}x{deck.ny}, {n_live} particles, "
+              f"buckets {[p.capacity for p in gpu.state.species]}: {steps} "
+              f"steps on the card match the CPU (field energy {fe[0]:.6e} vs "
+              f"{fe[1]:.6e}, live {live}, {rebins} re-bins, window_x0 {w0}; "
+              f"launches: advance {advance_kernel.launches}, split "
+              f"{rb.split_kernel.launches}, append_incoming "
+              f"{rb.append_incoming_kernel.launches}, defrag "
+              f"{rb.defrag_kernel.launches})")
+
+
+def _pulse_physics(dev, card: str) -> None:
+    """reference_pulse for its full span through Simulation.run, the mid-y
+    Bz lineout collected on the device every total_steps // 260 steps (the
+    JAX package's validation run's sampling): the pulse's speed and its
+    two peak amplitudes at t = 500 against docs/VALIDATION.md."""
+    import numpy as np
+    import torch
+
+    from minipic_torch.decks import standard
+    from minipic_torch.diag.analysis import (fdtd_dispersion_velocity,
+                                             fit_pulse_speed, lineout,
+                                             peak_amplitudes,
+                                             track_peak_speed)
+
+    case = standard.make("reference_pulse")
+    deck = case.deck
+    sim = case.simulation(device=dev)
+    n = deck.total_steps
+    every = n // PULSE_SAMPLES
+    mid = deck.ny // 2
+    lines = []
+
+    def sample(st, i):
+        if i:
+            lines.append(st.fields.bz[mid].clone())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(n, save_every=every, saver=sample)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = torch.stack(lines).cpu().double().numpy()
+    times = np.arange(1, len(lines) + 1) * every * deck.dt
+    speed = fit_pulse_speed(times, lines, deck.dx)
+    n_fit = max(8, int(3.0 * deck.box_x / deck.dt / every))
+    tracked = track_peak_speed(times[:n_fit], lines[:n_fit], deck.dx)
+    theory = fdtd_dispersion_velocity(5 * 2 * math.pi / deck.box_x, deck.dt,
+                                      deck.dx)
+    bz = sim.state.fields.bz.double().cpu().numpy()
+    check(bool(np.isfinite(bz).all()), "reference_pulse: fields not finite")
+    p1, p2 = peak_amplitudes(lineout(bz))
+    p10, p20 = peak_amplitudes(lineout(
+        case.init_fields(deck, device="cpu").bz.double().numpy()))
+    print(f"physics: reference_pulse {deck.nx}^2: {n} steps (t "
+          f"{n * deck.dt:.4f}) in {wall:.2f} s, {1e3 * wall / n:.4f} ms/step; "
+          f"{len(lines)} lineouts every {every} steps; leading-peak speed "
+          f"(fit_pulse_speed) {speed:.6f} c (bar: within 2e-4 of the "
+          f"report's 0.99977, at most 1.0001), crest tracked over the first "
+          f"3 transits {tracked:.6f} c, FDTD theory {theory:.6f} c; Bz peak "
+          f"amplitudes {p10:.5f} / {p20:.5f} -> {p1:.5f} / {p2:.5f} (bars "
+          f"0.0833 / 0.0683 within 3%) [{card}]")
+    check(abs(speed - 0.99977) <= 2e-4 and speed <= 1.0001,
+          f"reference_pulse: speed {speed}")
+    check(abs(p1 / 0.0833 - 1) <= 0.03 and abs(p2 / 0.0683 - 1) <= 0.03,
+          f"reference_pulse: peak amplitudes {p1}, {p2}")
+
+
+def _route_numbers(p, deck, reps=20) -> dict:
+    """The re-bin kernels of the route that rebin_auto takes on `p`: the
+    split, then the segment, the append and the defrag (the deal route,
+    buckets of 8 runs + 256 slots or more) or append_incoming and the
+    dense defrag (the small-bucket route); each against its plain version
+    on the split's output, with its plain time (CUDA events), its bound,
+    and a job for device_times."""
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import route_movers
+    from minipic_torch.simulation import rebin_caps
+
+    t = deck.tiling
+    T, cap = p.x.shape
+    mc, sc = rebin_caps(deck, cap)
+    deal = sc > 0 and cap >= 8 * sc + 256
+    skw = dict(tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+               b_cap=mc)
+    got = rb.split_kernel(p, **skw)
+    want = rb.split_buckets_plain(p, **skw)
+    out = dict(split=dict(
+        max_abs_err=max(_same(a, b, f"route split {i}")
+                        for i, (a, b) in enumerate(zip(got, want))),
+        plain_ms=cuda_ms(lambda: rb.split_buckets_plain(p, **skw), 1),
+        job=(lambda: rb.split_kernel(p, **skw), reps, "split_kernel"),
+        **bound(2 * 24 * T * cap + 24 * T * mc + 8 * T)))
+    p1, movers, wm, _ = got
+    # Each defrag merges into a fresh copy of the split buckets.
+    copies = iter([_clone(p1) for _ in range(reps + 1)])
+    if deal:
+        gkw = dict(tile_rows=t.tile_rows, tile_cols=t.tile_cols,
+                   tile_ny=t.tile_ny, tile_nx=t.tile_nx, b_seg=sc)
+        seg, sd = rb.segment_kernel(movers, **gkw)
+        seg_p, sd_p = rb.segment_movers_plain(movers, **gkw)
+        out["segment"] = dict(
+            max_abs_err=max(_same(seg, seg_p, "route segment"),
+                            _same(sd, sd_p, "route segment dropped")),
+            plain_ms=cuda_ms(lambda: rb.segment_movers_plain(movers, **gkw),
+                             1),
+            job=(lambda: rb.segment_kernel(movers, **gkw), reps,
+                 "segment_kernel"),
+            **bound(24 * T * mc + 24 * T * 8 * sc + 4 * T))
+        nbr = rb.seg_neighbor_table(t.tile_rows, t.tile_cols, p.x.device)
+        n_in = int((seg.w > 0).sum())
+        want, want_d = rb.append_segments_plain(p1, seg, wm, nbr, b_seg=sc)
+        q = _clone(p1)
+        got_d = rb.append_kernel(q, seg, wm, nbr, b_seg=sc)
+        # The append is idempotent on its own output (same runs, same
+        # watermarks), so repeated launches time it fairly.
+        out["append"] = dict(
+            max_abs_err=max(_same(q, want, "route append"),
+                            _same(got_d, want_d, "route append dropped")),
+            plain_ms=cuda_ms(lambda: rb.append_segments_plain(
+                p1, seg, wm, nbr, b_seg=sc), 1),
+            job=(lambda: rb.append_kernel(q, seg, wm, nbr, b_seg=sc), reps,
+                 "append_kernel"),
+            **bound(4 * T * 8 * sc + 2 * 24 * n_in + 40 * T))
+        inc = rb.roll_segments(seg, nbr, sc)
+        want, want_c, want_d = rb.defrag_buckets_plain(p1, inc)
+        r = _clone(p1)
+        got_c, got_d = rb.defrag_kernel(r, seg, nbr, b_seg=sc)
+        defrag_job = (lambda: rb.defrag_kernel(next(copies), seg, nbr,
+                                               b_seg=sc), reps,
+                      "defrag_kernel")
+        in_bytes = 4 * T * 8 * sc + 24 * n_in + 32 * T
+    else:
+        inc, _ = route_movers(movers, t, mc)
+        n_in = int((inc.w > 0).sum())
+        want, want_d = rb.append_incoming_plain(p1, inc, wm)
+        q = _clone(p1)
+        got_d = rb.append_incoming_kernel(q, inc, wm)
+        out["append_incoming"] = dict(
+            max_abs_err=max(_same(q, want, "route append_incoming"),
+                            _same(got_d, want_d,
+                                  "route append_incoming dropped")),
+            plain_ms=cuda_ms(lambda: rb.append_incoming_plain(p1, inc, wm),
+                             1),
+            wrapper_ms=cuda_ms(lambda: rb.append_incoming_kernel(q, inc, wm),
+                               reps),
+            job=(lambda: rb.append_incoming_kernel(q, inc, wm), reps,
+                 "append_rows_kernel"),
+            **bound(4 * T * mc + 4 * T + 2 * 24 * n_in))
+        want, want_c, want_d = rb.defrag_buckets_plain(p1, inc)
+        r = _clone(p1)
+        got_c, got_d = rb.defrag_kernel(r, inc)
+        defrag_job = (lambda: rb.defrag_kernel(next(copies), inc), reps,
+                      "defrag_kernel")
+        in_bytes = 24 * T * mc
+    out["defrag"] = dict(
+        max_abs_err=max(_same(r, want, "route defrag"),
+                        _same(got_c, want_c, "route defrag counts"),
+                        _same(got_d, want_d, "route defrag dropped")),
+        plain_ms=cuda_ms(lambda: rb.defrag_buckets_plain(p1, inc), 1),
+        job=defrag_job, **bound(2 * 24 * T * cap + in_bytes + 8 * T))
+    for v in out.values():
+        v.update(route="deal" if deal else "small-bucket",
+                 shape=f"{T} tiles x {cap} slots, mover buffer {mc}"
+                 + (f", runs {sc}" if deal else ""))
+    return out
+
+
+def _laser_plasma_physics(dev, card: str) -> dict:
+    """laser_plasma at its default size for its full sim_time through
+    Simulation.run: total energy finite and never above 1.01x its start,
+    every drop counted and followed by growth; then the advance in its
+    open mode on the final state (time, bound, launches a step) and, for
+    each species, the re-bin kernels of the route its buckets take
+    there (_route_numbers)."""
+    from minipic_torch.decks import standard
+    from minipic_torch.fields.halo import pad_fields_periodic
+    from minipic_torch.fields.tiles import extract_field_tiles
+    from minipic_torch.ops.advance import (advance_kernel, advance_plain,
+                                           live_watermark)
+
+    case = standard.make("laser_plasma")
+    deck = case.deck
+    sim = case.simulation(device=dev)
+    hist = []
+    advance_kernel.launches = 0
+    launches, wall = timed_run(
+        sim, deck.total_steps, OPEN_ENERGY_EVERY,
+        lambda st, i: hist.append((i, sum(_energies(st, deck)))),
+        "laser_plasma", card, closed=False, stages=False)
+    steps = deck.total_steps
+    per_step = advance_kernel.launches / steps
+    e0 = hist[0][1]
+    worst = max(hist, key=lambda h: h[1])
+    print(f"physics: laser_plasma: total energy {e0:.6e} -> {hist[-1][1]:.6e}"
+          f" (highest {worst[1] / e0:.6f} x E0 at step {worst[0]}, bar "
+          f"1.01), overflow {sim.overflow_total}, advance launches "
+          f"{per_step:g} a step [{card}]")
+    check(all(math.isfinite(e) for _, e in hist), "laser_plasma: energy")
+    check(worst[1] <= 1.01 * e0, f"laser_plasma: energy {worst[1] / e0}")
+    check(per_step == len(deck.species), "laser_plasma: advance launches")
+
+    p = sim.state.species[0]
+    t = deck.tiling
+    T = p.num_tiles
+    ft = extract_field_tiles(pad_fields_periodic(sim.state.fields,
+                                                 deck.guard), t.tile_rows,
+                             t.tile_cols, t.tile_ny, t.tile_nx, deck.guard)
+    kw = _open_kw(deck)
+    counts = live_watermark(p.w)
+    err = _compare_open(deck, p, ft, "open laser_plasma final state", kw)
+    n_wm = int(counts.sum())
+    win = T * (t.tile_ny + 2 * deck.guard) * (t.tile_nx + 2 * deck.guard)
+    adv = dict(deck="laser_plasma", state="final", launches_per_step=per_step,
+               max_abs_err=err,
+               ms=cuda_ms(lambda: advance_kernel(p, ft, counts, **kw), 10),
+               plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **kw),
+                                2),
+               **bound(4 * (11 * n_wm + 9 * win + T),
+                       ADVANCE_OPS_PER_PARTICLE * _live(p)))
+    adv.pop("library_ms")
+    print(f"physics: laser_plasma: advance (open mode, f32, CIC, 20^2 "
+          f"windows) on the final state's electrons ({_live(p)} live, "
+          f"{p.capacity}-slot buckets): kernel {adv['ms']:.4f} ms, plain "
+          f"{adv['plain_ms']:.3f} ms, bound {adv['bound_ms']:.4f} ms "
+          f"({adv['bound_by']}), {wall * 1e3 / steps:.4f} ms/step "
+          f"[{card}]")
+    rebin = {spec.name: _route_numbers(q, deck)
+             for spec, q in zip(deck.species, sim.state.species)}
+    return adv, rebin, launches
+
+
+def _window_census(dev, steps: int, nx: int):
+    """laser_wakefield_window for `steps` steps with its walls, shifts and
+    injections counted on the device: per species, the live particles
+    killed at each wall (x < 0, x >= nx, y < 0, y >= ny) over the run and
+    after the first full transit, the live count's change across the
+    shifts (the injected column less the dropped one), and the largest
+    relative error of an injected live weight against the profile at
+    absolute x.  Kept out of the timed run: it adds reductions to every
+    step."""
+    import torch
+
+    from minipic_torch import simulation
+    from minipic_torch.decks import standard
+    from minipic_torch.particles import species as species_mod
+
+    case = standard.make("laser_wakefield_window")
+    deck = case.deck
+    sim = case.simulation(device=dev)
+    n_sp = len(deck.species)
+    real_inject = species_mod.inject_column
+    real_wrap = simulation.wrap_positions
+    real_shift = simulation.shift_window
+    # Per species: killed through x < 0, x >= nx, y < 0, y >= ny (a corner
+    # counts at both its walls), and killed in all.
+    walls = torch.zeros((n_sp, 5), dtype=torch.int64, device=dev)
+    shifted = torch.zeros(n_sp, dtype=torch.int64, device=dev)
+    worst = [torch.zeros((), dtype=torch.float64, device=dev), 0]
+    calls = [0]
+
+    def live(st):
+        return torch.stack([(p.w > 0).sum() for p in st.species])
+
+    def wrap(p, nx, ny, periodic):
+        alive = p.w > 0
+        off_x, off_y = (p.x < 0) | (p.x >= nx), (p.y < 0) | (p.y >= ny)
+        walls[calls[0] % n_sp] += torch.stack([(alive & c).sum() for c in (
+            p.x < 0, p.x >= nx, p.y < 0, p.y >= ny, off_x | off_y)])
+        calls[0] += 1
+        return real_wrap(p, nx, ny, periodic)
+
+    def shift(deck_, state, w0n):
+        before = live(state)
+        out = real_shift(deck_, state, w0n)
+        shifted.add_(live(out) - before)
+        return out
+
+    def inject(spec, domain, tiling, capacity, key, x0, dtype, device,
+               row_ids=None):
+        inj = real_inject(spec, domain, tiling, capacity, key, x0, dtype,
+                          device, row_ids)
+        ref = (spec.density((inj.x.double() + x0) * domain.dx,
+                            inj.y.double() * domain.dy)
+               * (domain.dx * domain.dy / spec.ppc))
+        rel = (inj.w.double() - ref).abs() / ref
+        worst[0] = torch.maximum(worst[0], torch.where(
+            inj.w > 0, rel, torch.zeros_like(rel)).max())
+        worst[1] += 1
+        return inj
+
+    at_transit = []
+
+    def saver(st, i):
+        if not at_transit and int(st.window_x0) >= nx:
+            at_transit.append(walls.clone())
+
+    n0 = live(sim.state)
+    species_mod.inject_column = inject
+    simulation.wrap_positions = wrap
+    simulation.shift_window = shift
+    try:
+        sim.run(steps, save_every=OPEN_WINDOW_EVERY, saver=saver)
+    finally:
+        species_mod.inject_column = real_inject
+        simulation.wrap_positions = real_wrap
+        simulation.shift_window = real_shift
+    check(bool(at_transit), "laser_wakefield_window census: no transit")
+    return dict(walls=walls.tolist(),
+                walls_after_transit=(walls - at_transit[0]).tolist(),
+                shifted=shifted.tolist(), change=(live(sim.state) - n0)
+                .tolist(), overflow=sim.overflow_total,
+                shifts=int(sim.state.window_x0) // deck.tile_nx,
+                injected=worst[1], weight_err=float(worst[0]))
+
+
+def _window_physics(dev, card: str) -> None:
+    """laser_wakefield_window at its default size through Simulation.run for
+    OPEN_WINDOW_STEPS (its full sim_time unless cut), timed with nothing
+    but the live count read every OPEN_WINDOW_EVERY steps: the window's
+    shifts against the schedule, and each species' live count after the
+    first full transit against a tenth of that species' tile column
+    (tests/test_moving_window.py:86-87).  A species that the census
+    (_window_census, a second run) sees leave through the walls after the
+    transit is held instead to the census's books: its live count moves
+    by exactly the shifts' net injection less its kills at the walls
+    (tests/test_torch_decks.py's twin pins those kills to JAX's, ROADMAP
+    C).  Every injected live weight is the profile's at absolute x."""
+    from minipic_torch.decks import standard
+    from minipic_torch.simulation import window_shift_now
+
+    case = standard.make("laser_wakefield_window")
+    deck = case.deck
+    steps = OPEN_WINDOW_STEPS or deck.total_steps
+    sim = case.simulation(device=dev)
+    samples = []
+
+    def sample(st, i):
+        samples.append((i, int(st.window_x0),
+                        [_live(p) for p in st.species]))
+
+    _, wall = timed_run(sim, steps, OPEN_WINDOW_EVERY, sample,
+                        "laser_wakefield_window", card, closed=False,
+                        stages=False)
+    w0 = int(sim.state.window_x0)
+    del sim
+    sched = 0
+    for s in range(steps):
+        if window_shift_now(s, sched, deck.dt, deck.tile_nx, deck.dx):
+            sched += deck.tile_nx
+    formula = int(steps * deck.dt / deck.dx / deck.tile_nx)
+    transit = next((k for k, (_, x0, _) in enumerate(samples)
+                    if x0 >= deck.nx), None)
+    check(transit is not None, "laser_wakefield_window: no full transit")
+    base = samples[transit][2]
+    spread = [max(abs(s[2][k] - base[k]) for s in samples[transit:])
+              for k in range(len(base))]
+    ends = [n - b for n, b in zip(samples[-1][2], base)]
+    # One tile column of each species: its ppc in ny x tile_nx cells.
+    cols = [deck.ny * deck.tile_nx * sp.ppc for sp in deck.species]
+    print(f"physics: laser_wakefield_window {deck.nx}x{deck.ny}: {steps} "
+          f"steps (t {steps * deck.dt:.3f}) in {wall:.2f} s, "
+          f"{1e3 * wall / steps:.4f} ms/step; {w0 // deck.tile_nx} shifts "
+          f"(schedule {sched // deck.tile_nx}, floor(steps dt/dx/tile_nx) "
+          f"{formula}); live per species after the first full transit "
+          f"(step {samples[transit][0]}) {base}, largest change since "
+          f"{spread}, at the end {ends} (bar: 0.1 x one tile "
+          f"column of the species = {[0.1 * c for c in cols]}) [{card}]")
+    check(w0 == sched and abs(w0 // deck.tile_nx - formula) <= 1,
+          f"laser_wakefield_window: window_x0 {w0}")
+
+    c = _window_census(dev, steps, deck.nx)
+    print(f"physics: laser_wakefield_window census run ({steps} steps, "
+          f"{c['shifts']} shifts): killed at the walls (x<0, x>=nx, y<0, "
+          f"y>=ny, all) per species {c['walls']}, of them after the first "
+          f"full transit {c['walls_after_transit']}; live change over the "
+          f"run {c['change']} = net injection at the shifts "
+          f"{c['shifted']} less the kills at the walls, overflow "
+          f"{c['overflow']}; "
+          f"{c['injected']} injected columns, largest relative weight error "
+          f"{c['weight_err']:.3e} (bar 1e-6) [{card}]")
+    check(c["shifts"] == w0 // deck.tile_nx,
+          "laser_wakefield_window census: shifts differ")
+    check(c["injected"] == len(deck.species) * c["shifts"]
+          and c["weight_err"] <= 1e-6,
+          "laser_wakefield_window: injected weights")
+    # The books: each change of the live count is a shift's net injection,
+    # a kill at a wall, or a counted drop (per species when none dropped).
+    killed = [k[4] for k in c["walls"]]
+    check(sum(c["change"]) == sum(c["shifted"]) - sum(killed)
+          - c["overflow"] and (c["overflow"] > 0 or all(
+              ch == sh - k for ch, sh, k in zip(
+                  c["change"], c["shifted"], killed))),
+          "laser_wakefield_window: live count off the census's books")
+    held = []
+    for k, sp in enumerate(deck.species):
+        if c["walls_after_transit"][k][4] == 0:
+            check(spread[k] <= 0.1 * cols[k],
+                  f"laser_wakefield_window: {sp.name} live {spread[k]}")
+            held.append(f"{sp.name} to the bar")
+        else:
+            held.append(f"{sp.name} to the books (leaves through the walls)")
+    print(f"physics: laser_wakefield_window: live counts held: "
+          f"{', '.join(held)} [{card}]")
+
+
+def phase_open_physics(dev, card: str) -> dict:
+    """The open-boundary decks at their default sizes on the card:
+    reference_pulse, laser_plasma and laser_wakefield_window (bars in each
+    function).  Returns laser_plasma's numbers: the open advance's, per
+    species those of its re-bin route's kernels, and the re-bin launches
+    of its run."""
+    import torch
+
+    _pulse_physics(dev, card)
+    torch.cuda.empty_cache()
+    numbers = _laser_plasma_physics(dev, card)
+    torch.cuda.empty_cache()
+    _window_physics(dev, card)
+    return numbers
 
 
 def _run(sim, steps: int, card: str, label: str, force_at=None):
@@ -1474,16 +2099,21 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     phase_kernel(dev)
+    phase_open_kernel(dev)
     phase_rebin_kernels(dev)
     phase_rebin_kernels_b6_b8(dev)
     runs_launches = phase_small_step(dev)
     b6 = phase_decks(dev)
+    phase_open_twins(dev)
     b6_launches = phase_physics(dev, card)
+    torch.cuda.empty_cache()
+    lp_advance, lp_rebin, lp_launches = phase_open_physics(dev, card)
     torch.cuda.empty_cache()
     phase_sort(dev, card)
     torch.cuda.empty_cache()
     numbers, jobs = phase_main(dev, card)
     numbers["append_runs"]["launches"] = runs_launches
+    numbers["advance"]["open"] = lp_advance
     # Device times last, in one profile (device_times).  First the launch
     # floor: the smallest kernel PyTorch launches, a one-element zero_(), by
     # the name of its fill kernel (or a memset); it runs before anything
@@ -1491,8 +2121,13 @@ def main() -> int:
     decks = list(b6)
     one = torch.ones(1, device=dev)
     floor_job = (one.zero_, 20, ("FillFunctor", "fill", "Memset"))
+    lp_kernels = [(sp, k, v) for sp, route in lp_rebin.items()
+                  for k, v in route.items()]
     floor_ms, *times = device_times(
-        [floor_job] + [b6[d].pop("job") for d in decks] + jobs)
+        [floor_job] + [b6[d].pop("job") for d in decks] + jobs
+        + [v.pop("job") for _, _, v in lp_kernels])
+    lp_times = times[-len(lp_kernels):]
+    times = times[:-len(lp_kernels)]
     for d, ms in zip(decks, times):
         v = b6[d]
         v["ms"] = ms
@@ -1511,8 +2146,18 @@ def main() -> int:
     # through Simulation.run; its times, at that deck's shape.
     numbers["append_incoming"] = {
         k: v for k, v in b6["two_stream"].items()
-        if k not in ("shape", "wrapper_ms")}
+        if k not in ("shape", "wrapper_ms", "route")}
     numbers["append_incoming"]["launches"] = b6_launches
+    # laser_plasma's: launches in its run, numbers per species.
+    for (sp, name, v), ms in zip(lp_kernels, lp_times):
+        v["ms"] = ms
+        numbers[name].setdefault("laser_plasma", dict(
+            launches=lp_launches[name]))[sp] = v
+        print(f"device: {name} on laser_plasma's final state, {sp} "
+              f"({v['route']} route, {v['shape']}): kernel {ms:.4f} ms on "
+              f"the device (profiler), plain {v['plain_ms']:.3f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']}), equal to its "
+              f"plain version (max abs err {v['max_abs_err']:.1e}) [{card}]")
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

@@ -1,10 +1,11 @@
 """State carried across packages as a flat dict of numpy arrays.
 
 Keys: the six field names (``ex`` ... ``bz``), ``s{i}.{x,y,px,py,pz,w}``
-per species, ``step`` and, where set, ``drift``.  ``sim_state_to_numpy``
-reads any SimState with those attributes — this package's, or the JAX
-package's (``np.asarray`` converts its arrays) — so a test can build a state
-in one package and step the same particles in the other.
+per species, ``step`` and, where set, ``drift`` and ``window_x0``.
+``sim_state_to_numpy`` reads any SimState with those attributes — this
+package's, or the JAX package's (``np.asarray`` converts its arrays) — so
+a test can build a state in one package and step the same particles in
+the other.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ def sim_state_to_numpy(state) -> Dict[str, np.ndarray]:
         for name in ParticleState._fields:
             out[f"s{i}.{name}"] = _np(getattr(p, name))
     out["step"] = _np(state.step)
-    if state.drift is not None:
-        out["drift"] = _np(state.drift)
+    for name in ("drift", "window_x0"):
+        if getattr(state, name, None) is not None:
+            out[name] = _np(getattr(state, name))
     return out
 
 
@@ -46,6 +48,7 @@ def sim_state_from_numpy(d: Dict[str, np.ndarray],
     species = tuple(
         ParticleState(*(t(d[f"s{i}.{name}"]) for name in ParticleState._fields))
         for i in range(n_species))
-    drift = t(d["drift"]) if "drift" in d else None
+    extra = {name: t(d[name]) for name in ("drift", "window_x0")
+             if name in d}
     return SimState(fields=fields, species=species, step=t(d["step"]),
-                    drift=drift)
+                    **extra)

@@ -122,8 +122,7 @@ class Deck:
     # leading edge (particles/species.inject_column, keyed by the
     # absolute column so restarts are deterministic).  The reference has
     # no analogue; this is the capability its laser test case (report
-    # §4) points toward.  Requires boundary="absorbing".  The JAX package
-    # runs it; this port does not yet (build_step raises).
+    # §4) points toward.  Requires boundary="absorbing".
     moving_window: bool = False
 
     # --- numerics / machine mapping ---

@@ -70,13 +70,16 @@ class ParticleState(NamedTuple):
 
 
 class SimState(NamedTuple):
-    """Fields + one ParticleState per species + the step counter and the
-    drift accumulated since the last re-bin (cells, float32 0-d tensor)."""
+    """Fields + one ParticleState per species + the step counter, the drift
+    accumulated since the last re-bin (cells, float32 0-d tensor) and, for
+    a moving-window deck, the window's origin in absolute cells (int32 0-d,
+    a multiple of tile_nx; None for every other deck)."""
 
     fields: FieldState
     species: tuple
     step: torch.Tensor
     drift: Optional[torch.Tensor] = None
+    window_x0: Optional[torch.Tensor] = None
 
 
 def field_energy(f: FieldState, dx: float, dy: float) -> torch.Tensor:

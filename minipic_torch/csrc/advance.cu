@@ -19,13 +19,23 @@
 // J windows are written whole, before the prefix sums (the caller applies
 // them, and in int8 mode the q*max(w) scale, in torch).
 //
+// Boundary (P.periodic, a compile-time PERIODIC chosen at launch, so the
+// periodic kernels carry no trace of the open mode): periodic folds each
+// position to its nearest image around the tile and wraps the stored
+// move; open (P.periodic 0, decks with absorbing walls) takes the raw
+// offset x - ox and stores the unwrapped move, s1 from it through the same
+// ops as the next step's s0.  A particle that has just left through a wall
+// lies at most one move (< 1 cell) outside the grid, inside its tile's
+// guard band, and its supports take the bounds-checked gather and deposit
+// where they reach past the window.
+//
 // Modes (compile-time): ORDER 1 (CIC) or 2 (TSC); QUANT false (f32 shapes
 // and f32 J) or true (int8 matched quantization: shape values round(S*s)
 // with the centre-cell partition fold and the window-edge fold; jx/jy are
 // integer sums, converted once to f32 times -1/(2 S^2 dt d{y,x}); jz is an
 // f32 sum).  NP: the int8 product's column tiles, in pairs of 8 (nxg <= 16
 // NP 1, <= 32 NP 2, <= 64 NP 4; the int8 window rule admits nxg <= 64 and
-// nyg 8 or 16).
+// nyg 8 or 16).  PERIODIC: the boundary, above.
 //
 // The int8 deposit runs on the tensor cores, as the TPU kernel's is a
 // contraction over the particle axis (ppd_kernel.py:745-875): for a slab of
@@ -85,12 +95,13 @@
 
 struct AdvanceParams {
   int num_tiles, capacity, tile_cols, tile_nx, tile_ny, guard;
+  int periodic;             // 1: periodic box (fold and wrap); 0: open walls
   float h;                  // push half-kick q/m dt/2 (int8: times 1/S^2)
   float dtdx, dtdy;         // dt/dx, dt/dy
   float q;                  // species charge
-  float grid_nx, grid_ny;   // periodic box in cells (fold and wrap)
-  float inv_nx, inv_ny;     // 1/nx, 1/ny
-  float half_x, half_y;     // (nx - tile_nx)/2, (ny - tile_ny)/2
+  float grid_nx, grid_ny;   // periodic box in cells (fold and wrap; 0 open)
+  float inv_nx, inv_ny;     // 1/nx, 1/ny (0 open)
+  float half_x, half_y;     // (nx - tile_nx)/2, (ny - tile_ny)/2 (0 open)
   float cjx, cjy;           // jx, jy factors (f32: -1/(dt dy), -1/(dt dx);
                             // int8: -1/(2 S^2 dt dy), -1/(2 S^2 dt dx))
   float cz;                 // 1/(dx dy)
@@ -216,6 +227,13 @@ __device__ __forceinline__ float fold(float pos, float origin, float gn,
                                       float half, float inv) {
   const float xi = pos - origin;
   return xi - gn * floorf((xi + half) * inv);
+}
+
+// Tile-local coordinate: the nearest-image fold on a periodic box, the raw
+// offset between open walls.
+__device__ __forceinline__ float local(float pos, float origin, bool periodic,
+                                       float gn, float half, float inv) {
+  return periodic ? fold(pos, origin, gn, half, inv) : pos - origin;
 }
 
 __device__ __forceinline__ float wrap(float v, float n, float inv) {
@@ -516,7 +534,7 @@ __device__ __forceinline__ void warp_deposit(float* const win[3],
   }
 }
 
-template <int ORDER, bool QUANT, int NP>
+template <int ORDER, bool QUANT, int NP, bool PERIODIC>
 __global__ void __launch_bounds__(kThreads, 2)
 advance_kernel(AdvanceParams P,
                const float* __restrict__ x, const float* __restrict__ y,
@@ -596,6 +614,7 @@ advance_kernel(AdvanceParams P,
   const float ox = (float)((t % P.tile_cols) * P.tile_nx);
   const float oy = (float)((t / P.tile_cols) * P.tile_ny);
   const float S = P.S;
+  constexpr bool periodic = PERIODIC;
   float* const wins[3] = {s_jx, s_jy, s_jz};
   float local_max = 0.0f;
 
@@ -634,8 +653,8 @@ advance_kernel(AdvanceParams P,
         pzo[k] = uz;
       }
     } else {
-      const float xi = fold(x0, ox, P.grid_nx, P.half_x, P.inv_nx);
-      const float eta = fold(y0, oy, P.grid_ny, P.half_y, P.inv_ny);
+      const float xi = local(x0, ox, periodic, P.grid_nx, P.half_x, P.inv_nx);
+      const float eta = local(y0, oy, periodic, P.grid_ny, P.half_y, P.inv_ny);
 
       float sxi[3], sxh[3], syi[3], syh[3];
       const float cxi = support3<ORDER, QUANT>(xi, false, nxg, g, S, sxi);
@@ -686,8 +705,9 @@ advance_kernel(AdvanceParams P,
           1.0f / sqrtf(1.0f + pxn * pxn + pyn * pyn + pzn * pzn);
       const float xn = x0 + pxn * gn * P.dtdx;
       const float yn = y0 + pyn * gn * P.dtdy;
-      const float x1 = wrap(xn, P.grid_nx, P.inv_nx);
-      const float y1 = wrap(yn, P.grid_ny, P.inv_ny);
+      // Open walls: the unwrapped move (the caller kills and clamps).
+      const float x1 = periodic ? wrap(xn, P.grid_nx, P.inv_nx) : xn;
+      const float y1 = periodic ? wrap(yn, P.grid_ny, P.inv_ny) : yn;
       xo[k] = x1;
       yo[k] = y1;
       pxo[k] = pxn;
@@ -699,8 +719,10 @@ advance_kernel(AdvanceParams P,
         // Esirkepov over the union support, 4 cells from min(c0, c1) - 1;
         // s1 from the stored position through the same ops as next step's
         // s0.
-        const float xi1 = fold(x1, ox, P.grid_nx, P.half_x, P.inv_nx);
-        const float eta1 = fold(y1, oy, P.grid_ny, P.half_y, P.inv_ny);
+        const float xi1 =
+            local(x1, ox, periodic, P.grid_nx, P.half_x, P.inv_nx);
+        const float eta1 =
+            local(y1, oy, periodic, P.grid_ny, P.half_y, P.inv_ny);
         float q1x3[3], q1y3[3];
         const float c1x = support3<ORDER, QUANT>(xi1, false, nxg, g, S, q1x3);
         const float c1y = support3<ORDER, QUANT>(eta1, false, nyg, g, S, q1y3);
@@ -843,7 +865,7 @@ size_t smem_bytes(bool quant, int np, int nwin) {
          (quant ? (size_t)kWarps * stage_bytes(np) : 0);
 }
 
-template <int ORDER, bool QUANT, int NP>
+template <int ORDER, bool QUANT, int NP, bool PERIODIC>
 cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
                    const float* px, const float* py, const float* pz,
                    const float* w, const int* counts, const float* ex,
@@ -853,7 +875,7 @@ cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
                    float* jz, float* dmax, cudaStream_t stream) {
   const int nwin = (P.tile_nx + 2 * P.guard) * (P.tile_ny + 2 * P.guard);
   const size_t smem = smem_bytes(QUANT, NP, nwin);
-  auto* kernel = advance_kernel<ORDER, QUANT, NP>;
+  auto* kernel = advance_kernel<ORDER, QUANT, NP, PERIODIC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -882,10 +904,15 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nxg = P.tile_nx + 2 * P.guard;
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
-#define MINIPIC_LAUNCH(O, Q, N)                                               \
-  return (int)launch<O, Q, N>(P, x, y, px, py, pz, w, counts, ex, ey, ez, bx, \
-                              by, bz, xo, yo, pxo, pyo, pzo, jx, jy, jz, dmax, \
-                              s)
+#define MINIPIC_LAUNCH(O, Q, N)                                                \
+  return (int)(P.periodic                                                      \
+                   ? launch<O, Q, N, true>(P, x, y, px, py, pz, w, counts, ex, \
+                                           ey, ez, bx, by, bz, xo, yo, pxo,    \
+                                           pyo, pzo, jx, jy, jz, dmax, s)      \
+                   : launch<O, Q, N, false>(P, x, y, px, py, pz, w, counts,    \
+                                            ex, ey, ez, bx, by, bz, xo, yo,    \
+                                            pxo, pyo, pzo, jx, jy, jz, dmax,   \
+                                            s))
   if (!quant) {
     if (order == 1) MINIPIC_LAUNCH(1, false, 1);
     if (order == 2) MINIPIC_LAUNCH(2, false, 1);
@@ -901,8 +928,9 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM of the kernel that minipic_advance would launch
-// for this window (the occupancy calculator's answer), or -1 on error.
+// Resident blocks per SM of the periodic kernel that minipic_advance would
+// launch for this window (the occupancy calculator's answer), or -1 on
+// error.
 extern "C" int minipic_advance_blocks_per_sm(int order, int quant, int nyg,
                                              int nxg) {
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
@@ -911,7 +939,7 @@ extern "C" int minipic_advance_blocks_per_sm(int order, int quant, int nyg,
   cudaError_t err = cudaErrorInvalidValue;
 #define MINIPIC_OCC(O, Q, N)                                                  \
   do {                                                                        \
-    auto* k = advance_kernel<O, Q, N>;                                        \
+    auto* k = advance_kernel<O, Q, N, true>;                                  \
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, \
                                (int)smem);                                    \
     if (err == cudaSuccess)                                                   \

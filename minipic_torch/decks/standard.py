@@ -1,38 +1,58 @@
 """Named run decks (torch port of ``minipic_tpu.decks.standard``).
 
-Each case bundles a Deck with its state seeder (perturbations applied
-after loading, e.g. the two-stream velocity seed).
-The port carries the three periodic physics decks of BASELINE.json:
-``two_stream``, ``weibel`` and ``landau``, with the JAX package's fields,
-sizes and seeders.  The other six named decks need modules not ported yet;
-``make`` raises ``NotImplementedError`` for them, naming the ROADMAP item.
+Each case bundles a Deck with its initial fields (``init_fields``) and its
+state seeder (``seed_state``: perturbations applied after loading, e.g.
+the two-stream velocity seed), either of which may be None.  The port
+carries, with the JAX package's fields, sizes, field inits and seeders:
+the reference's fields-only pulse (``reference_pulse``), the three
+periodic physics decks (``two_stream``, ``weibel``, ``landau``) and the
+two laser decks between absorbing walls (``laser_plasma``, and
+``laser_wakefield_window`` in a moving window).  The three
+``load_balance_*`` decks need the device mesh; ``make`` raises
+``NotImplementedError`` for them, naming the ROADMAP item.
 
 Run one on the card::
 
     from minipic_torch.decks import standard
     from minipic_torch.simulation import Simulation
 
-    case = standard.make("two_stream")
-    sim = Simulation(case.deck)
-    sim.state = case.seed_state(sim.state, case.deck)
+    case = standard.make("laser_plasma")
+    sim = Simulation(case.deck, fields=case.init_fields(case.deck))
     sim.run()
+
+(``case.simulation()`` does the same, and applies ``seed_state``.)
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..core.config import Deck, SpeciesSpec
+from ..fields import init as finit
 
 
 @dataclasses.dataclass
 class Case:
     name: str
     deck: Deck
-    seed_state: Callable  # (state, deck) -> state
+    # (deck, device="cuda") -> FieldState; None: fields start at zero.
+    init_fields: Optional[Callable] = None
+    seed_state: Optional[Callable] = None  # (state, deck) -> state
+
+    def simulation(self, seed: int = 0, device="cuda"):
+        """The deck's Simulation as its users start it: the initial fields,
+        the species loaded from `seed`, then ``seed_state``."""
+        from ..simulation import Simulation
+
+        fields = (None if self.init_fields is None
+                  else self.init_fields(self.deck, device=device))
+        sim = Simulation(self.deck, fields=fields, seed=seed, device=device)
+        if self.seed_state is not None:
+            sim.state = self.seed_state(sim.state, self.deck)
+        return sim
 
 
 def _fit_tile(n: int, target: int = 25) -> int:
@@ -42,6 +62,19 @@ def _fit_tile(n: int, target: int = 25) -> int:
         if n % t == 0:
             return t
     return 1
+
+
+def reference_pulse(nx: int = 450, ny: int = 450) -> Case:
+    """The reference's canonical run: 10x10 box, 450^2 cells, the cos^2
+    pulse (Test 3), dt = 0.5 dt_CFL, save every 25; fields only."""
+    deck = Deck(box_x=10.0, box_y=10.0, nx=nx, ny=ny,
+                tile_nx=_fit_tile(nx), tile_ny=_fit_tile(ny),
+                sim_time=500.0, save_frequency=25)
+
+    def fields(d, device="cuda"):
+        return finit.pulse_x(d.domain, dtype=d.dtype, device=device)
+
+    return Case("reference_pulse", deck, init_fields=fields)
 
 
 def two_stream(nx: int = 64, ny: int = 64, ppc: int = 16,
@@ -131,19 +164,78 @@ def landau(nx: int = 256, ny: int = 256, ppc: int = 16) -> Case:
     return Case("landau", deck, seed_state=seed)
 
 
+def laser_plasma(nx: int = 512, ny: int = 512, ppc: int = 4) -> Case:
+    """BASELINE config 4: a Gaussian laser (a0 = 2) into an underdense slab
+    with a soft ramp from x = 15, between absorbing walls; CIC, 16x16
+    tiles, guard 2, the f32 deposit (the slab's graded weights make the
+    int8 deposit ineligible)."""
+    box = 51.2
+
+    def slab(x, y):
+        return 0.05 * 0.5 * (1.0 + torch.tanh((x - 15.0) / 2.0))
+
+    deck = Deck(
+        box_x=box, box_y=box, nx=nx, ny=ny, tile_nx=16, tile_ny=16,
+        species=(
+            SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.01,
+                        density=slab),
+            SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc,
+                        density=slab),
+        ),
+        boundary="absorbing", absorb_width=24, sim_time=60.0,
+    )
+
+    def fields(d, device="cuda"):
+        return finit.gaussian_laser_x(d.domain, a0=2.0, k0=10.0,
+                                      x_center=6.0, length=3.0, waist=8.0,
+                                      dtype=d.dtype, device=device)
+
+    return Case("laser_plasma", deck, init_fields=fields)
+
+
+def laser_wakefield_window(nx: int = 512, ny: int = 256,
+                           ppc: int = 4) -> Case:
+    """laser_plasma's scenario in a window that follows the pulse at c: a
+    long upramp (x = 30-50, absolute) into an n = 0.3 plateau enters at the
+    leading edge, depleted plasma leaves behind; TSC, 8x8 tiles, guard 4,
+    whole-bucket chunks, the f32 deposit."""
+    box_x, box_y = 51.2, 25.6
+
+    def profile(x, y):
+        return 0.3 * 0.5 * (1.0 + torch.tanh((x - 40.0) / 4.0))
+
+    deck = Deck(
+        box_x=box_x, box_y=box_y, nx=nx, ny=ny, tile_nx=8, tile_ny=8,
+        guard=4, kchunk=0,
+        species=(
+            SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.01,
+                        density=profile, shape_order=2),
+            SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc,
+                        density=profile, shape_order=2),
+        ),
+        boundary="absorbing", absorb_width=16, moving_window=True,
+        sim_time=200.0,
+    )
+
+    def fields(d, device="cuda"):
+        return finit.gaussian_laser_x(d.domain, a0=2.0, k0=5.0,
+                                      x_center=40.0, length=4.0, waist=10.0,
+                                      dtype=d.dtype, device=device)
+
+    return Case("laser_wakefield_window", deck, init_fields=fields)
+
+
 CASES: Dict[str, Callable[..., Case]] = {
+    "reference_pulse": reference_pulse,
     "two_stream": two_stream,
     "weibel": weibel,
     "landau": landau,
+    "laser_plasma": laser_plasma,
+    "laser_wakefield_window": laser_wakefield_window,
 }
 
 # The JAX package's other named decks, and the ROADMAP item each waits for.
 UNPORTED: Dict[str, str] = {
-    "reference_pulse": "ROADMAP A2 (fields/init.py: the pulse)",
-    "laser_plasma": "ROADMAP A2 (fields/boundary.py absorbing boundaries, "
-                    "fields/init.py: the Gaussian laser)",
-    "laser_wakefield_window": "ROADMAP A3/A4 (the moving window, "
-                              "inject_column) and A2",
     "load_balance_stress": "ROADMAP A9 (the 2x4 device mesh)",
     "load_balance_stress_counts": "ROADMAP A9 (the 2x4 device mesh)",
     "load_balance_bunching": "ROADMAP A9 (the 2x4 device mesh)",

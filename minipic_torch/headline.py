@@ -11,9 +11,12 @@ instead.
         [--deck NAME]
 
 on a CUDA card loads that deck (or, with ``--deck``, a deck of
-``decks.standard``, seeded), warms up, and traces N steps that only
-advance plus one forced re-bin step with ``torch.profiler``.  It prints the
-share of the traced wall time in which the device ran a kernel, the span
+``decks.standard`` as its users start it: its initial fields and its
+seeder, e.g. ``--deck laser_plasma``), warms up, and traces N steps that
+only advance plus one forced re-bin step with ``torch.profiler`` (a deck
+with no species only advances its fields).  It prints the ms a step and
+the share of the traced wall time in which the device ran a kernel, the
+launches a step, the span
 of the device timeline each profiler range of the step covers
 (``minipic.advance``, ``.fields``, ``.rebin``, ``.diag``), and the kernels
 that take the most device time.
@@ -92,9 +95,7 @@ def main(argv=None) -> int:
     if args.deck:
         from .decks import standard
 
-        case = standard.make(args.deck)
-        sim = Simulation(case.deck, seed=0, device=dev)
-        sim.state = case.seed_state(sim.state, case.deck)
+        sim = standard.make(args.deck).simulation(seed=0, device=dev)
     else:
         sim = Simulation(headline_deck(), seed=0, device=dev)
     # Warm-up, a re-bin included: first launches load their modules.
@@ -111,9 +112,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
+    per_step = wall_us / 1e3 / (args.steps + 1)
     print(f"profile: {args.steps} advance-only steps + 1 re-bin step, "
-          f"wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{100 * _busy_us(events) / wall_us:.1f}% [{card}]")
+          f"wall {wall_us / 1e3:.3f} ms ({per_step:.3f} ms a step), device "
+          f"busy {100 * _busy_us(events) / wall_us:.1f}% [{card}]")
     n_kernels = sum(1 for e in events
                     if _is_device(e) and e.name not in RANGES)
     print(f"profile: {n_kernels} kernel launches, "

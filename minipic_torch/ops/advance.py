@@ -1,5 +1,8 @@
 """The particle advance: gather + relativistic Boris push + move (+ periodic
-wrap) + Esirkepov deposit, one pass over each tile's bucket.
+wrap) + Esirkepov deposit, one pass over each tile's bucket.  ``grid=(nx,
+ny)`` is the periodic box; ``grid=None`` the open mode of decks with
+absorbing walls (raw tile-local offsets, the move stored unwrapped), as the
+JAX kernel's ``wrap=None, grid=None``.
 
 Port of ``minipic_tpu.ops.pallas.ppd_kernel.fused_push_deposit``.  Two
 implementations of one function, ``advance_tiles``:
@@ -14,16 +17,18 @@ implementations of one function, ``advance_tiles``:
 Both evaluate, per live slot (slot < counts[t] and w != 0; every other slot
 passes through untouched):
 
-1. tile-local coordinates with the nearest-image fold (reciprocal multiply,
-   as ``simulation.tile_local_coords``);
+1. tile-local coordinates: with the nearest-image fold on a periodic box
+   (reciprocal multiply, as ``simulation.tile_local_coords``), the raw
+   offset x - ox in the open mode;
 2. shape values on the 3-cell support of both stagger classes — f32 mode
    evaluates the B-spline at each cell; int8 mode takes the quantized
    values round(S*s) with the partition fold into the centre cell and the
    window-edge fold (``_qsparse_vals``/``_edge_fold`` of the JAX kernel);
 3. the six-component gather (in int8 mode 1/S^2 is folded into the push's
    half-kick coefficient h);
-4. Boris, the move, and the two-edge periodic wrap of the stored position;
-5. s1 shapes from the STORED (wrapped) position through the same ops as
+4. Boris, the move, and the two-edge periodic wrap of the stored position
+   (the open mode stores the move as it is);
+5. s1 shapes from the STORED position through the same ops as
    the next step's s0, so the shape chain telescopes bit-exactly;
 6. the raw Esirkepov contractions over the union support (<= 4x4 cells):
    jx ~ (s0y + dsy/2) dsx and jy ~ dsy (s0x + dsx/2) before their prefix
@@ -45,7 +50,7 @@ x/y prefix sums.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -97,6 +102,7 @@ class AdvanceParams(ctypes.Structure):
         ("num_tiles", ctypes.c_int), ("capacity", ctypes.c_int),
         ("tile_cols", ctypes.c_int), ("tile_nx", ctypes.c_int),
         ("tile_ny", ctypes.c_int), ("guard", ctypes.c_int),
+        ("periodic", ctypes.c_int),
         ("h", ctypes.c_float), ("dtdx", ctypes.c_float),
         ("dtdy", ctypes.c_float), ("q", ctypes.c_float),
         ("grid_nx", ctypes.c_float), ("grid_ny", ctypes.c_float),
@@ -109,9 +115,10 @@ class AdvanceParams(ctypes.Structure):
 
 
 def _constants(*, qm, q, order, tile_ny, tile_nx, dt, dx, dy, grid, mode):
-    """Python-float constants shared by both implementations."""
+    """Python-float constants shared by both implementations; the box
+    constants are 0 in the open mode (grid None), where nothing reads
+    them."""
     S = qshape_scale(order)
-    gnx, gny = grid
     h = qm * dt * 0.5
     if mode == "int8":
         h = h * (1.0 / (S * S))
@@ -119,11 +126,16 @@ def _constants(*, qm, q, order, tile_ny, tile_nx, dt, dx, dy, grid, mode):
         cjx, cjy = -inv2 / (dt * dy), -inv2 / (dt * dx)
     else:
         cjx, cjy = -1.0 / (dt * dy), -1.0 / (dt * dx)
+    if grid is None:
+        box = dict(grid_nx=0.0, grid_ny=0.0, inv_nx=0.0, inv_ny=0.0,
+                   half_x=0.0, half_y=0.0)
+    else:
+        gnx, gny = grid
+        box = dict(grid_nx=float(gnx), grid_ny=float(gny),
+                   inv_nx=1.0 / gnx, inv_ny=1.0 / gny,
+                   half_x=(gnx - tile_nx) * 0.5, half_y=(gny - tile_ny) * 0.5)
     return dict(
-        h=h, dtdx=dt / dx, dtdy=dt / dy, q=q,
-        grid_nx=float(gnx), grid_ny=float(gny),
-        inv_nx=1.0 / gnx, inv_ny=1.0 / gny,
-        half_x=(gnx - tile_nx) * 0.5, half_y=(gny - tile_ny) * 0.5,
+        h=h, dtdx=dt / dx, dtdy=dt / dy, q=q, **box,
         cjx=cjx, cjy=cjy, cz=1.0 / (dx * dy), czq=1.0 / (S * S), S=S,
     )
 
@@ -141,6 +153,12 @@ def _f(v, like: torch.Tensor) -> torch.Tensor:
 def _fold(pos, origin, gn, half, inv):
     xi = pos - origin
     return xi - gn * torch.floor((xi + half) * inv)
+
+
+def _local(pos, origin, box):
+    """Tile-local coordinate: the nearest-image fold with `box` = (n, (n -
+    tile)/2, 1/n), or the raw offset for `box` None (the open mode)."""
+    return pos - origin if box is None else _fold(pos, origin, *box)
 
 
 def _support(pos, half: bool, n_rows: int, g: int, order: int, quant: bool,
@@ -202,8 +220,9 @@ def _place4(cells, c, vals):
 def advance_plain(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
                   *, qm: float, q: float, order: int, tile_ny: int,
                   tile_nx: int, tile_cols: int, g: int, dt: float, dx: float,
-                  dy: float, grid: Tuple[int, int], mode: str):
-    """Plain torch version of the advance kernel (any device).
+                  dy: float, grid: Optional[Tuple[int, int]], mode: str):
+    """Plain torch version of the advance kernel (any device); `grid` None
+    is the open mode.
 
     Returns (x, y, px, py, pz) new tensors [T, cap], the raw windows
     (jx, jy, jz) [T, nyg, nxg] before the int8 q*max(w) scale and the
@@ -220,7 +239,7 @@ def advance_plain(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
                        FieldState(*(a[t0:t0 + step] for a in ftiles)),
                        counts[t0:t0 + step], t0, c32, order=order,
                        tile_ny=tile_ny, tile_nx=tile_nx, tile_cols=tile_cols,
-                       g=g, quant=mode == "int8")
+                       g=g, quant=mode == "int8", periodic=grid is not None)
         for t0 in range(0, T, step)]
     if len(parts) == 1:
         return parts[0]
@@ -231,7 +250,7 @@ def advance_plain(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
 
 def _advance_block(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
                    t0: int, c32, *, order: int, tile_ny: int, tile_nx: int,
-                   tile_cols: int, g: int, quant: bool):
+                   tile_cols: int, g: int, quant: bool, periodic: bool):
     """advance_plain on the tiles t0, t0+1, ... that `p` holds."""
     T, cap = p.x.shape
     dev = p.x.device
@@ -246,10 +265,12 @@ def _advance_block(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
     tg = t_idx + t0
     ox = ((tg % tile_cols) * tile_nx).to(p.x.dtype)
     oy = ((tg // tile_cols) * tile_ny).to(p.x.dtype)
-    fold_x = (c32["grid_nx"], c32["half_x"], c32["inv_nx"])
-    fold_y = (c32["grid_ny"], c32["half_y"], c32["inv_ny"])
-    xi = _fold(x, ox, *fold_x)
-    eta = _fold(y, oy, *fold_y)
+    box_x = (c32["grid_nx"], c32["half_x"], c32["inv_nx"]) if periodic \
+        else None
+    box_y = (c32["grid_ny"], c32["half_y"], c32["inv_ny"]) if periodic \
+        else None
+    xi = _local(x, ox, box_x)
+    eta = _local(y, oy, box_y)
 
     cxi, sxi = _support(xi, False, nxg, g, order, quant, S)
     cxh, sxh = _support(xi, True, nxg, g, order, quant, S)
@@ -290,12 +311,15 @@ def _advance_block(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
         vw = torch.where(vw < 0, vw + n, vw)
         return torch.where(vw >= n, vw - n, vw)
 
-    x_out = wrap(xn, c32["grid_nx"], c32["inv_nx"])
-    y_out = wrap(yn, c32["grid_ny"], c32["inv_ny"])
+    if periodic:
+        x_out = wrap(xn, c32["grid_nx"], c32["inv_nx"])
+        y_out = wrap(yn, c32["grid_ny"], c32["inv_ny"])
+    else:
+        x_out, y_out = xn, yn
 
     # Esirkepov over the union support: 4 cells from min(c0, c1) - 1.
-    xi1 = _fold(x_out, ox, *fold_x)
-    eta1 = _fold(y_out, oy, *fold_y)
+    xi1 = _local(x_out, ox, box_x)
+    eta1 = _local(y_out, oy, box_y)
     c1x, q1x3 = _support(xi1, False, nxg, g, order, quant, S)
     c1y, q1y3 = _support(eta1, False, nyg, g, order, quant, S)
     four = torch.arange(4, device=dev, dtype=p.x.dtype)
@@ -396,9 +420,9 @@ class AdvanceKernel:
 
     def blocks_per_sm(self, order: int, mode: str, nyg: int,
                       nxg: int) -> int:
-        """Resident blocks per SM of the kernel launched for this window
-        (the CUDA occupancy calculator's answer, from registers and shared
-        memory)."""
+        """Resident blocks per SM of the periodic kernel launched for this
+        window (the CUDA occupancy calculator's answer, from registers and
+        shared memory)."""
         n = self._load().minipic_advance_blocks_per_sm(
             order, int(mode == "int8"), nyg, nxg)
         if n < 0:
@@ -432,7 +456,8 @@ class AdvanceKernel:
                        tile_nx=tile_nx, dt=dt, dx=dx, dy=dy, grid=grid,
                        mode=mode)
         params = AdvanceParams(num_tiles=T, capacity=cap, tile_cols=tile_cols,
-                               tile_nx=tile_nx, tile_ny=tile_ny, guard=g, **k)
+                               tile_nx=tile_nx, tile_ny=tile_ny, guard=g,
+                               periodic=int(grid is not None), **k)
         outs = tuple(torch.empty_like(a) for a in p[:5])
         js = tuple(torch.empty((T, nyg, nxg), dtype=torch.float32, device=dev)
                    for _ in range(3))
@@ -483,9 +508,11 @@ def fused_push_deposit(p: ParticleState, ftiles: FieldState,
                        counts: torch.Tensor, *, qm: float, q: float,
                        order: int, tile_ny: int, tile_nx: int,
                        tile_cols: int, g: int, dt: float, dx: float,
-                       dy: float, grid: Tuple[int, int], mode: str):
+                       dy: float, grid: Optional[Tuple[int, int]],
+                       mode: str):
     """The advance with the JAX wrapper's epilogue.  Returns (pushed
-    ParticleState with wrapped positions, (jx, jy, jz) [T, nyg, nxg], max
+    ParticleState, its positions wrapped on a periodic `grid` and unwrapped
+    in the open mode (grid None), (jx, jy, jz) [T, nyg, nxg], max
     displacement this step in cells as a 0-d tensor)."""
     (xo, yo, pxo, pyo, pzo), (jx, jy, jz), dmax = advance_tiles(
         p, ftiles, counts, qm=qm, q=q, order=order, tile_ny=tile_ny,

@@ -1,43 +1,57 @@
 """Single-device simulation: the full PIC step on one device.
 
-Torch port of ``minipic_tpu.simulation`` for periodic decks.  Step order
-(leapfrog, E and B synchronized at integer steps):
+Torch port of ``minipic_tpu.simulation``.  Step order (leapfrog, E and B
+synchronized at integer steps):
 
   1. halo-pad the fields at t^n and cut the per-tile windows;
   2. per species, the advance (ops/advance.py): gather E^n, B^n -> Boris
-     u^{n-1/2} -> u^{n+1/2} -> move x^n -> x^{n+1} (stored wrapped) ->
-     Esirkepov J^{n+1/2} tile windows, and each tile's max displacement;
+     u^{n-1/2} -> u^{n+1/2} -> move x^n -> x^{n+1} (stored wrapped on a
+     periodic deck, unwrapped between absorbing walls) -> Esirkepov
+     J^{n+1/2} tile windows, and each tile's max displacement;
   3. fold the J windows into the global J;
-  4. B^n -> B^{n+1/2} -> E^{n+1} (with J) -> B^{n+1};
-  5. re-bin when the drift trigger or the interval schedule fires:
-     ``binning.rebin_auto`` for ``rebin_mode`` "auto" and "incremental" on
-     both devices (the split, then the deal route where the buckets hold
-     eight segment runs + 256 slots, else the sort route of the movers and
-     append_incoming; the defrag when headroom is short), the full sort
-     (``binning.rebin``) for "sort" or a deck whose buckets are too small
-     for a mover buffer.
+  4. B^n -> B^{n+1/2} -> E^{n+1} (with J) -> B^{n+1}, then, between
+     absorbing walls, the damping mask (``fields/boundary.py``);
+  5. between absorbing walls, kill (w = 0) and clamp every particle that
+     left the grid (``binning.wrap_positions``);
+  6. re-bin when the drift trigger or the interval schedule fires, or the
+     window shifts: ``binning.rebin_auto`` for ``rebin_mode`` "auto" and
+     "incremental" on both devices (the split, then the deal route where
+     the buckets hold eight segment runs + 256 slots, else the sort route
+     of the movers and append_incoming; the defrag when headroom is
+     short), the full sort (``binning.rebin``) for "sort" or a deck whose
+     buckets are too small for a mover buffer;
+  7. moving window (``deck.moving_window``): when the light front has
+     crossed the next tile column (``window_shift_now``), ``shift_window``
+     rolls the fields one tile column left (the leading columns zeroed),
+     rolls every species' buckets one tile column with x -= tile_nx, puts
+     fresh plasma (``species.inject_column``) in the last tile column, and
+     advances window_x0 by tile_nx.
 
-What this port does not carry yet raises ``NotImplementedError``:
-absorbing boundaries and the moving window.
+A fields-only deck (no species) runs steps 4 and 7 alone.
 
 Host syncs: the re-bin decision is taken on the host, so each step reads
 one device scalar (the drift predicate, or the schedule's on the interval
-trigger).  The re-bin itself reads nothing back: its force flag, its
-append-or-defrag choice and the drift reset stay on the device.
+trigger).  The window's schedule reads nothing: the step keeps host copies
+of the step counter and window_x0 of the state it returned (a state it did
+not make is read once).  The re-bin itself reads nothing back: its force
+flag, its append-or-defrag choice and the drift reset stay on the device.
 ``Simulation.run`` adds one read on each step that re-binned (its overflow,
 zero on every other step) and the census every ``CAPACITY_CHECK_EVERY``
 steps.
 
 Profiler ranges (``torch.profiler.record_function``) name the step's
-layers for a trace: ``minipic.fields`` (pad, window extract, J fold, Yee),
-``minipic.advance`` (the kernel and its epilogue), ``minipic.rebin`` and
-``minipic.diag`` (energies, momentum, live count, weight guard).
+layers for a trace: ``minipic.fields`` (pad, window extract, J fold, Yee,
+damping, the window's field roll), ``minipic.advance`` (the kernel and its
+epilogue), ``minipic.rebin`` (with the kill at the walls and the window's
+bucket roll and injection) and ``minipic.diag`` (energies, momentum, live
+count, weight guard).
 """
 from __future__ import annotations
 
 import os
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -51,12 +65,14 @@ from .core.state import (
     kinetic_energy,
     momentum_sum,
 )
+from .fields.boundary import apply_damping, damping_mask
 from .fields.halo import fold_block_periodic, pad_fields_periodic
 from .fields.tiles import extract_field_tiles, fold_tiles
 from .fields.yee import update_b_half_periodic, update_e_full_periodic
 from .ops.advance import fused_push_deposit, live_watermark, resolve_mode
-from .particles.binning import rebin, rebin_auto
-from .particles.species import load_species
+from .particles import species as species_mod
+from .particles.binning import rebin, rebin_auto, wrap_positions
+from .particles.species import load_species, mix_seed
 
 # Bucket capacity quantum for whole-bucket chunks (kchunk=0), as in the JAX
 # package (whose re-bin kernels slice buckets in 512-slot blocks).
@@ -110,10 +126,11 @@ class StepDiag(NamedTuple):
     rebinned: bool  # host: this step re-binned (overflow is 0 otherwise)
 
 
-def int8_weight_violations(deck: Deck, species_states) -> torch.Tensor:
+def int8_weight_violations(deck: Deck, species_states,
+                           device=None) -> torch.Tensor:
     """Count int8-engaged species whose LIVE weights are not uniform: the
     int8 deposit scales jx/jy by q*max(w), right only for uniform w."""
-    dev = species_states[0].w.device if species_states else None
+    dev = species_states[0].w.device if species_states else device
     bad = torch.zeros((), dtype=torch.int32, device=dev)
     if deck.deposit != "int8":
         return bad
@@ -127,6 +144,8 @@ def int8_weight_violations(deck: Deck, species_states) -> torch.Tensor:
     return bad
 
 
+
+
 def tile_origins(tiling, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """([T,1], [T,1]) global cell coordinates of each tile's origin."""
     t = torch.arange(tiling.num_tiles, device=device)
@@ -137,7 +156,8 @@ def tile_origins(tiling, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def tile_local_coords(x, y, origins, tile_nx: int, tile_ny: int,
                       grid: Optional[Tuple[int, int]] = None):
-    """Bucket-tile-local coordinates with nearest-image centering.
+    """Bucket-tile-local coordinates, with nearest-image centering on a
+    periodic `grid` (raw offsets for grid None).
 
     The fold is a reciprocal multiply, not a division — the same f32 ops as
     the advance's fold, so diagnostics (rho for continuity) evaluate shapes
@@ -169,6 +189,81 @@ def max_step_displacement(species_states, dt: float, dx: float,
     return disp
 
 
+def window_shift_now(step, window_x0, dt: float, tile_nx: int, dx: float):
+    """Moving-window shift predicate, in float32 as the JAX package's
+    (``minipic_tpu/simulation.py:127-145``) so that both shift on the same
+    steps: shift when the light front at t = (step + 1) dt has crossed the
+    next tile-column boundary beyond the window_x0 // tile_nx shifts taken.
+    Anchored on window_x0, a shift that f32 rounding delays is taken on the
+    next step.  Host numpy: `step` and `window_x0` are ints or integer
+    arrays; returns a numpy bool (array)."""
+    period = np.float32(tile_nx * dx)
+    done = (np.asarray(window_x0) // tile_nx).astype(np.float32)
+    t1 = ((np.asarray(step).astype(np.float32) + np.float32(1.0))
+          * np.float32(dt))
+    return t1 >= (done + np.float32(1.0)) * period
+
+
+def window_injection_key(species_index: int, w0n: int) -> int:
+    """Seed of the plasma injected for species `species_index` when the
+    window's origin reaches `w0n` cells: deterministic in (species,
+    absolute column) alone, so a restart injects the same plasma
+    (``species.inject_column`` seeds each global tile row from it)."""
+    return mix_seed(0x77, species_index, w0n)
+
+
+def shift_window(deck: Deck, state: SimState, w0n: int) -> SimState:
+    """One window shift to origin `w0n` (= window_x0 + tile_nx): the fields
+    roll tile_nx columns left with the leading columns zeroed; each
+    species' buckets roll one tile column left with x -= tile_nx (the
+    trailing column outflows); the last tile column takes
+    ``species.inject_column``'s plasma, looked up by name at each call."""
+    tiling = deck.tiling
+    shift_c = tiling.tile_nx
+    f = state.fields
+    keep = torch.arange(deck.nx, device=f.ex.device) < deck.nx - shift_c
+    with record_function("minipic.fields"):
+        f = FieldState(*(torch.where(keep, torch.roll(c, -shift_c, dims=1),
+                                     torch.zeros_like(c)) for c in f))
+    out = []
+    with record_function("minipic.rebin"):
+        for i, (spec, p) in enumerate(zip(deck.species, state.species)):
+            inj = species_mod.inject_column(
+                spec, deck.domain, tiling, p.capacity,
+                window_injection_key(i, w0n), w0n, deck.dtype, p.x.device)
+            chans = []
+            for name in ParticleState._fields:
+                a = getattr(p, name).reshape(tiling.tile_rows,
+                                             tiling.tile_cols, -1)
+                a = torch.roll(a, -1, dims=1)
+                if name == "x":
+                    a = a - shift_c
+                a[:, -1, :] = getattr(inj, name)
+                chans.append(a.reshape(p.num_tiles, p.capacity))
+            out.append(ParticleState(*chans))
+    return state._replace(fields=f, species=tuple(out),
+                          window_x0=state.window_x0 + shift_c)
+
+
+class _HostClock:
+    """Host copies of the step counter and window_x0 of the last state the
+    step returned, so that the window's schedule costs no device read; a
+    state the step did not make (other tensors) is read once."""
+
+    def __init__(self):
+        self._last = None
+
+    def read(self, state: SimState) -> Tuple[int, int]:
+        last = self._last
+        if (last is not None and last[0] is state.step
+                and last[1] is state.window_x0):
+            return last[2], last[3]
+        return int(state.step), int(state.window_x0)
+
+    def keep(self, state: SimState, step: int, w0: int) -> None:
+        self._last = (state.step, state.window_x0, step, w0)
+
+
 def resolve_backend(deck: Deck, device: torch.device) -> str:
     """"cuda" (the advance kernel) for a CUDA device, "plain" on the CPU."""
     device = torch.device(device)
@@ -187,21 +282,16 @@ def resolve_backend(deck: Deck, device: torch.device) -> str:
 def advance_species_tiles(p: ParticleState, ftiles: FieldState, *, qm: float,
                           q: float, order: int, tile_ny: int, tile_nx: int,
                           tile_cols: int, g: int, dt: float, dx: float,
-                          dy: float, grid: Tuple[int, int], mode: str):
+                          dy: float, grid: Optional[Tuple[int, int]],
+                          mode: str):
     """Gather + push + move + deposit for one species over its buckets.
-    Returns (pushed particles with wrapped positions, (jx, jy, jz) tile
-    windows, max displacement in cells)."""
+    Returns (pushed particles, positions wrapped on a periodic `grid` and
+    unwrapped for grid None, (jx, jy, jz) tile windows, max displacement in
+    cells)."""
     return fused_push_deposit(
         p, ftiles, live_watermark(p.w), qm=qm, q=q, order=order,
         tile_ny=tile_ny, tile_nx=tile_nx, tile_cols=tile_cols, g=g, dt=dt,
         dx=dx, dy=dy, grid=grid, mode=mode)
-
-
-def _check_supported(deck: Deck) -> None:
-    if deck.boundary != "periodic":
-        raise NotImplementedError(f"boundary={deck.boundary!r}")
-    if deck.moving_window:
-        raise NotImplementedError("moving_window")
 
 
 def build_step(deck: Deck, device: torch.device):
@@ -211,13 +301,19 @@ def build_step(deck: Deck, device: torch.device):
     route's arrivals with append_runs after a roll, anything else (the
     default "1") with the fused append."""
     deck.validate()
-    _check_supported(deck)
     resolve_backend(deck, device)
     fused = os.environ.get("MINIPIC_APPEND_FUSED", "1") == "1"
     tiling = deck.tiling
     g = deck.guard
     dt, dx, dy = deck.dt, deck.dx, deck.dy
-    grid = (deck.nx, deck.ny)
+    periodic = deck.boundary == "periodic"
+    # The advance folds and wraps on a periodic box; between absorbing
+    # walls it stores the raw move and the kill-and-clamp follows it.
+    grid = (deck.nx, deck.ny) if periodic else None
+    mask = (None if periodic else
+            damping_mask(deck.ny, deck.nx, deck.absorb_width,
+                         dtype=deck.dtype, device=device))
+    clock = _HostClock() if deck.moving_window else None
     trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
     # Interval schedule: when the guard affords one extra CFL step, a
     # mover-buffer overflow defers the tile to the next step instead of
@@ -244,13 +340,23 @@ def build_step(deck: Deck, device: torch.device):
 
     def step(state: SimState) -> Tuple[SimState, StepDiag]:
         f = state.fields
-        with record_function("minipic.fields"):
-            ftiles = extract_field_tiles(
-                pad_fields_periodic(f, g), tiling.tile_rows,
-                tiling.tile_cols, tiling.tile_ny, tiling.tile_nx, g)
+        dev = f.ex.device
+        shift_now = False
+        if clock is not None:
+            if state.window_x0 is None:
+                raise ValueError("deck.moving_window but SimState.window_x0 "
+                                 "is unset (Simulation sets it to 0)")
+            n_step, w0 = clock.read(state)
+            shift_now = bool(window_shift_now(n_step, w0, dt, tiling.tile_nx,
+                                              dx))
 
         pushed, kes, moms, disps = [], [], [], []
         jsum = None
+        if deck.species:
+            with record_function("minipic.fields"):
+                ftiles = extract_field_tiles(
+                    pad_fields_periodic(f, g), tiling.tile_rows,
+                    tiling.tile_cols, tiling.tile_ny, tiling.tile_nx, g)
         for spec, mode, p in zip(deck.species, modes, state.species):
             with record_function("minipic.advance"):
                 pnew, js, disp = advance_species_tiles(
@@ -272,9 +378,12 @@ def build_step(deck: Deck, device: torch.device):
             f = update_b_half_periodic(f, dt, dx, dy)
             f = update_e_full_periodic(f, dt, dx, dy, j)
             f = update_b_half_periodic(f, dt, dx, dy)
+            if mask is not None:
+                f = apply_damping(f, mask)
 
-        dev = f.ex.device
         drift_now = state.drift
+        do_rebin = False
+        force = True  # a shift, or no deferral budget in the guard
         if trigger_drift:
             if state.drift is None:
                 raise ValueError("deck uses drift-triggered re-binning but "
@@ -283,27 +392,31 @@ def build_step(deck: Deck, device: torch.device):
             for d in disps[1:]:
                 disp = torch.maximum(disp, d)
             drift_now = state.drift + disp
-            do_rebin = bool(drift_now > deck.drift_threshold())
+            # A shift rolls buckets: no mover may wait in a trailing-column
+            # bucket, so a shift step re-bins with force.
+            do_rebin = shift_now or bool(drift_now > deck.drift_threshold())
             # Past this line a deferred re-bin may no longer wait: extract
             # with counted drops.  Stays on the device.
-            force = drift_now > deck.force_threshold()
-        else:
+            if not shift_now:
+                force = drift_now > deck.force_threshold()
+        elif deck.species:
             sched = state.step % deck.rebin_interval == 0
-            if interval_grace:
+            if interval_grace and not shift_now:
                 # The backlog marker rides SimState.drift (0 clean, 1
                 # pending): re-bin again next step, then drop and count.
                 force = state.drift > 0.5
                 sched = sched | force
-            else:
-                force = True  # no deferral budget in the guard
-            do_rebin = deck.rebin_interval == 1 or bool(sched)
+            do_rebin = (shift_now or deck.rebin_interval == 1
+                        or bool(sched))
 
         overflow = torch.zeros((), dtype=torch.int32, device=dev)
         pending_total = torch.zeros((), dtype=torch.int32, device=dev)
         binned = []
         for p in pushed:
-            if do_rebin:
-                with record_function("minipic.rebin"):
+            with record_function("minipic.rebin"):
+                if not periodic:
+                    p = wrap_positions(p, deck.nx, deck.ny, periodic=False)
+                if do_rebin:
                     mc, sc = rebin_caps(deck, p.capacity)
                     if mc > 0:
                         p, ov, pend = rebin_auto(p, tiling, mc, force=force,
@@ -311,7 +424,7 @@ def build_step(deck: Deck, device: torch.device):
                         pending_total = pending_total + pend
                     else:
                         p, ov = rebin(p, tiling)
-                overflow = overflow + ov
+                    overflow = overflow + ov
             binned.append(p)
         if do_rebin and trigger_drift:
             # Reset the budget only after a complete re-bin: a backlog
@@ -322,7 +435,9 @@ def build_step(deck: Deck, device: torch.device):
             drift_now = (pending_total > 0).to(torch.float32)
 
         with record_function("minipic.diag"):
-            live = sum((p.w > 0).sum(dtype=torch.int32) for p in binned)
+            live = torch.zeros((), dtype=torch.int32, device=dev)
+            for p in binned:
+                live = live + (p.w > 0).sum(dtype=torch.int32)
             diag = StepDiag(
                 field_energy=field_energy(f, dx, dy),
                 kinetic_energy=(torch.stack(kes) if kes else torch.zeros(
@@ -330,13 +445,18 @@ def build_step(deck: Deck, device: torch.device):
                 overflow=overflow,
                 momentum=(torch.stack(moms) if moms else torch.zeros(
                     (0, 3), dtype=torch.float64, device=dev)),
-                shard_live=torch.as_tensor(live, dtype=torch.int32,
-                                           device=dev).reshape(1),
-                weight_nonuniform=int8_weight_violations(deck, binned),
+                shard_live=live.reshape(1),
+                weight_nonuniform=int8_weight_violations(deck, binned, dev),
                 rebinned=do_rebin,
             )
         new_state = SimState(fields=f, species=tuple(binned),
-                             step=state.step + 1, drift=drift_now)
+                             step=state.step + 1, drift=drift_now,
+                             window_x0=state.window_x0)
+        if clock is not None:
+            if shift_now:
+                w0 += tiling.tile_nx
+                new_state = shift_window(deck, new_state, w0)
+            clock.keep(new_state, n_step + 1, w0)
         return new_state, diag
 
     return step
@@ -350,7 +470,6 @@ class Simulation:
     def __init__(self, deck: Deck, fields: Optional[FieldState] = None,
                  seed: int = 0, *, device="cuda"):
         deck.validate()
-        _check_supported(deck)
         self.device = torch.device(device)
         self.backend = resolve_backend(deck, self.device)
         self.deck = deck
@@ -368,7 +487,9 @@ class Simulation:
         self.state = SimState(
             fields=fields, species=species,
             step=torch.zeros((), dtype=torch.int32, device=self.device),
-            drift=torch.zeros((), dtype=torch.float32, device=self.device))
+            drift=torch.zeros((), dtype=torch.float32, device=self.device),
+            window_x0=(torch.zeros((), dtype=torch.int32, device=self.device)
+                       if deck.moving_window else None))
         self._step = build_step(deck, self.device)
         self._capmgrs = None  # per-species CapacityManagers, built lazily
         self.capacity_changes = 0
@@ -419,9 +540,9 @@ class Simulation:
         (``deck.save_frequency`` by default).  The buckets grow on the first
         step that overflows and are checked every CAPACITY_CHECK_EVERY
         steps (``ensure_capacity``), as in the JAX package; only a step that
-        re-binned can overflow, so only its overflow is read.
-        ``overflow_total`` adds up what was dropped.  Returns the last
-        StepDiag."""
+        re-binned can overflow, so only its overflow is read.  A deck with
+        no species reads nothing.  ``overflow_total`` adds up what was
+        dropped.  Returns the last StepDiag."""
         n_steps = self.deck.total_steps if n_steps is None else n_steps
         save_every = (self.deck.save_frequency if save_every is None
                       else save_every)
@@ -432,7 +553,8 @@ class Simulation:
             self.state, diag = self._step(self.state)
             ovf = int(diag.overflow) if diag.rebinned else 0
             self.overflow_total += ovf
-            if ovf > 0 or i % CAPACITY_CHECK_EVERY == 0:
+            if self.state.species and (ovf > 0
+                                       or i % CAPACITY_CHECK_EVERY == 0):
                 self.ensure_capacity(ovf)
             if saver is not None and i % save_every == 0:
                 saver(self.state, i)

@@ -7,6 +7,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in parallel worker processes, and
+# their OpenMP threads oversubscribing the cores slow a step ~85x.
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -23,6 +26,7 @@ from minipic_torch.core.state import FieldState, ParticleState  # noqa: E402
 from minipic_torch.ops.advance import (  # noqa: E402
     advance_plain, advance_tiles, fused_push_deposit, live_watermark,
     qshape_scale, resolve_mode)
+from minipic_torch.testing import push_out_through_walls  # noqa: E402
 
 
 def _fixture(order=1, ppc=4, kchunk=32, guard=2):
@@ -614,3 +618,113 @@ def test_edge_fold_particle_takes_the_scatter_and_matches_plain():
                        * torch.tensor(c / deck.dy, dtype=torch.float32), jx)
     assert torch.equal(torch.from_numpy(wy).float()
                        * torch.tensor(c / deck.dx, dtype=torch.float32), jy)
+
+
+# ----------------------------------------------------------------------
+# The open mode (grid None): decks between absorbing walls.
+
+def _open_fixture(order, tile, guard, seed=7):
+    """A 32^2 box of `tile`^2 tiles: thermal particles in stale buckets,
+    every 7th slot dead, and in each tile next to a wall a set of
+    particles within 0.2 cells of it moving out at ~0.95 c (through each
+    wall, and through each corner diagonally); fields: an oblique wave."""
+    deck = Deck(
+        box_x=4.0, box_y=4.0, nx=32, ny=32, tile_nx=tile, tile_ny=tile,
+        guard=guard, species=(SpeciesSpec("e", -1.0, 1.0, ppc=4, uth=0.1,
+                                          shape_order=order),),
+        precision="f32", kchunk=0)
+    tiling = deck.tiling
+    cap = -(-deck.capacity() // 128) * 128
+    p = load_species(deck.species[0], deck.domain, tiling, cap,
+                     jax.random.PRNGKey(5), jnp.float32)
+    x, y, px, py, pz, w = (np.array(a) for a in p)
+    rng = np.random.default_rng(seed)
+    live = w > 0
+    # Stale buckets: up to 0.3 cells off, kept inside the box.
+    x = np.where(live, np.clip(x + rng.uniform(-0.3, 0.3, x.shape), 0.01,
+                               31.99), x).astype(np.float32)
+    y = np.where(live, np.clip(y + rng.uniform(-0.3, 0.3, y.shape), 0.01,
+                               31.99), y).astype(np.float32)
+    ox = (np.arange(tiling.num_tiles) % tiling.tile_cols * tile)[:, None]
+    oy = (np.arange(tiling.num_tiles) // tiling.tile_cols * tile)[:, None]
+    near = rng.uniform(0.0, 0.2, x.shape).astype(np.float32)
+    # |u| = 3: 0.95 c, 0.34 cells a step along each axis.
+    x, y, px, py = (a.numpy() for a in push_out_through_walls(
+        *(torch.from_numpy(a) for a in (x, y, px, py, live, ox, oy)),
+        tile, tile, 32.0, 32.0, torch.from_numpy(near)))
+    slot = np.arange(cap)[None, :]
+    w = np.where(slot % 7 == 5, 0.0, w).astype(np.float32)
+    p = type(p)(*(jnp.asarray(a, jnp.float32)
+                  for a in (x, y, px, py, pz, w)))
+    f = finit.oblique_wave(deck.domain, amplitude=0.3, dtype=jnp.float32)
+    ftiles = extract_field_tiles(
+        pad_fields_periodic(f, guard), tiling.tile_rows, tiling.tile_cols,
+        tiling.tile_ny, tiling.tile_nx, guard)
+    return deck, tiling, p, ftiles
+
+
+@pytest.mark.parametrize("order,tile,guard", [(1, 16, 2), (2, 8, 4)],
+                         ids=["cic-16x16-g2", "tsc-8x8-g4"])
+def test_open_mode_matches_pallas_interpret(order, tile, guard):
+    """The plain version with grid=None against JAX's interpreted kernel
+    with wrap=None, grid=None (the absorbing decks' call), f32 deposit:
+    particles that leave through each wall and corner keep their
+    unwrapped moves on both sides; positions and momenta to the f32
+    bar of the periodic test (the kernel gathers by a dense product in
+    another order), J within 2e-5 of its peak."""
+    deck, tiling, p, ftiles = _open_fixture(order, tile, guard)
+    pj, jj, dj = advance_species_tiles(
+        p, ftiles, qm=-1.0, q=-1.0, order=order, tile_ny=tile, tile_nx=tile,
+        origins=_tile_origins(tiling, jnp.float32), g=guard, dt=deck.dt,
+        dx=deck.dx, dy=deck.dy, kchunk=0, backend="pallas", interpret=True,
+        deposit_mode="highest", qw0=0.0, wrap=None, grid=None,
+        return_disp=True)
+    pt = _torch(p, ParticleState)
+    out, jt, dt_ = fused_push_deposit(
+        pt, _torch(ftiles, FieldState), live_watermark(pt.w), qm=-1.0,
+        q=-1.0, order=order, tile_ny=tile, tile_nx=tile,
+        tile_cols=tiling.tile_cols, g=guard, dt=deck.dt, dx=deck.dx,
+        dy=deck.dy, grid=None, mode="f32")
+    alive = np.asarray(p.w) > 0
+    x1, y1 = out.x.numpy()[alive], out.y.numpy()[alive]
+    # Leavers through every wall, stored unwrapped.
+    assert (x1 < 0).sum() >= 4 and (x1 >= 32).sum() >= 4
+    assert (y1 < 0).sum() >= 4 and (y1 >= 32).sum() >= 4
+    assert (((x1 < 0) | (x1 >= 32)) & ((y1 < 0) | (y1 >= 32))).sum() >= 4
+    assert ((x1 < -0.5) | (x1 > 32.5)).sum() == 0
+    for name in ("x", "y", "px", "py", "pz"):
+        a = np.asarray(getattr(pj, name))[alive]
+        b = getattr(out, name).numpy()[alive]
+        np.testing.assert_allclose(b, a, rtol=2e-6, atol=2e-6, err_msg=name)
+    dead = ~alive
+    for name, a in zip(("x", "y", "px", "py", "pz"), out[:5]):
+        np.testing.assert_array_equal(a.numpy()[dead],
+                                      np.asarray(getattr(p, name))[dead])
+    for name, a, b in zip(("jx", "jy", "jz"), jj, jt):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=0,
+                                   atol=2e-5 * np.abs(a).max(), err_msg=name)
+    np.testing.assert_allclose(float(dt_), float(dj), rtol=1e-5)
+
+
+def test_open_and_periodic_modes_differ_only_at_the_walls():
+    """Away from the walls the open mode is the periodic mode: the same
+    arithmetic on every particle whose fold and wrap do nothing."""
+    deck, tiling, p, ftiles = _open_fixture(2, 8, 4)
+    pt = _torch(p, ParticleState)
+    ft = _torch(ftiles, FieldState)
+    counts = live_watermark(pt.w)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              tile_cols=tiling.tile_cols, g=4, dt=deck.dt, dx=deck.dx,
+              dy=deck.dy, mode="f32")
+    po, jo, _ = advance_plain(pt, ft, counts, grid=None, **kw)
+    pp, jp, _ = advance_plain(pt, ft, counts, grid=(32, 32), **kw)
+    inside = ((po[0] >= 0) & (po[0] < 32) & (po[1] >= 0) & (po[1] < 32))
+    for a, b in zip(po, pp):
+        assert torch.equal(a[inside], b[inside])
+    assert not torch.equal(po[0], pp[0])
+    # A particle that left sits at its unwrapped move in the open mode and
+    # at its periodic image in the periodic one.
+    out = ~inside
+    np.testing.assert_allclose(torch.remainder(po[0][out], 32.0).numpy(),
+                               pp[0][out].numpy(), atol=1e-5)

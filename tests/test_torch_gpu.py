@@ -15,6 +15,7 @@ from minipic_torch.ops.advance import (  # noqa: E402
     AdvanceKernel, advance_kernel, advance_plain, advance_tiles,
     live_watermark)
 from minipic_torch.probe_atomics import no_deposit_source  # noqa: E402
+from minipic_torch.testing import push_out_through_walls  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -196,6 +197,114 @@ def test_no_atomics_probe_pushes_alike_and_deposits_nothing(cuda, tmp_path,
     assert torch.equal(dv, dk)
     for j in jv:
         assert not bool(j.any())
+
+
+# ----------------------------------------------------------------------
+# The advance's open mode (grid None): decks between absorbing walls.
+
+def _open_inputs(dev, tile, g, cap, seed=4):
+    """A 32^2 box of tile^2 tiles: ~60% of each bucket live, up to 0.3
+    cells off its tile (inside the box), every 7th slot dead; in the tiles
+    at each wall, particles within 0.2 cells of it moving out at |u| = 3
+    (through each wall and, diagonally, each corner); random fields."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cols = 32 // tile
+    T = cols * cols
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    t = torch.arange(T, device=dev)[:, None]
+    ox, oy = (t % cols) * tile, (t // cols) * tile
+    x = (ox + rnd(T, cap) * (tile + 0.6) - 0.3).clamp(0.01, 31.99)
+    y = (oy + rnd(T, cap) * (tile + 0.6) - 0.3).clamp(0.01, 31.99)
+    px, py, pz = ((rnd(T, cap) - 0.5) * 0.4 for _ in range(3))
+    slot = torch.arange(cap, device=dev)[None, :]
+    live = (slot < int(0.6 * cap)) & (slot % 7 != 5)
+    x, y, px, py = push_out_through_walls(x, y, px, py, live, ox, oy, tile,
+                                          tile, 32, 32, rnd(T, cap) * 0.2)
+    w = live.float() * 0.004 * (1.0 + rnd(T, cap))  # graded weights
+    p = ParticleState(x, y, px, py, pz, w)
+    nw = tile + 2 * g
+    ft = FieldState(*((rnd(T, nw, nw) - 0.5) * 0.2 for _ in range(6)))
+    return p, ft
+
+
+@pytest.mark.parametrize("order,tile,g,cap", [(1, 16, 2, 1536),
+                                              (2, 8, 4, 512)],
+                         ids=["laser_plasma", "laser_wakefield_window"])
+def test_open_mode_kernel_matches_plain_on_the_card(cuda, order, tile, g,
+                                                    cap):
+    """The open mode at the laser decks' shapes (CIC 20x20 windows of 1536
+    slots; TSC 16x16 of 512), f32: live particles' positions and momenta
+    equal to the plain version's, leavers through every wall and corner
+    stored unwrapped, dead slots untouched, J to 2e-5 of its peak (f32
+    atomics in another order); the periodic mode on the same subset as
+    before."""
+    p, ft = _open_inputs(cuda, tile, g, cap)
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=tile, tile_nx=tile,
+              tile_cols=32 // tile, g=g, dt=0.035, dx=0.1, dy=0.1,
+              grid=None, mode="f32")
+    n0 = advance_kernel.launches
+    pk, jk, dk = advance_tiles(p, ft, counts, **kw)
+    assert advance_kernel.launches == n0 + 1
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    live = p.w > 0
+    for name, a, b, old in zip("x y px py pz".split(), pk, pp, p):
+        d = (a - b)[live].abs()
+        assert torch.equal(a[live], b[live]), (
+            name, int((d > 0).sum()), float(d.max()))
+        assert torch.equal(a[~live], old[~live]), name
+    x1, y1 = pk[0][live], pk[1][live]
+    for out in (x1 < 0, x1 >= 32, y1 < 0, y1 >= 32,
+                ((x1 < 0) | (x1 >= 32)) & ((y1 < 0) | (y1 >= 32))):
+        assert int(out.sum()) >= 4
+    for a, b in zip(jk, jp):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=2e-5 * float(b.abs().max()))
+    torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0)
+    kw["grid"] = (32, 32)
+    pk, jk, dk = advance_tiles(p, ft, counts, **kw)
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(pk, pp):
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=2e-6)
+    for a, b in zip(jk, jp):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("name,kw,steps", [
+    ("reference_pulse", dict(nx=64, ny=64), 40),
+    ("laser_plasma", dict(nx=64, ny=64, ppc=2), 12),
+    ("laser_wakefield_window", dict(nx=64, ny=32, ppc=2), 26)])
+def test_open_deck_steps_on_the_card_match_the_cpu(cuda, name, kw, steps):
+    """Each deck with open walls (and the fields-only pulse) a few steps on
+    the card against the same state stepped on the CPU; the window deck
+    through its first shift."""
+    from minipic_torch import bridge
+    from minipic_torch.decks import standard
+
+    case = standard.make(name, **kw)
+    cpu = case.simulation(seed=1, device="cpu")
+    gpu = case.simulation(seed=1, device=cuda)
+    gpu.state = bridge.sim_state_from_numpy(
+        bridge.sim_state_to_numpy(cpu.state), cuda)
+    for i in range(steps):
+        dc, dg = cpu.step(), gpu.step()
+        torch.testing.assert_close(dg.field_energy.cpu(), dc.field_energy,
+                                   rtol=1e-4, atol=1e-12)
+        torch.testing.assert_close(dg.kinetic_energy.cpu(),
+                                   dc.kinetic_energy, rtol=1e-5, atol=0)
+        assert int(dg.shard_live[0]) == int(dc.shard_live[0]), i
+        assert dg.rebinned == dc.rebinned and int(dg.overflow) == 0
+    if case.deck.moving_window:
+        assert int(gpu.state.window_x0) == int(cpu.state.window_x0) == 8
+    for a, b in zip(gpu.state.fields, cpu.state.fields):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
 
 
 # ----------------------------------------------------------------------

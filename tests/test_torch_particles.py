@@ -4,6 +4,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in parallel worker processes, and
+# their OpenMP threads oversubscribing the cores slow a step ~85x.
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -245,3 +248,32 @@ def test_load_species_statistics(order):
         # 32768 normal draws: mean within 5 sigma/sqrt(n), sd within 2%.
         assert abs(float(v.mean()) - mean) < 5 * sd / n ** 0.5
         assert abs(float(v.std()) / sd - 1) < 0.02
+
+
+def test_counter_streaming_pair_halves_two_opposite_beams():
+    """counter_streaming_pair (the JAX package's two-stream fixture): two
+    loads of the lattice at +-drift along x, each at half the weight,
+    their thermal noise drawn one after the other from one generator."""
+    from minipic_torch.particles.species import counter_streaming_pair
+
+    spec = tcfg.SpeciesSpec("e", -1.0, 1.0, ppc=4, uth=0.01)
+    deck = tcfg.Deck(box_x=3.2, box_y=3.2, nx=32, ny=32, tile_nx=8,
+                     tile_ny=8, guard=4, species=(spec,))
+    cap = deck.capacity()
+    a, b = counter_streaming_pair(spec, 0.2, deck.domain, deck.tiling, cap,
+                                  torch.Generator().manual_seed(1),
+                                  torch.float32, torch.device("cpu"))
+    one = load_species(spec, deck.domain, deck.tiling, cap,
+                       torch.Generator().manual_seed(1), torch.float32,
+                       torch.device("cpu"))
+    live = one.w > 0
+    for p, drift in ((a, 0.2), (b, -0.2)):
+        assert torch.equal(p.x, one.x) and torch.equal(p.y, one.y)
+        assert torch.equal(p.w, one.w * 0.5)
+        v = p.px[live].double()
+        assert abs(float(v.mean()) - drift) < 5 * 0.01 / v.numel() ** 0.5
+        assert abs(float(v.std()) / 0.01 - 1) < 0.05
+    # The first beam's noise is the single load's, shifted by the drift.
+    torch.testing.assert_close(a.px[live], one.px[live] + 0.2, rtol=0,
+                               atol=1e-7)
+    assert not torch.equal(a.py, b.py)

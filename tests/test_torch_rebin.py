@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in parallel worker processes, and
+# their OpenMP threads oversubscribing the cores slow a step ~85x.
+torch.set_num_threads(1)
 
 from minipic_tpu.core.geometry import Tiling as JTiling  # noqa: E402
 from minipic_tpu.core.state import ParticleState as JP  # noqa: E402

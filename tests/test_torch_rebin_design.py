@@ -25,6 +25,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in parallel worker processes, and
+# their OpenMP threads oversubscribing the cores slow a step ~85x.
+torch.set_num_threads(1)
 
 from minipic_torch.core.state import ParticleState  # noqa: E402
 from minipic_torch.ops import rebin as rb  # noqa: E402

@@ -71,11 +71,26 @@ Phases, each printing what it found; any failure exits non-zero:
    shuffled), with the whole deal-route re-bin (fused and through
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
    that state;
-8. device time: the launch floor (a one-element ``zero_()``),
+8. cli: the command line (``minipic_torch.cli.main``, in this process,
+   into a git-ignored folder of this checkout that it removes), after
+   probing for h5py, matplotlib and the native writer (with neither
+   writer the runs take ``--no-save`` and the card's part of a save is
+   held to numpy's instead): ``laser_plasma`` in full (1,697 steps) three
+   times and once stopped at step 850 and resumed, the resumed run held
+   to the uninterrupted runs' spread (bit for bit where they agree), live
+   counts and overflow equal, its kernels' launches counted per run;
+   ``reference_pulse`` at 450^2 for 2,500 steps at the reference's save
+   cadence, three times through the CLI and three through
+   ``Simulation.run`` in turn (each run's ms/step), its field energy
+   conserved to 1e-4, every run's final fields bit for bit alike and
+   those of a run resumed half way;
+   ``diag/device.py`` on laser_plasma's final state against the CPU
+   (counts exact, float64 weights to 1e-5);
+9. device time: the launch floor (a one-element ``zero_()``),
    append_incoming on the decks' states, the two copy kernels of the main
    path, and the re-bin kernels on laser_plasma's final state, from one
    torch.profiler run (their wrappers take longer on the host than they
-   do on the card).
+   do on the card); last, since profiling slows what runs after it.
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that drives it, its error against the plain version, both
@@ -83,7 +98,9 @@ times (CUDA events; the profiler's device time for the three appends) and
 its bound at the shape timed (the advance's entry also its open mode's
 numbers at laser_plasma's final state, under "open"; the re-bin kernels
 that laser_plasma's run launched, their launches there and their numbers
-at its final state per species, under "laser_plasma"); the last line is
+at its final state per species, under "laser_plasma"; every kernel's
+launches in each of the cli phase's laser_plasma runs, under "cli"); the
+last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it fails
 before printing any result.
 """
@@ -1580,7 +1597,7 @@ def _laser_plasma_physics(dev, card: str) -> dict:
           f"[{card}]")
     rebin = {spec.name: _route_numbers(q, deck)
              for spec, q in zip(deck.species, sim.state.species)}
-    return adv, rebin, launches
+    return adv, rebin, launches, wall * 1e3 / steps
 
 
 def _window_census(dev, steps: int, nx: int):
@@ -1761,8 +1778,8 @@ def phase_open_physics(dev, card: str) -> dict:
     """The open-boundary decks at their default sizes on the card:
     reference_pulse, laser_plasma and laser_wakefield_window (bars in each
     function).  Returns laser_plasma's numbers: the open advance's, per
-    species those of its re-bin route's kernels, and the re-bin launches
-    of its run."""
+    species those of its re-bin route's kernels, the re-bin launches of
+    its run and its ms/step through Simulation.run."""
     import torch
 
     _pulse_physics(dev, card)
@@ -2080,6 +2097,514 @@ def phase_sort(dev, card: str) -> None:
     check(rb.split_kernel.launches == 0, "sort: the deal route ran")
 
 
+# The command line (the cli phase): the port's CLI driven in-process into a
+# git-ignored folder of this checkout, removed at the end.
+CLI_DIR = ROOT / "_cli_smoke"
+CLI_SAVE_EVERY = 425  # laser_plasma: four saves in its 1,697 steps
+CLI_SPLIT = 850  # where the resumed laser_plasma run stops and restarts
+CLI_PULSE_STEPS = 2500  # reference_pulse, cut from its 63,639 steps
+CLI_PULSE_SAVE_EVERY = 25  # the reference's own cadence
+# reference_pulse's runs through the CLI and through Simulation.run, taken in
+# turn so that neither always runs first on a host that drifts.
+CLI_PULSE_ORDER = ("cli", "run", "run", "cli", "cli", "run")
+CLI_CHANNELS = ("x", "y", "px", "py", "pz", "w")
+# What --resume is held to where uninterrupted card runs differ (the f32
+# deposit's shared atomics add in any order, and the plasma amplifies the
+# last bits): the resumed run may differ from the first by no more than
+# CLI_SPREAD times the largest difference among three uninterrupted runs,
+# field by field and channel by channel.  Between pairs of uninterrupted
+# laser_plasma runs these differences vary up to 3x; a resume that lost
+# state would differ by orders of magnitude.
+CLI_SPREAD = 4.0
+
+
+def _cli(args, label: str, card: str, n_species: int = 0) -> dict:
+    """minipic_torch.cli.main(args) in this process, timed, with every launch
+    counter at 0 before it; prints the CLI's own summary lines and returns
+    its numbers (from its ``done:`` line) and the launches per kernel.
+    With `n_species`, the advance must have launched once a step per
+    species and every re-bin through the re-bin kernels
+    (``_auto_route_launches``)."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from minipic_torch import cli
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.ops.advance import advance_kernel
+
+    for k in rb.KERNELS.values():
+        k.reset()
+    advance_kernel.launches = 0
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    check(rc == 0, f"cli: {label}: exit code {rc}\n{out}")
+    for line in out.splitlines():
+        if line.startswith(("snapshot writer", "resumed", "done")):
+            print(f"cli: {label}: {line}")
+    m = re.search(r"done: (\d+) steps in ([\d.]+) s \(([\d.]+) ms/step\); "
+                  r"(\d+) saves, ([\d.]+) ms a save, flush ([\d.]+) ms "
+                  r"\(writer (.*?)\); overflow (\d+)", out)
+    check(m is not None, f"cli: {label}: no summary line\n{out}")
+    steps = int(m[1])
+    if n_species:
+        check(advance_kernel.launches == n_species * steps,
+              f"cli: {label}: {advance_kernel.launches} advance launches in "
+              f"{steps} steps")
+        rebin = _auto_route_launches(f"cli: {label}", small_only=False)
+    else:
+        rebin = {n: k.launches for n, k in rb.KERNELS.items()}
+    launches = dict(advance=advance_kernel.launches, **rebin)
+    print(f"cli: {label}: {wall:.2f} s in the process, launches {launches} "
+          f"[{card}]")
+    return dict(steps=steps, run_s=float(m[2]), ms_per_step=float(m[3]),
+                saves=int(m[4]), ms_per_save=float(m[5]),
+                flush_ms=float(m[6]), writer=m[7], overflow=int(m[8]),
+                wall_s=wall, launches=launches)
+
+
+def _np_windows(comps, tiling, g: int):
+    """[T, nyg, nxg, 6] f64 tile windows of numpy fields, assembled on the
+    host as the JAX package's writer does (np.pad wrap, then slices)."""
+    import numpy as np
+
+    wins = []
+    for c in comps:
+        ap = np.pad(np.asarray(c, np.float64), g, mode="wrap")
+        v = np.lib.stride_tricks.sliding_window_view(
+            ap, (tiling.tile_ny + 2 * g, tiling.tile_nx + 2 * g))
+        wins.append(v[::tiling.tile_ny, ::tiling.tile_nx].reshape(
+            tiling.num_tiles, tiling.tile_ny + 2 * g, tiling.tile_nx + 2 * g))
+    return np.stack(wins, axis=-1)
+
+
+def _snapshot_buffers(state, deck, label: str, card: str) -> dict:
+    """The card's part of a save: the tile windows cut on the card and
+    copied once (io.hdf5.tile_windows) against a numpy assembly of the same
+    fields, and the live particles compacted on the card and copied once
+    (io.hdf5.particle_buffer) against a numpy compaction; both equal, and
+    timed."""
+    import numpy as np
+    import torch
+
+    from minipic_torch.io import hdf5
+
+    f = state.fields
+    want = _np_windows([c.cpu().numpy() for c in f], deck.tiling, deck.guard)
+    got = hdf5.tile_windows(f, deck.tiling, deck.guard)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"cli: {label}: the card's tile windows differ from numpy's")
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out = dict(fields_ms=timed(lambda: hdf5.tile_windows(f, deck.tiling,
+                                                         deck.guard)),
+               fields_mb=got.nbytes / 1e6)
+    if state.species:
+        counts, flat = hdf5.particle_buffer(state.species)
+        ref = []
+        for p in state.species:
+            w = p.w.cpu().numpy().ravel()
+            ref += [getattr(p, c).cpu().numpy().ravel()[w > 0].astype(
+                np.float64) for c in CLI_CHANNELS]
+        check(np.array_equal(flat, np.concatenate(ref)),
+              f"cli: {label}: the card's particle buffer differs from numpy's")
+        out.update(particles_ms=timed(lambda: hdf5.particle_buffer(
+            state.species)), particles_mb=flat.nbytes / 1e6, live=counts)
+    print(f"cli: {label}: a save's part on the card (cut, compact, one copy "
+          f"each), equal to numpy's: fields {out['fields_mb']:.1f} MB in "
+          f"{out['fields_ms']:.3f} ms"
+          + (f", particles {out['particles_mb']:.1f} MB ({out['live']} live)"
+             f" in {out['particles_ms']:.3f} ms" if state.species else "")
+          + f" [{card}]")
+    return out
+
+
+def _checkpoint(folder):
+    import numpy as np
+
+    with np.load(os.path.join(folder, "checkpoint.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _identical(a: dict, b: dict) -> bool:
+    """Two checkpoints equal bit for bit, array by array."""
+    import numpy as np
+
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _state_diffs(a: dict, b: dict) -> dict:
+    """Max |a - b| of two checkpoints: per field component, and per species
+    and channel over the live particles sorted channel by channel (runs
+    that diverge file their particles in other slots); inf where the live
+    counts differ."""
+    import numpy as np
+
+    out = {k: float(np.abs(a[k].astype(np.float64)
+                           - b[k].astype(np.float64)).max())
+           for k in a if k.startswith("fields_")}
+    for i in range(int(a["n_species"])):
+        la, lb = a[f"sp{i}_w"] > 0, b[f"sp{i}_w"] > 0
+        for c in CLI_CHANNELS:
+            k = f"sp{i}_{c}"
+            out[k] = (float(np.abs(np.sort(a[k][la]).astype(np.float64)
+                                   - np.sort(b[k][lb]).astype(np.float64))
+                            .max(initial=0.0))
+                      if la.sum() == lb.sum() else math.inf)
+    return out
+
+
+def _cli_laser_plasma(tmp: Path, dev, save: bool, card: str,
+                      run_ms: float) -> dict:
+    """laser_plasma at its full size through the CLI: all 1,697 steps (A),
+    850 steps then --resume to 1,697 (B), and twice more uninterrupted (C,
+    D).  If A, C and D agree bit for bit, B must too; if not, B may differ
+    from A by no more than CLI_SPREAD times the largest difference among
+    A, C and D, per field and per particle channel (``_state_diffs``).
+    Live counts and overflow equal in all four."""
+    import numpy as np
+
+    from minipic_torch.decks import standard
+
+    deck = standard.make("laser_plasma").deck
+    n = deck.total_steps
+    base = ["--deck", "laser_plasma", "--save-every", CLI_SAVE_EVERY]
+    base += ["--save-particles"] if save else ["--no-save"]
+    ns = len(deck.species)
+    runs, outs = {}, {k: tmp / f"laser_plasma_{k}" for k in "ABCD"}
+    runs["A"] = _cli(base + ["--out", outs["A"]], "laser_plasma A", card, ns)
+    runs["B850"] = _cli(base + ["--out", outs["B"], "--steps", CLI_SPLIT],
+                        f"laser_plasma B to step {CLI_SPLIT}", card, ns)
+    at_split = _checkpoint(outs["B"])
+    runs["B"] = _cli(base + ["--out", outs["B"], "--resume"],
+                     f"laser_plasma B resumed to {n}", card, ns)
+    for k in "CD":
+        runs[k] = _cli(base + ["--out", outs[k]], f"laser_plasma {k}", card,
+                       ns)
+    ck = {k: _checkpoint(outs[k]) for k in "ABCD"}
+    check(all(int(c["step"]) == n for c in ck.values()),
+          "cli: laser_plasma: final steps")
+    check(int(at_split["step"]) == CLI_SPLIT, "cli: checkpoint at the split")
+    live = {k: [int((c[f"sp{i}_w"] > 0).sum())
+                for i in range(int(c["n_species"]))] for k, c in ck.items()}
+    ovf = {k: runs[k]["overflow"] for k in "ACD"}
+    ovf["B"] = runs["B850"]["overflow"] + runs["B"]["overflow"]
+    pairs = {p: _state_diffs(ck[p[0]], ck[p[1]])
+             for p in ("AC", "AD", "CD", "AB")}
+    spread = {k: max(pairs[p][k] for p in ("AC", "AD", "CD"))
+              for k in pairs["AB"]}
+    same = _identical(ck["A"], ck["C"]) and _identical(ck["A"], ck["D"])
+    fmt = {p: {k: f"{v:.3e}" for k, v in d.items()} for p, d in pairs.items()}
+    ratio = {k: round(pairs["AB"][k] / v, 3) for k, v in spread.items() if v}
+    print(f"cli: laser_plasma: the uninterrupted runs "
+          f"{'agree bit for bit' if same else 'differ'}; max |X - Y| per "
+          f"field and per species channel (live particles sorted) {fmt}; "
+          f"|A - B| over the uninterrupted runs' largest {ratio} (bar "
+          f"{CLI_SPREAD:g}); live {live}, overflow {ovf}, bucket "
+          f"slots {ck['A']['sp0_x'].shape[1]} / {ck['A']['sp1_x'].shape[1]}"
+          f" [{card}]")
+    if same:
+        check(_identical(ck["A"], ck["B"]),
+              "cli: laser_plasma: the resumed run differs from uninterrupted "
+              "runs that agree bit for bit")
+    else:
+        worse = {k: (pairs["AB"][k], v) for k, v in spread.items()
+                 if pairs["AB"][k] > CLI_SPREAD * v}
+        check(not worse, f"cli: laser_plasma: the resumed run differs from "
+              f"A by more than {CLI_SPREAD:g} x the uninterrupted runs' "
+              f"spread: {worse}")
+    check(live["A"] == live["B"] == live["C"] == live["D"],
+          f"cli: laser_plasma: live counts {live}")
+    check(ovf["A"] == ovf["B"] == ovf["C"] == ovf["D"],
+          f"cli: laser_plasma: overflow {ovf}")
+    hist = json.loads((outs["A"] / "history.json").read_text())
+    tot = np.asarray(hist["field_energy"]) + np.asarray(
+        hist["kinetic_energy"]).sum(1)
+    check(len(tot) == n and bool(np.isfinite(tot).all())
+          and tot.max() <= 1.01 * tot[0],
+          f"cli: laser_plasma: history.json energies (highest "
+          f"{tot.max() / tot[0]:.6f} x E0)")
+    print(f"cli: laser_plasma: {n} steps at {runs['A']['ms_per_step']:.4f} / "
+          f"{runs['C']['ms_per_step']:.4f} ms/step through the CLI (A / C; "
+          f"history every step, {runs['A']['saves']} saves) against "
+          + (f"{run_ms:.4f} ms/step through Simulation.run in this call"
+             if run_ms else "Simulation.run not timed in this call")
+          + f"; total energy {tot[0]:.6e} -> {tot[-1]:.6e} [{card}]")
+    if save:
+        _cli_restarts(outs["B"], dev, deck, at_split, card)
+    return dict(runs=runs, final=outs["A"], deck=deck)
+
+
+def _cli_restarts(folder: Path, dev, deck, at_split: dict,
+                  card: str) -> None:
+    """With a writer: the particle snapshot at the split restores its live
+    particles (io.checkpoint.particles_from_snapshot), and the field
+    snapshot there equals the checkpoint's fields (fields_from_snapshot)."""
+    import numpy as np
+
+    from minipic_torch.io import checkpoint, hdf5
+
+    snap = hdf5.load_particles(CLI_SPLIT, str(folder))
+    parts = checkpoint.particles_from_snapshot(CLI_SPLIT, str(folder), deck,
+                                               device=dev)
+    for spec, p in zip(deck.species, parts):
+        w = p.w.cpu().numpy().ravel()
+        got = np.sort(np.stack([getattr(p, c).cpu().numpy().ravel()[w > 0]
+                                .astype(np.float64) for c in CLI_CHANNELS]),
+                      axis=1)
+        want = np.sort(np.stack([snap[spec.name][c] for c in CLI_CHANNELS]),
+                       axis=1)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"cli: particles_from_snapshot({CLI_SPLIT}) {spec.name}")
+    fields = checkpoint.fields_from_snapshot(CLI_SPLIT, str(folder), deck,
+                                             device=dev)
+    for name, c in zip(("ex", "ey", "ez", "bx", "by", "bz"), fields):
+        check(np.array_equal(c.cpu().numpy(), at_split[f"fields_{name}"]),
+              f"cli: fields_from_snapshot({CLI_SPLIT}) {name}")
+    print(f"cli: laser_plasma: the snapshots at step {CLI_SPLIT} restore the "
+          f"checkpoint's fields bit for bit and each species' live particles "
+          f"[{card}]")
+
+
+def _cli_pulse(tmp: Path, dev, save: bool, plot: bool, card: str) -> dict:
+    """reference_pulse at 450^2 for CLI_PULSE_STEPS steps at the reference's
+    save cadence, three times through the CLI and three times through
+    Simulation.run (keeping Bz at each save step), in the order CLI_PULSE_ORDER
+    so that neither always runs first: each run's ms/step; the snapshots'
+    Bz equal the kept Bz (with a writer), or the card's tile windows equal
+    numpy's at the final state (without one); field energy conserved to
+    1e-4; every run's final fields, and those of a CLI run resumed half
+    way, bit for bit alike (fields alone, the card is deterministic); the
+    pulse's speed fit over the saved lineouts (not a bar at this length);
+    with matplotlib, plot all."""
+    import numpy as np
+    import torch
+
+    from minipic_torch import cli
+    from minipic_torch.decks import standard
+    from minipic_torch.diag.analysis import fit_pulse_speed
+    from minipic_torch.io import hdf5
+
+    case = standard.make("reference_pulse")
+    deck = case.deck
+    mid = deck.ny // 2
+    kept, cli_runs, run_ms, ckpts, finals = {}, [], [], [], []
+
+    def saver(st, i):
+        kept[i] = st.fields.bz.clone()
+
+    for how in CLI_PULSE_ORDER:
+        if how == "cli":
+            out = tmp / f"reference_pulse_{len(cli_runs)}"
+            args = ["--deck", "reference_pulse", "--steps", CLI_PULSE_STEPS,
+                    "--save-every", CLI_PULSE_SAVE_EVERY, "--out", out]
+            r = _cli(args + ([] if save else ["--no-save"]),
+                     f"reference_pulse {len(cli_runs)}", card)
+            check(sum(r["launches"].values()) == 0,
+                  "cli: reference_pulse launched a particle kernel")
+            cli_runs.append(dict(r, out=out))
+            ckpts.append(_checkpoint(out))
+            continue
+        sim = case.simulation(device=dev)
+        kept.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(CLI_PULSE_STEPS, save_every=CLI_PULSE_SAVE_EVERY, saver=saver)
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t0) * 1e3 / CLI_PULSE_STEPS)
+        finals.append({f"fields_{n}": c.cpu().numpy() for n, c in zip(
+            ("ex", "ey", "ez", "bx", "by", "bz"), sim.state.fields)})
+    out = cli_runs[0]["out"]
+    hist = json.loads((out / "history.json").read_text())
+    fe = np.asarray(hist["field_energy"])
+    drift = float(np.abs(fe - fe[0]).max() / fe[0])
+    check(len(fe) == CLI_PULSE_STEPS and drift < 1e-4,
+          f"cli: reference_pulse: field energy drift {drift:.3e}")
+    steps = sorted(kept)
+    if not save:
+        _snapshot_buffers(sim.state, deck, "reference_pulse final state",
+                          card)
+    kept = {i: bz.cpu().numpy() for i, bz in kept.items()}
+    # Fields alone, the card's steps are deterministic: every run above and
+    # a CLI run stopped half way and resumed end bit for bit alike.
+    half = tmp / "reference_pulse_resumed"
+    args_half = ["--deck", "reference_pulse", "--save-every",
+                 CLI_PULSE_SAVE_EVERY, "--no-save", "--out", half]
+    _cli(args_half + ["--steps", CLI_PULSE_STEPS // 2],
+         "reference_pulse to half way", card)
+    _cli(args_half + ["--steps", CLI_PULSE_STEPS, "--resume"],
+         "reference_pulse resumed", card)
+    ckpts.append(_checkpoint(half))
+    check(all(_identical(c, ckpts[0]) for c in ckpts),
+          "cli: reference_pulse: the CLI runs' checkpoints differ")
+    for k, f in enumerate(finals):
+        for name in ("ex", "ey", "ez", "bx", "by", "bz"):
+            check(np.array_equal(f[f"fields_{name}"],
+                                 ckpts[0][f"fields_{name}"]),
+                  f"cli: reference_pulse: Simulation.run {k}'s final {name} "
+                  "differs from the CLI's")
+    if save:
+        check(hdf5.available_steps(str(out)) == steps,
+              "cli: reference_pulse: saved steps")
+        kw = dict(nx_global=deck.nx, ny_global=deck.ny, guard=deck.guard,
+                  interior_nx=deck.tile_nx, interior_ny=deck.tile_ny)
+        for i in steps:
+            bz = hdf5.load_field(i, str(out), "Bz", **kw)
+            check(np.array_equal(bz, kept[i].astype(np.float64)),
+                  f"cli: reference_pulse: snapshot Bz at step {i}")
+        what = (f"{len(steps)} snapshots' reassembled Bz equal to the "
+                "in-memory field at each step")
+    else:
+        what = ("no snapshot written (no writer); the card's tile windows "
+                "equal numpy's at the final state")
+    lines = np.stack([kept[i][mid].astype(np.float64) for i in steps[1:]])
+    speed = fit_pulse_speed(np.asarray(steps[1:]) * deck.dt, lines, deck.dx)
+    cli_ms = [r["ms_per_step"] for r in cli_runs]
+    r = cli_runs[0]
+    print(f"cli: reference_pulse {deck.nx}^2: {CLI_PULSE_STEPS} steps, in "
+          f"the order {' '.join(CLI_PULSE_ORDER)}: "
+          f"{' / '.join(f'{v:.4f}' for v in cli_ms)} ms/step through the "
+          f"CLI ({r['saves']} saves, {r['ms_per_save']:.3f} ms a save, "
+          f"writer {r['writer']}; mean {sum(cli_ms) / len(cli_ms):.4f}), "
+          f"{' / '.join(f'{v:.4f}' for v in run_ms)} through Simulation.run "
+          f"(mean {sum(run_ms) / len(run_ms):.4f}); field energy drift "
+          f"{drift:.3e} (bar 1e-4); {what}; every run's final fields and a "
+          f"CLI run's resumed at step {CLI_PULSE_STEPS // 2} bit for bit "
+          f"alike; fit_pulse_speed over {len(lines)} lineouts {speed:.6f} c "
+          f"(not a bar at this length) [{card}]")
+    if save and plot:
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["plot", "all", "--folder", str(out),
+                           "--max-frames", "20"])
+        made = buf.getvalue().split()
+        check(rc == 0 and len(made) == 4 and all(
+            os.path.getsize(p) > 0 for p in made), f"cli: plot all: {made}")
+        print(f"cli: plot all wrote {[os.path.basename(p) for p in made]}")
+    else:
+        print("cli: plot all not run: "
+              + ("matplotlib is not installed" if not plot else
+                 "no snapshots to plot"))
+    return dict(cli_ms=cli_ms, run_ms=run_ms, drift=drift, speed=speed)
+
+
+def _cli_diag_device(state, deck, card: str) -> None:
+    """diag/device.py on the card at a state against the same calls on a
+    CPU copy: counts (unit weights) exactly, and with the weights (the
+    field, for the spectrum) in float64 to 1e-5 of the largest value.  In
+    float32 the weighted sums differ by their order of addition, ~1e-7 x
+    sqrt(particles in a bin): printed, not held to a bar."""
+    from minipic_torch.core.state import ParticleState
+    from minipic_torch.diag import device as ddev
+
+    rtol = 1e-5
+    calls = {
+        "phase_space_hist": lambda p, spec: ddev.phase_space_hist(
+            p, "x", "px")[0],
+        "energy_spectrum": lambda p, spec: ddev.energy_spectrum(
+            p, spec.mass)[0],
+        "charge_density": lambda p, spec: ddev.charge_density(
+            p, spec.charge, deck.ny, deck.nx),
+        "current_moments": lambda p, spec: ddev.current_moments(
+            p, spec.charge),
+    }
+    bars = {"counts": 0.0, "f64 weights": rtol, "f32 weights": None}
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.double()
+        return float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+
+    worst = {}
+    for spec, p in zip(deck.species, state.species):
+        variants = {"counts": p._replace(w=(p.w > 0).to(p.w.dtype)),
+                    "f64 weights": p._replace(w=p.w.double()),
+                    "f32 weights": p}
+        for v, q in variants.items():
+            qc = ParticleState(*(a.cpu() for a in q))
+            for name, fn in calls.items():
+                if v == "counts" and name == "current_moments":
+                    continue
+                err = rel(fn(q, spec), fn(qc, spec))
+                key = f"{name} ({v})"
+                worst[key] = max(worst.get(key, 0.0), err)
+                check(bars[v] is None or err <= bars[v],
+                      f"cli: diag/device {key} {spec.name} on the card vs "
+                      f"the CPU: {err:.3e} of its largest value")
+    ey = state.fields.ey
+    for v, f in (("f64", ey.double()), ("f32", ey)):
+        worst[f"field_spectrum_2d ({v})"] = rel(
+            ddev.field_spectrum_2d(f), ddev.field_spectrum_2d(f.cpu()))
+    check(worst["field_spectrum_2d (f64)"] <= rtol, "cli: field_spectrum_2d")
+    print(f"cli: diag/device on the card at laser_plasma's final state "
+          f"against the CPU, largest difference over the largest value "
+          f"(counts bar 0, f64 bar {rtol:g}, f32 not barred): "
+          f"{ {k: f'{v:.2e}' for k, v in worst.items()} } [{card}]")
+
+
+def phase_cli(dev, card: str, lp_run_ms=None) -> dict:
+    """The command line on the card (``minipic_torch.cli.main``, in this
+    process): laser_plasma in full with a resume, reference_pulse at 450^2
+    with its save cadence, and diag/device.py on laser_plasma's final
+    state.  Which of h5py, matplotlib and the native writer the machine
+    has is probed first: with neither writer the runs take --no-save and
+    the card's part of a save is held to numpy's instead.  Returns the
+    launches per kernel of each laser_plasma run."""
+    import contextlib
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from minipic_torch.io import checkpoint, hdf5, native
+
+    have = {"h5py": hdf5.available(),
+            "matplotlib": importlib.util.find_spec("matplotlib") is not None,
+            "native writer": native.available()}
+    t_phase = time.perf_counter()
+    print(f"cli: host libraries: {have} [{card}]")
+    save = have["h5py"] or have["native writer"]
+    if not save:
+        print("cli: no HDF5 file is written on the card: neither h5py nor "
+              "the native writer (g++ and a libhdf5 runtime) is there, so "
+              "the runs take --no-save")
+    CLI_DIR.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=CLI_DIR))
+    try:
+        lp = _cli_laser_plasma(tmp, dev, save, card, lp_run_ms)
+        state = checkpoint.load_checkpoint(str(lp["final"] / "checkpoint.npz"),
+                                           lp["deck"], device=dev)
+        _snapshot_buffers(state, lp["deck"], "laser_plasma final state",
+                          card)
+        _cli_diag_device(state, lp["deck"], card)
+        del state
+        _cli_pulse(tmp, dev, save, have["matplotlib"], card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        with contextlib.suppress(OSError):
+            CLI_DIR.rmdir()
+    print(f"cli: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: r["launches"] for k, r in lp["runs"].items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -2107,13 +2632,15 @@ def main() -> int:
     phase_open_twins(dev)
     b6_launches = phase_physics(dev, card)
     torch.cuda.empty_cache()
-    lp_advance, lp_rebin, lp_launches = phase_open_physics(dev, card)
+    lp_advance, lp_rebin, lp_launches, lp_ms = phase_open_physics(dev, card)
     torch.cuda.empty_cache()
     phase_sort(dev, card)
     torch.cuda.empty_cache()
     numbers, jobs = phase_main(dev, card)
     numbers["append_runs"]["launches"] = runs_launches
     numbers["advance"]["open"] = lp_advance
+    # The command line before the profile (it slows what runs after it).
+    cli_launches = phase_cli(dev, card, lp_ms)
     # Device times last, in one profile (device_times).  First the launch
     # floor: the smallest kernel PyTorch launches, a one-element zero_(), by
     # the name of its fill kernel (or a memset); it runs before anything
@@ -2158,6 +2685,10 @@ def main() -> int:
               f"the device (profiler), plain {v['plain_ms']:.3f} ms, bound "
               f"{v['bound_ms']:.4f} ms ({v['bound_by']}), equal to its "
               f"plain version (max abs err {v['max_abs_err']:.1e}) [{card}]")
+    for run, launches in cli_launches.items():
+        for name in KERNELS:
+            numbers[name].setdefault("cli", {})[
+                f"laser_plasma {run}"] = launches[name]
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

@@ -550,12 +550,20 @@ class Simulation:
             saver(self.state, 0)
         diag = None
         for i in range(1, n_steps + 1):
-            self.state, diag = self._step(self.state)
-            ovf = int(diag.overflow) if diag.rebinned else 0
-            self.overflow_total += ovf
-            if self.state.species and (ovf > 0
-                                       or i % CAPACITY_CHECK_EVERY == 0):
-                self.ensure_capacity(ovf)
+            diag = self.run_step(i)
             if saver is not None and i % save_every == 0:
                 saver(self.state, i)
+        return diag
+
+    def run_step(self, i: int) -> StepDiag:
+        """One step of ``run``, numbered `i`: step, read the overflow if the
+        step re-binned (add it to ``overflow_total`` and grow the buckets
+        at once), and check the capacity when `i` is a multiple of
+        CAPACITY_CHECK_EVERY.  The CLI numbers its steps absolutely, so a
+        resumed run checks on the steps an uninterrupted one does."""
+        self.state, diag = self._step(self.state)
+        ovf = int(diag.overflow) if diag.rebinned else 0
+        self.overflow_total += ovf
+        if self.state.species and (ovf > 0 or i % CAPACITY_CHECK_EVERY == 0):
+            self.ensure_capacity(ovf)
         return diag

@@ -1,0 +1,308 @@
+"""The port's command line (minipic_torch/cli.py) on the CPU: its artifacts,
+the same snapshots and history as the JAX package's CLI, resume bit for bit
+(across a window shift too), the refusals that name ROADMAP A9, the writer
+choice, and the plot subcommand on a port run folder."""
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in parallel worker processes, and
+# their OpenMP threads oversubscribing the cores slow a step ~85x.
+torch.set_num_threads(1)
+
+from minipic_tpu.cli import main as jax_cli  # noqa: E402
+from minipic_torch import cli  # noqa: E402
+from minipic_torch.decks.standard import CASES, UNPORTED  # noqa: E402
+from minipic_torch.io import hdf5 as th5  # noqa: E402
+from minipic_torch.io import native  # noqa: E402
+from minipic_torch.io.checkpoint import load_checkpoint  # noqa: E402
+
+PULSE = ["--deck", "reference_pulse", "--nx", "48", "--ny", "48",
+         "--steps", "50", "--save-every", "25", "--ranks", "4"]
+TWO_STREAM = ["--deck", "two_stream", "--save-every", "50", "--precision",
+              "f64", "--no-save", "--device", "cpu"]
+WINDOW = ["--deck", "laser_wakefield_window", "--nx", "64", "--ny", "32",
+          "--save-every", "50", "--precision", "f64", "--no-save",
+          "--device", "cpu"]
+
+
+def _run(args):
+    assert cli.main(args) == 0
+
+
+def _history(out):
+    with open(os.path.join(out, "history.json")) as f:
+        return json.load(f)
+
+
+def _same_checkpoints(a, b):
+    """Two checkpoints, every tensor bit for bit."""
+    sa = load_checkpoint(os.path.join(a, "checkpoint.npz"), device="cpu")
+    sb = load_checkpoint(os.path.join(b, "checkpoint.npz"), device="cpu")
+    assert int(sa.step) == int(sb.step)
+    for x, y in zip(sa.fields, sb.fields):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    assert len(sa.species) == len(sb.species)
+    for pa, pb in zip(sa.species, sb.species):
+        for name, x, y in zip(pa._fields, pa, pb):
+            np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=name)
+    np.testing.assert_array_equal(sa.drift.numpy(), sb.drift.numpy())
+    return sa, sb
+
+
+@pytest.fixture(scope="module")
+def pulse_run(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("pulse") / "Fields")
+    _run(PULSE + ["--out", out, "--device", "cpu"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_stream_20(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("ts") / "full")
+    _run(TWO_STREAM + ["--steps", "20", "--out", out])
+    return out
+
+
+def test_cli_list(capsys):
+    assert cli.main(["--list"]) == 0
+    out = capsys.readouterr().out
+    lines = out.strip().splitlines()
+    assert len(lines) == len(CASES) + len(UNPORTED) == 9
+    for name in CASES:
+        assert name in lines
+    for name in UNPORTED:
+        line = next(s for s in lines if s.startswith(name))
+        assert "not ported yet" in line and "ROADMAP A9" in line
+
+
+def test_cli_reference_pulse_artifacts(pulse_run):
+    files = sorted(os.listdir(pulse_run))
+    for name in ("params.txt", "history.json", "checkpoint.npz"):
+        assert name in files
+    assert sum(f.startswith("fields_rank_") for f in files) == 3 * 4
+    assert th5.available_steps(pulse_run) == [0, 25, 50]
+    fe = np.asarray(_history(pulse_run)["field_energy"])
+    assert np.all(np.isfinite(fe)) and fe[0] > 0
+    # Vacuum: the field energy is conserved to f32 round-off.
+    assert abs(fe[-1] - fe[0]) / fe[0] < 1e-4
+
+
+def test_cli_reference_pulse_f64_equals_jax_cli(tmp_path):
+    """The same fields-only run through both CLIs in f64: the same files,
+    snapshots equal to 1e-12, the recorded field energies to 1e-12."""
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_cli(PULSE + ["--precision", "f64", "--out", jout]) == 0
+    _run(PULSE + ["--precision", "f64", "--out", tout, "--device", "cpu"])
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    kw = dict(nx_global=48, ny_global=48, guard=2, interior_nx=24,
+              interior_ny=24)
+    for step in (0, 25, 50):
+        for q in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"):
+            np.testing.assert_allclose(
+                th5.load_field(step, tout, q, **kw),
+                th5.load_field(step, jout, q, **kw), rtol=0, atol=1e-12,
+                err_msg=f"{q} at step {step}")
+    ht, hj = _history(tout), _history(jout)
+    assert sorted(ht) == sorted(hj)
+    assert ht["steps"] == hj["steps"] == list(range(1, 51))
+    np.testing.assert_allclose(ht["field_energy"], hj["field_energy"],
+                               rtol=1e-12)
+    assert ht["overflow"] == hj["overflow"]
+    assert ht["live_skew"] == hj["live_skew"]
+
+
+def test_cli_two_stream_energy(two_stream_20):
+    hist = _history(two_stream_20)
+    tot = [f + sum(k) for f, k in zip(hist["field_energy"],
+                                      hist["kinetic_energy"])]
+    assert len(tot) == 20 and len(hist["kinetic_energy"][0]) == 3
+    assert abs(tot[-1] - tot[0]) / tot[0] < 1e-6
+    assert all(o == 0 for o in hist["overflow"])
+
+
+def test_cli_resume_bit_exact(two_stream_20, tmp_path):
+    """A run stopped at step 10 and resumed with --resume lands bit for bit
+    on the uninterrupted run (tests/test_decks_cli.py's resume, on the
+    port)."""
+    out = str(tmp_path / "split")
+    _run(TWO_STREAM + ["--steps", "10", "--out", out])
+    _run(TWO_STREAM + ["--steps", "20", "--out", out, "--resume"])
+    a, _ = _same_checkpoints(two_stream_20, out)
+    assert int(a.step) == 20
+    assert _history(out)["steps"] == list(range(11, 21))
+
+
+def test_cli_window_resume_across_a_shift(tmp_path):
+    """laser_wakefield_window stopped at step 15 and resumed to 30 lands bit
+    for bit on the 30 straight steps, across the window's first shift."""
+    full, split = str(tmp_path / "full"), str(tmp_path / "split")
+    _run(WINDOW + ["--steps", "30", "--out", full])
+    _run(WINDOW + ["--steps", "15", "--out", split])
+    w15 = load_checkpoint(os.path.join(split, "checkpoint.npz"),
+                          device="cpu").window_x0
+    _run(WINDOW + ["--steps", "30", "--out", split, "--resume"])
+    a, b = _same_checkpoints(full, split)
+    assert int(w15) == 0
+    assert int(a.window_x0) == int(b.window_x0) > 0
+
+
+def test_cli_grows_on_the_step_that_overflows_at_any_cadence(tmp_path,
+                                                             monkeypatch):
+    """The CLI reads the overflow of every step that re-binned and grows the
+    buckets on that step, whatever --diag-every is (JAX's CLI acts only on
+    its cadence, so its growth lags at --diag-every > 1: ROADMAP C).
+    laser_plasma at 64^2 with full buckets (headroom 1.0) drops a particle
+    on its first re-bin, step 2."""
+    import dataclasses
+
+    from minipic_torch.decks import standard
+    from minipic_torch.simulation import Simulation
+
+    real_case, real_grow = standard.CASES["laser_plasma"], \
+        Simulation.ensure_capacity
+
+    def case(**kw):
+        c = real_case(nx=64, ny=64)
+        return dataclasses.replace(c, deck=dataclasses.replace(
+            c.deck, capacity_headroom=1.0))
+
+    calls = []
+
+    def grow(self, overflow=0):
+        calls.append((int(self.state.step), overflow))
+        return real_grow(self, overflow)
+
+    monkeypatch.setitem(standard.CASES, "laser_plasma", case)
+    monkeypatch.setattr(Simulation, "ensure_capacity", grow)
+    args = ["--deck", "laser_plasma", "--steps", "6", "--no-save",
+            "--device", "cpu"]
+    runs = {}
+    for every in (1, 5):
+        calls.clear()
+        out = str(tmp_path / f"every{every}")
+        _run(args + ["--diag-every", str(every), "--out", out])
+        runs[every] = (list(calls), out, _history(out))
+    assert runs[1][0] == runs[5][0] == [(2, 1)]
+    assert runs[5][2]["steps"] == [5, 6] and runs[1][2]["overflow"][1] == 1
+    _same_checkpoints(runs[1][1], runs[5][1])
+    ckpt = load_checkpoint(os.path.join(runs[5][1], "checkpoint.npz"),
+                           device="cpu")
+    assert [p.capacity for p in ckpt.species] == [1536, 1536]
+
+
+@pytest.mark.parametrize("args", [
+    ["--sharded"], ["--balanced"], ["--deck", "load_balance_stress"],
+    ["--deck", "load_balance_bunching", "--device", "cpu"],
+])
+def test_cli_refuses_what_waits_for_a9(tmp_path, args):
+    with pytest.raises(SystemExit) as e:
+        cli.main(args + ["--out", str(tmp_path)])
+    assert "ROADMAP A9" in str(e.value.code)
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_needs_the_card_unless_told_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        cli.main(PULSE + ["--out", str(tmp_path)])
+    assert "CUDA" in str(e.value.code)
+
+
+def test_cli_f64_on_the_card_is_refused(tmp_path, monkeypatch):
+    """--precision f64 sets the deck's precision; the card's advance is
+    float32-only, so a card run of it fails before any step."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="float32-only"):
+        cli.main(TWO_STREAM[:-2] + ["--out", str(tmp_path)])
+
+
+def test_cli_without_a_writer_exits_non_zero(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    assert not th5.available()
+    with pytest.raises(SystemExit) as e:
+        cli.main(PULSE + ["--out", str(tmp_path / "o"), "--device", "cpu"])
+    assert "no HDF5 writer" in str(e.value.code)
+    assert not os.path.exists(tmp_path / "o")
+    # --no-save needs no writer.
+    _run(PULSE + ["--out", str(tmp_path / "n"), "--device", "cpu",
+                  "--no-save"])
+
+
+def test_cli_failed_snapshot_exits_non_zero(tmp_path, monkeypatch, capsys):
+    """A snapshot file that fails to write makes the run exit 1 (JAX's CLI
+    prints a warning and exits 0: ROADMAP C); the history and checkpoint
+    are still written."""
+
+    class Failing:
+        def submit(self, fields, step):
+            pass
+
+        def flush(self):
+            return 2
+
+    monkeypatch.setattr(cli, "choose_writer",
+                        lambda deck, args: (Failing(), "failing"))
+    out = str(tmp_path / "o")
+    assert cli.main(PULSE + ["--out", out, "--device", "cpu"]) == 1
+    assert "2 snapshot files failed" in capsys.readouterr().err
+    assert os.path.exists(os.path.join(out, "checkpoint.npz"))
+
+
+def test_cli_prints_its_writer(tmp_path, capsys):
+    _run(PULSE + ["--out", str(tmp_path), "--device", "cpu", "--steps", "2"])
+    want = "native" if native.available() else "h5py"
+    assert f"snapshot writer: {want}" in capsys.readouterr().out
+
+
+def test_wipe_run_artifacts_leaves_other_files(tmp_path):
+    for name in ("fields_rank_0_step_0.h5", "params.txt", "history.json",
+                 "checkpoint.npz", "particles_rank_0_step_5.h5",
+                 "notes.txt", "fields_backup.h5"):
+        (tmp_path / name).write_text("x")
+    assert cli.wipe_run_artifacts(str(tmp_path)) == 5
+    assert sorted(os.listdir(tmp_path)) == ["fields_backup.h5", "notes.txt"]
+
+
+def test_cli_save_particles_and_profile(tmp_path):
+    """--save-particles writes a particle file per save; --profile writes a
+    Chrome trace of the first steps."""
+    out = str(tmp_path / "o")
+    _run(["--deck", "two_stream", "--nx", "32", "--ny", "32", "--steps", "4",
+          "--save-every", "2", "--save-particles", "--device", "cpu",
+          "--out", out, "--profile", str(tmp_path / "prof")])
+    for s in (0, 2, 4):
+        data = th5.load_particles(s, out)
+        assert sorted(data) == ["ion", "left", "right"]
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+
+
+ARTIFACTS = {"field": ("Bz_step_50.png",), "lineouts": ("line_slices_Bz.png",),
+             "peaks": ("peak_amplitudes_Bz.png", "peak_amplitudes_Bz.csv"),
+             "animation": ("Bz_animation",)}
+
+
+@pytest.mark.parametrize("artifact", sorted(ARTIFACTS) + ["all"])
+def test_cli_plot_from_a_port_run(pulse_run, tmp_path, artifact, capsys):
+    pytest.importorskip("matplotlib")
+    import shutil
+
+    folder = str(tmp_path / "run")
+    shutil.copytree(pulse_run, folder)
+    assert cli.main(["plot", artifact, "--folder", folder,
+                     "--max-frames", "3"]) == 0
+    printed = capsys.readouterr().out.strip().splitlines()
+    names = [n for k, v in ARTIFACTS.items() if artifact in (k, "all")
+             for n in v]
+    assert len(printed) == sum(not n.endswith(".csv") for n in names)
+    for path in printed:
+        assert os.path.getsize(path) > 0
+    made = os.listdir(folder)
+    for n in names:
+        assert any(m.startswith(n) for m in made), n

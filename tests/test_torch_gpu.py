@@ -1,5 +1,5 @@
 """The CUDA kernels (advance, and the deal-route re-bin) against their plain
-torch versions, on the card.
+torch versions, on the card, and the command line's I/O there.
 
 Marked ``gpu``: each test skips without CUDA.  On a machine with a card
 (which need not have JAX) run them with
@@ -674,3 +674,47 @@ def test_append_runs_kernel_with_empty_runs_matches_plain(cuda, empty):
     assert torch.equal(got_d, want_d)
     n_in = int((inc.w > 0).sum())
     assert (n_in == 0) == (len(empty) == 8)
+
+
+# ----------------------------------------------------------------------
+# The command line and its I/O on the card.
+
+def test_cli_runs_on_the_card_and_resumes_a_fields_deck_bit_for_bit(
+        cuda, tmp_path):
+    """The CLI's default device is the card; fields alone, its steps are
+    deterministic, so a run resumed half way equals the straight one."""
+    import numpy as np
+
+    from minipic_torch import cli
+
+    args = ["--deck", "reference_pulse", "--nx", "64", "--ny", "64",
+            "--save-every", "10", "--no-save"]
+    assert cli.main(args + ["--steps", "40", "--out", str(tmp_path / "a")]) \
+        == 0
+    for extra in (["--steps", "20"], ["--steps", "40", "--resume"]):
+        assert cli.main(args + extra + ["--out", str(tmp_path / "b")]) == 0
+    za, zb = (np.load(tmp_path / d / "checkpoint.npz") for d in "ab")
+    assert sorted(za.files) == sorted(zb.files)
+    for k in za.files:
+        assert np.array_equal(za[k], zb[k]), k
+    assert int(za["step"]) == 40
+
+
+def test_snapshot_buffers_match_the_cpu(cuda):
+    """io.hdf5's tile windows and particle buffer on the card equal the same
+    calls on a CPU copy (diag/device.py is held to the CPU in
+    chip_smoke.py's cli phase, at laser_plasma's full size)."""
+    from minipic_torch.decks import standard
+    from minipic_torch.io import hdf5
+
+    case = standard.make("laser_plasma", nx=64, ny=64, ppc=2)
+    gpu = case.simulation(seed=1, device=cuda)
+    gpu.step(6)
+    st, d = gpu.state, case.deck
+    cpu = [ParticleState(*(a.cpu() for a in p)) for p in st.species]
+    fcpu = FieldState(*(c.cpu() for c in st.fields))
+    assert (hdf5.tile_windows(st.fields, d.tiling, d.guard)
+            == hdf5.tile_windows(fcpu, d.tiling, d.guard)).all()
+    cg, bg = hdf5.particle_buffer(st.species)
+    cc, bc = hdf5.particle_buffer(cpu)
+    assert cg == cc and (bg == bc).all()

@@ -41,7 +41,18 @@ Phases, each printing what it found; any failure exits non-zero:
    twins: ``reference_pulse`` (64^2), ``laser_plasma`` (64^2, ppc 2) and
    ``laser_wakefield_window`` (64x32, ppc 2, through two window shifts)
    stepped on the card and on the CPU from one state;
-5. physics: on the card through ``Simulation.run``, the 10k-step
+5. multi-device kernels and twins (``parallel/``, every shard on this
+   card): B1, B2 and B3 in global tile coordinates against their plain
+   versions (a shard's block with row0 = col0 = 4, a shard's striped gids;
+   B1 in int8 and f32, the segment's movers through every seam); then
+   ``ShardedSimulation`` at (2, 2) and (2, 4) and ``BalancedSimulation``
+   over 8 shards against ``Simulation`` on the card, 30 steps of
+   tests/test_parallel.py:84's deck in f32 (int8, guard 4) and of its
+   deal-route variant (fused and append_runs), field energy within 1e-5
+   and kinetic within 1e-6 (the JAX package's bars), live counts exact,
+   overflow 0; ``laser_wakefield_window`` cut to 64x32, sharded and striped,
+   through two shifts;
+6. physics: on the card through ``Simulation.run``, the 10k-step
    two-stream energy acceptance run (``scripts/energy_probe.py``'s deck,
    max |dE|/E0 < 1e-3, overflow 0), ``weibel`` for its full run (in-plane
    B energy grows more than 100x), and ``two_stream`` for its full run;
@@ -61,9 +72,20 @@ Phases, each printing what it found; any failure exits non-zero:
    then again with its walls, shifts and injections counted on the device
    (every injected weight the profile's at absolute x to 1e-6, the live
    count's books exact: net injection less the kills at each wall);
-6. sort route: the headline deck with ``rebin_mode="sort"``, 20 steps with
+7. sort route: the headline deck with ``rebin_mode="sort"``, 20 steps with
    one forced re-bin;
-7. main path: bench.py's headline deck exactly (1e8 particles, 512^2, TSC,
+8. load balance: the three ``load_balance_*`` decks at their default
+   sizes on the (2, 4) mesh, all eight shards on this card, through the
+   simulations' ``run_step``: ``load_balance_stress`` sharded (2 x 99,614,720
+   particles, the f32 deposit, the deal route, 282 steps), then B1-B3 timed
+   at one shard of its final state against their plain versions;
+   ``load_balance_stress_counts`` sharded, striped and through
+   ``Simulation`` (282 steps each; the live skew over 1.5 blocked and under
+   1.10 striped, tests/test_balanced.py:184-187);
+   ``load_balance_bunching`` sharded and striped, cut to 900 of its 3,394
+   steps; for each run ms/step, kernel launches, peak memory, overflow
+   (each drop followed by growth) and the live count conserved exactly;
+9. main path: bench.py's headline deck exactly (1e8 particles, 512^2, TSC,
    int8, whole-bucket chunks, the default deal-route re-bin), 60
    ``Simulation.step`` calls on the card; then each kernel against its plain
    version on the run's final state, at the main path's shapes, and each
@@ -71,7 +93,7 @@ Phases, each printing what it found; any failure exits non-zero:
    shuffled), with the whole deal-route re-bin (fused and through
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
    that state;
-8. cli: the command line (``minipic_torch.cli.main``, in this process,
+10. cli: the command line (``minipic_torch.cli.main``, in this process,
    into a git-ignored folder of this checkout that it removes), after
    probing for h5py, matplotlib and the native writer (with neither
    writer the runs take ``--no-save`` and the card's part of a save is
@@ -85,8 +107,11 @@ Phases, each printing what it found; any failure exits non-zero:
    conserved to 1e-4, every run's final fields bit for bit alike and
    those of a run resumed half way;
    ``diag/device.py`` on laser_plasma's final state against the CPU
-   (counts exact, float64 weights to 1e-5);
-9. device time: the launch floor (a one-element ``zero_()``),
+   (counts exact, float64 weights to 1e-5); ``--sharded`` on
+   ``load_balance_stress_counts`` (20 steps), and ``--balanced`` on
+   ``load_balance_bunching`` cut to 128^2 stopped half way and resumed,
+   held to three straight runs as ``laser_plasma``'s resume is;
+11. device time: the launch floor (a one-element ``zero_()``),
    append_incoming on the decks' states, the two copy kernels of the main
    path, and the re-bin kernels on laser_plasma's final state, from one
    torch.profiler run (their wrappers take longer on the host than they
@@ -99,8 +124,9 @@ its bound at the shape timed (the advance's entry also its open mode's
 numbers at laser_plasma's final state, under "open"; the re-bin kernels
 that laser_plasma's run launched, their launches there and their numbers
 at its final state per species, under "laser_plasma"; every kernel's
-launches in each of the cli phase's laser_plasma runs, under "cli"); the
-last line is
+launches in each of the cli phase's laser_plasma runs, under "cli"; B1-B3
+at load_balance_stress's shard, under "sharded"; every kernel's launches in
+each load_balance run, under "load_balance"); the last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it fails
 before printing any result.
 """
@@ -164,6 +190,10 @@ F32_OPS_PER_S = 67e12
 # csrc/advance.cu at TSC: ~100 for the two shape sets, ~110 for the six
 # gathers, ~60 for the Boris push and move, ~130 for the Esirkepov terms.
 ADVANCE_OPS_PER_PARTICLE = 400
+# The headline advance of the kernel before its origins became per-tile
+# arrays: the spread of PERF.md's runs at the main path's final state (H100
+# 80GB HBM3, 700 W).
+PARENT_ADVANCE_MS = (6.17, 6.48)
 # int8 jx/jy are integer sums, exact in any order, so kernel and plain
 # version agree cell for cell unless a position differs by 1 ulp and moves
 # a shape quantum; allow a few such cells per comparison.
@@ -358,12 +388,14 @@ def _subset(order: int, dev, layout: str = "shuffled"):
     return deck, p, ft
 
 
-def _kw(deck, mode):
+def _kw(deck, mode, dev):
+    from minipic_torch.simulation import tile_origins
+
     t = deck.tiling
     return dict(qm=-1.0, q=-1.0, order=deck.species[0].shape_order,
-                tile_ny=t.tile_ny, tile_nx=t.tile_nx, tile_cols=t.tile_cols,
-                g=deck.guard, dt=deck.dt, dx=deck.dx, dy=deck.dy,
-                grid=(deck.nx, deck.ny), mode=mode)
+                tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+                origins=tile_origins(t, dev), g=deck.guard, dt=deck.dt,
+                dx=deck.dx, dy=deck.dy, grid=(deck.nx, deck.ny), mode=mode)
 
 
 def _continuity(deck, p0, mode, ft):
@@ -382,7 +414,7 @@ def _continuity(deck, p0, mode, ft):
     t = deck.tiling
     order = deck.species[0].shape_order
     cpu = torch.device("cpu")
-    origins = tile_origins(t, torch.float32, cpu)
+    origins = tile_origins(t, cpu)
 
     def rho(p):
         p = type(p)(*(a.to(cpu) for a in p))
@@ -393,7 +425,7 @@ def _continuity(deck, p0, mode, ft):
                                  quantize=qshape_scale(order))
 
     p1, (jx, jy, _), _ = fused_push_deposit(p0, ft, live_watermark(p0.w),
-                                            **_kw(deck, mode))
+                                            **_kw(deck, mode, p0.x.device))
     jx, jy = jx.to(cpu), jy.to(cpu)
     zx = torch.zeros_like(jx[:, :, :1])
     zy = torch.zeros_like(jy[:, :1, :])
@@ -459,7 +491,8 @@ def phase_kernel(dev) -> None:
                              (1, "f32"))):
         deck, p, ft = _subset(order, dev, layout)
         label = f"subset {layout} o{order} {mode}"
-        err = _compare(p, ft, live_watermark(p.w), _kw(deck, mode), label)
+        err = _compare(p, ft, live_watermark(p.w), _kw(deck, mode, dev),
+                       label)
         msg = (f"kernel: {label}: {int((p.w > 0).sum())} particles, max abs "
                f"err {err:.3e}")
         if mode == "int8":
@@ -1239,13 +1272,15 @@ def _open_subset(name: str, dev, seed=31):
     return deck, p, ft
 
 
-def _open_kw(deck, spec=None):
+def _open_kw(deck, dev, spec=None):
+    from minipic_torch.simulation import tile_origins
+
     t = deck.tiling
     spec = deck.species[0] if spec is None else spec
     return dict(qm=spec.charge / spec.mass, q=spec.charge,
                 order=spec.shape_order, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
-                tile_cols=t.tile_cols, g=deck.guard, dt=deck.dt, dx=deck.dx,
-                dy=deck.dy, grid=None, mode="f32")
+                origins=tile_origins(t, dev), g=deck.guard, dt=deck.dt,
+                dx=deck.dx, dy=deck.dy, grid=None, mode="f32")
 
 
 def _compare_open(deck, p, ft, label: str, kw=None) -> float:
@@ -1258,7 +1293,7 @@ def _compare_open(deck, p, ft, label: str, kw=None) -> float:
     from minipic_torch.ops.advance import (advance_kernel, advance_plain,
                                            live_watermark)
 
-    kw = _open_kw(deck) if kw is None else kw
+    kw = _open_kw(deck, p.x.device) if kw is None else kw
     counts = live_watermark(p.w)
     pk, jk, dk = advance_kernel(p, ft, counts, **kw)
     pp, jp, dp = advance_plain(p, ft, counts, **kw)
@@ -1299,7 +1334,7 @@ def phase_open_kernel(dev) -> None:
         err = _compare_open(deck, p, ft, label)
         # The leavers' moves, stored unwrapped: out through every wall.
         (x1, y1, *_), _, _ = advance_kernel(p, ft, live_watermark(p.w),
-                                            **_open_kw(deck))
+                                            **_open_kw(deck, dev))
         live = p.w > 0
         x1, y1 = x1[live], y1[live]
         out = [int(o.sum()) for o in (x1 < 0, x1 >= deck.nx, y1 < 0,
@@ -1309,7 +1344,7 @@ def phase_open_kernel(dev) -> None:
         check(min(out) >= 4 and corners >= 4,
               f"{label}: leavers {out}, through corners {corners}")
         perr = _compare(p, ft, live_watermark(p.w),
-                        dict(_open_kw(deck), grid=(deck.nx, deck.ny)),
+                        dict(_open_kw(deck, dev), grid=(deck.nx, deck.ny)),
                         f"{label}, periodic mode")
         print(f"kernel: {label}: {int(live.sum())} particles, leavers "
               f"(x<0, x>=nx, y<0, y>=ny) {out}, through corners {corners}: "
@@ -1576,7 +1611,7 @@ def _laser_plasma_physics(dev, card: str) -> dict:
     ft = extract_field_tiles(pad_fields_periodic(sim.state.fields,
                                                  deck.guard), t.tile_rows,
                              t.tile_cols, t.tile_ny, t.tile_nx, deck.guard)
-    kw = _open_kw(deck)
+    kw = _open_kw(deck, dev)
     counts = live_watermark(p.w)
     err = _compare_open(deck, p, ft, "open laser_plasma final state", kw)
     n_wm = int(counts.sum())
@@ -1901,7 +1936,7 @@ def phase_main(dev, card: str) -> dict:
                              t.tile_rows, t.tile_cols, t.tile_ny, t.tile_nx,
                              deck.guard)
     counts = live_watermark(p.w)
-    kw = _kw(deck, "int8")
+    kw = _kw(deck, "int8", dev)
     err = _compare(p, ft, counts, kw, "main-path shape o2 int8")
     # Bytes: six channels in and five out up to each watermark, the field
     # windows in, the J windows and displacements out.
@@ -1927,6 +1962,10 @@ def phase_main(dev, card: str) -> dict:
           f"{numbers['advance']['bound_ms']:.3f} ms; "
           f"{advance_kernel.blocks_per_sm(2, 'int8', nyg, nxg)} blocks of "
           f"256 threads per SM [{card}]")
+    lo, hi = PARENT_ADVANCE_MS
+    print(f"main: the advance with its per-tile origin arrays "
+          f"{numbers['advance']['ms']:.3f} ms beside the parent kernel's "
+          f"{lo}-{hi} ms at this state (PERF.md, the same card model)")
 
     mc = deck.mover_cap(cap)
     sc = deck.mover_seg_cap(mc)
@@ -2099,6 +2138,522 @@ def phase_sort(dev, card: str) -> None:
 
 # The command line (the cli phase): the port's CLI driven in-process into a
 # git-ignored folder of this checkout, removed at the end.
+# The multi-device simulations (parallel/): every shard on this card.  The
+# twins' steps (the decks' drift trigger fires near step 22), the window
+# twin's cut and steps (two shifts), the
+# load_balance decks' history cadence (one read a record), the bunching
+# deck's steps (cut from 3,394: 900 carry the blob, at ~0.45 c, across a
+# 12.8-unit shard seam), the skew bars of tests/test_balanced.py:184-187,
+# and the balanced CLI run's cut and split.
+MESH_TWIN_STEPS = 30
+MESH_WINDOW_TWIN = (dict(nx=64, ny=32), 47)
+LB_RECORD_EVERY = 25
+BUNCHING_STEPS = 900
+SKEW_BLOCK_ABOVE = 1.5
+SKEW_STRIPE_BELOW = 1.10
+CLI_BALANCED = ("load_balance_bunching", dict(nx=128, ny=128), 40)
+
+
+def _mesh_live(sim) -> int:
+    return sum(_live(p) for sp in sim.shard_state.species for p in sp)
+
+
+def phase_sharded_kernels(dev) -> None:
+    """B1, B2 and B3 in the multi-device simulations' tile coordinates, each
+    against its plain version on the 64-tile subsets (an 8x8 grid of the
+    headline's 8x8 tiles): the block of shard (1, 1) of a (2, 2) mesh
+    (rows and columns 4-7: row0 = col0 = 4) and the stripe of shard 3 of
+    8 (its gids).  B1 in int8 and f32 on shuffled slots; the split with
+    row0/col0 and with tile_ids; the segment of the blocks at (4, 4) and
+    (0, 0) with the global grid's fold, its movers through every seam and
+    corner of the block and, at its far edges, through the grid's wrap."""
+    import itertools
+
+    import torch
+
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.ops.advance import live_watermark
+    from minipic_torch.parallel.balanced import stripe_gids
+
+    def block(r0, c0):
+        return [(r0 + i) * 8 + c0 + j for i in range(4) for j in range(4)]
+
+    stripe = [int(g) for g in stripe_gids(8, 8, 8)[3]]
+    layouts = (("block (4, 4)", block(4, 4)), ("stripe 3 of 8", stripe))
+    for (label, gids), mode in itertools.product(layouts, ("int8", "f32")):
+        deck, p, ft = _subset(2, dev, "shuffled")
+        idx = torch.tensor(gids, device=dev)
+        sub = type(p)(*(a[idx].contiguous() for a in p))
+        fsub = type(ft)(*(a[idx].contiguous() for a in ft))
+        g32 = idx.to(torch.int32)
+        kw = dict(_kw(deck, mode, dev),
+                  origins=((g32 % 8) * 8, (g32 // 8) * 8))
+        err = _compare(sub, fsub, live_watermark(sub.w), kw,
+                       f"sharded advance {label} {mode}")
+        print(f"sharded kernels: advance, {label}, {mode}: {_live(sub)} "
+              f"particles in {len(gids)} tiles with their global origins, "
+              f"max abs err {err:.3e}")
+    deck, cap, p = _rebin_subset(dev)
+    mc = deck.mover_cap(cap)
+    sc = deck.mover_seg_cap(mc)
+    for label, gids, kw in (
+            ("block (4, 4)", block(4, 4), dict(tile_cols=4, row0=4, col0=4)),
+            ("stripe 3 of 8", stripe, dict(tile_cols=8, tile_ids=torch.tensor(
+                stripe, dtype=torch.int32, device=dev)))):
+        idx = torch.tensor(gids, device=dev)
+        sub = type(p)(*(a[idx].contiguous() for a in p))
+        kw.update(tile_ny=8, tile_nx=8, b_cap=mc)
+        got = rb.split_kernel(sub, **kw)
+        want = rb.split_buckets_plain(sub, **kw)
+        err = max(_same(a, b, f"sharded split {label} {i}")
+                  for i, (a, b) in enumerate(zip(got, want)))
+        n_mov = _live(got[1])
+        check(n_mov > 0, f"sharded split {label}: no movers")
+        print(f"sharded kernels: split, {label}: {n_mov} movers of "
+              f"{_live(sub)} particles, equal to its plain version (max abs "
+              f"err {err:.1e})")
+    for r0, c0 in ((4, 4), (0, 0)):
+        idx = torch.tensor(block(r0, c0), device=dev)
+        sub = type(p)(*(a[idx].contiguous() for a in p))
+        skw = dict(tile_cols=4, tile_ny=8, tile_nx=8, row0=r0, col0=c0)
+        _, movers, _, _ = rb.split_buckets_plain(sub, b_cap=mc, **skw)
+        gkw = dict(skw, tile_rows=4, b_seg=sc, grid_rows=8, grid_cols=8)
+        seg, sd = rb.segment_kernel(movers, **gkw)
+        seg_p, sd_p = rb.segment_movers_plain(movers, **gkw)
+        err = max(_same(seg, seg_p, f"sharded segment ({r0}, {c0})"),
+                  _same(sd, sd_p, f"sharded segment ({r0}, {c0}) dropped"))
+        runs = (seg.w.reshape(16, 8, sc) > 0).sum(dim=(0, 2))
+        # Movers leaving the block: destination tile outside rows/columns
+        # r0..r0+3 / c0..c0+3 (through a seam, or the grid's wrap).
+        t = torch.arange(16, device=dev)[:, None]
+        col = torch.floor(movers.x / 8) - (c0 + t % 4)
+        row = torch.floor(movers.y / 8) - (r0 + t // 4)
+        live = movers.w > 0
+        out_col = live & ((t % 4 == 0) & (col != 0) & (col != 1)
+                          | (t % 4 == 3) & (col != 0) & (col != -1))
+        out_row = live & ((t // 4 == 0) & (row != 0) & (row != 1)
+                          | (t // 4 == 3) & (row != 0) & (row != -1))
+        check(bool((runs > 0).all()) and int(sd.sum()) == 0
+              and int(out_col.sum()) > 0 and int(out_row.sum()) > 0,
+              f"sharded segment ({r0}, {c0}): runs {runs.tolist()}, "
+              f"dropped {int(sd.sum())}")
+        print(f"sharded kernels: segment, block ({r0}, {c0}) of the 8x8 "
+              f"grid: {_live(movers)} movers, every direction's run "
+              f"non-empty ({runs.tolist()}), {int(out_col.sum())} / "
+              f"{int(out_row.sum())} leaving the block through a column / "
+              "row seam, none dropped; equal to its plain version (max abs "
+              f"err {err:.1e})")
+
+
+def _twin_deck(**kw):
+    """tests/test_parallel.py:84-100's deck in f32 with the int8 deposit and
+    guard 4 (test_parallel.py:171-180)."""
+    from minipic_torch.core import config as cfg
+
+    base = dict(
+        box_x=8.0, box_y=8.0, nx=64, ny=64, tile_nx=8, tile_ny=8, guard=4,
+        deposit="int8", species=(
+            cfg.SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=4, ux=0.3,
+                            uy=0.2, uth=0.05),
+            cfg.SpeciesSpec("ion", charge=+1.0, mass=5.0, ppc=4, ux=-0.1,
+                            uth=0.02)))
+    base.update(kw)
+    return cfg.Deck(**base)
+
+
+def _twin(label, ref, sim, steps, fe_rtol, ke_rtol):
+    """Steps `ref` (Simulation) and `sim` (a mesh simulation) from the same
+    load: field and kinetic energies within the bars, live counts exact,
+    overflow 0 on every step.  Returns the mesh simulation's kernel
+    launches."""
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.ops.advance import advance_kernel
+
+    advance_kernel.launches = 0
+    for k in rb.KERNELS.values():
+        k.reset()
+    # Launches of the mesh simulation only: the reference steps with the
+    # counters saved and put back.
+    counts = {n: 0 for n in ("advance", *rb.KERNELS)}
+
+    def read():
+        return dict(advance=advance_kernel.launches,
+                    **{n: k.launches for n, k in rb.KERNELS.items()})
+
+    rebins = 0
+    for i in range(steps):
+        before = read()
+        dm = sim.step()
+        after = read()
+        for n in counts:
+            counts[n] += after[n] - before[n]
+        dr = ref.step()
+        fe = (float(dm.field_energy), float(dr.field_energy))
+        check(abs(fe[0] - fe[1]) <= fe_rtol * abs(fe[1]) + 1e-12,
+              f"{label} step {i}: field energy {fe}")
+        km, kr = dm.kinetic_energy.cpu(), dr.kinetic_energy.cpu()
+        check(bool(((km - kr).abs() <= ke_rtol * kr.abs()
+                    + 1e-7 * float(kr.sum())).all()),
+              f"{label} step {i}: kinetic energy {km} vs {kr}")
+        check(int(dm.shard_live.sum()) == int(dr.shard_live[0]),
+              f"{label} step {i}: live {int(dm.shard_live.sum())} vs "
+              f"{int(dr.shard_live[0])}")
+        check(int(dm.overflow) == 0 and int(dr.overflow) == 0
+              and dm.rebinned == dr.rebinned,
+              f"{label} step {i}: overflow or re-bin differs")
+        rebins += dm.rebinned
+    check(rebins >= 1, f"{label}: no re-bin")
+    return fe, rebins, counts
+
+
+def phase_mesh_twins(dev, card: str) -> None:
+    """ShardedSimulation at (2, 2) and (2, 4) and BalancedSimulation over 8
+    shards, every shard on this card, against Simulation on it, from the
+    same load: tests/test_parallel.py:84's deck in f32 with the int8 deposit
+    and guard 4, and its deal-route variant (test_parallel.py:268-279,
+    appended fused and through append_runs), held to the JAX package's f32
+    bars for this comparison (test_parallel.py:293-299: field energy rtol
+    1e-5, kinetic 1e-6), live counts exact, overflow 0; then
+    laser_wakefield_window cut to 64x32 (tests/test_decks_cli.py:96-105),
+    sharded and striped, through two shifts (the open decks' twin bars)."""
+    from minipic_torch.core import config as cfg
+    from minipic_torch.decks import standard
+    from minipic_torch.parallel.balanced import BalancedSimulation
+    from minipic_torch.parallel.step import ShardedSimulation
+    from minipic_torch.simulation import Simulation, bucket_capacity
+
+    # The deal-route variant as test_parallel.py:268-279 has it: guard 2
+    # and the f32 deposit (guard 4's larger drift budget sizes the runs
+    # past the 2304-slot buckets' gate).
+    deal = dict(rebin_mode="incremental", kchunk=64, capacity_headroom=3.0,
+                guard=2, deposit="",
+                species=(cfg.SpeciesSpec("ele", charge=-1.0, mass=1.0,
+                                         ppc=12, ux=0.3, uy=0.2, uth=0.05),))
+    runs = (("sharded (2, 2)", dict(mesh_shape=(2, 2)), "sharded", "1"),
+            ("sharded (2, 4)", dict(mesh_shape=(2, 4)), "sharded", "1"),
+            ("striped 8", {}, "balanced", "1"),
+            ("deal route sharded (2, 2)", dict(mesh_shape=(2, 2), **deal),
+             "sharded", "1"),
+            ("deal route sharded (2, 2) append_runs",
+             dict(mesh_shape=(2, 2), **deal), "sharded", "0"))
+    for label, kw, layout, fused in runs:
+        deck = _twin_deck(**kw)
+        os.environ["MINIPIC_APPEND_FUSED"] = fused
+        try:
+            ref = Simulation(deck, seed=7, device=dev)
+            if layout == "sharded":
+                r, c = deck.mesh_shape
+                sim = ShardedSimulation(deck, seed=7, devices=[dev] * (r * c))
+            else:
+                sim = BalancedSimulation(deck, seed=7, devices=[dev] * 8)
+        finally:
+            os.environ.pop("MINIPIC_APPEND_FUSED")
+        check(sim.mesh.distinct() == [dev], f"{label}: mesh devices "
+              f"{sim.mesh.distinct()}")
+        if "deal" in label:
+            cap = bucket_capacity(deck)
+            sc = deck.mover_seg_cap(deck.mover_cap(cap))
+            check(sc > 0 and cap >= 8 * sc + 256,
+                  f"{label}: the deal route does not engage")
+        fe, rebins, counts = _twin(label, ref, sim, MESH_TWIN_STEPS, 1e-5,
+                                   1e-6)
+        n_sp = len(deck.species)
+        check(counts["advance"] == MESH_TWIN_STEPS * n_sp * sim.mesh.size,
+              f"{label}: advance launches {counts['advance']}")
+        check(counts["split"] == rebins * n_sp * sim.mesh.size,
+              f"{label}: split launches {counts['split']}")
+        if "deal" in label:
+            app = "append" if fused == "1" else "append_runs"
+            check(counts["segment"] == counts[app] == counts["split"],
+                  f"{label}: launches {counts}")
+        print(f"mesh twins: {label}, {sim.mesh.size} shards on {dev}: "
+              f"{MESH_TWIN_STEPS} steps match Simulation on the card (field "
+              f"energy {fe[0]:.9e} vs {fe[1]:.9e}, {rebins} re-bins); "
+              f"launches {counts} [{card}]")
+    name, (kw, steps) = "laser_wakefield_window", MESH_WINDOW_TWIN
+    case = standard.make(name, **kw)
+    for layout in ("sharded", "balanced"):
+        ref = case.simulation(seed=1, device=dev)
+        sim = case.simulation(seed=1, device=dev, layout=layout,
+                              devices=[dev] * 8)
+        label = f"{name} {kw['nx']}x{kw['ny']} {layout}"
+        fe, rebins, counts = _twin(label, ref, sim, steps, 1e-4, 1e-5)
+        w0 = (sim.shard_state.window_x0, int(ref.state.window_x0))
+        check(w0[0] == w0[1] == 2 * case.deck.tile_nx,
+              f"{label}: window_x0 {w0}")
+        print(f"mesh twins: {label}, mesh {sim.mesh.shape}: {steps} steps "
+              f"match Simulation through two shifts (field energy "
+              f"{fe[0]:.6e} vs {fe[1]:.6e}, {rebins} re-bins, window_x0 "
+              f"{w0[0]}); launches {counts} [{card}]")
+
+
+def _mesh_run(sim, steps: int, label: str, card: str, dev) -> dict:
+    """`steps` of sim.run_step, timed (host clock around
+    torch.cuda.synchronize()), with every launch counter at 0 before and
+    read after, the history recorded every LB_RECORD_EVERY steps (one read
+    a record); checks the live count conserved exactly on these periodic
+    decks (less each counted drop), each drop followed at once by growth,
+    and the re-bins through the kernels.  Returns the run's numbers."""
+    import torch
+
+    from minipic_torch.diag.history import RunHistory
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.ops.advance import advance_kernel
+
+    deck = sim.deck
+    n0 = _mesh_live(sim) if hasattr(sim, "shard_state") else sum(
+        _live(p) for p in sim.state.species)
+    advance_kernel.launches = 0
+    for k in rb.KERNELS.values():
+        k.reset()
+    hist = RunHistory()
+    drop_steps, rebins, ovf = 0, 0, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        d = sim.run_step(i)
+        rebins += d.rebinned
+        if sim.overflow_total > ovf:
+            drop_steps += 1
+            ovf = sim.overflow_total
+        if i % LB_RECORD_EVERY == 0 or i == steps:
+            hist.record(i, deck.dt, d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(advance=advance_kernel.launches,
+                    **{n: k.launches for n, k in rb.KERNELS.items()})
+    live = _mesh_live(sim) if hasattr(sim, "shard_state") else sum(
+        _live(p) for p in sim.state.species)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    shards = sim.mesh.size if hasattr(sim, "mesh") else 1
+    n_sp = len(deck.species)
+    caps = ([p.capacity for p in sim.shard_state.species[0]]
+            if hasattr(sim, "shard_state")
+            else [p.capacity for p in sim.state.species])
+    skew = hist.live_skew
+    print(f"load balance: {label}: {steps} steps in {wall:.2f} s, "
+          f"{1e3 * wall / steps:.4f} ms/step, {rebins} re-bins, overflow "
+          f"{sim.overflow_total} in {drop_steps} steps, {sim.capacity_changes}"
+          f" capacity changes (buckets {caps}), live {live} (was {n0}), "
+          f"peak {peak:.2f} GB, live skew (max/mean of shard_live) first "
+          f"{skew[0]:.4f} last {skew[-1]:.4f} min {min(skew):.4f} max "
+          f"{max(skew):.4f}, kernel launches {launches} "
+          f"({sum(launches.values()) / steps:.1f} a step) [{card}]")
+    check(all(math.isfinite(e) for e in hist.field_energy),
+          f"{label}: field energy not finite")
+    check(live + sim.overflow_total == n0,
+          f"{label}: live {live} + dropped {sim.overflow_total} != {n0}")
+    check(drop_steps <= sim.capacity_changes,
+          f"{label}: {drop_steps} steps dropped, {sim.capacity_changes} "
+          "capacity changes")
+    check(launches["advance"] == steps * n_sp * shards,
+          f"{label}: advance launches {launches['advance']}")
+    check(launches["split"] == rebins * n_sp * shards
+          and launches["defrag"] == launches["split"]
+          and launches["append"] == launches["segment"]
+          and launches["segment"] + launches["append_incoming"]
+          == launches["split"], f"{label}: re-bin launches {launches}")
+    check(rebins >= 1, f"{label}: no re-bin")
+    return dict(ms_per_step=1e3 * wall / steps, steps=steps, rebins=rebins,
+                overflow=sim.overflow_total, live=live, peak_gb=peak,
+                skew_last=skew[-1], skew_min=min(skew), skew_max=max(skew),
+                launches=launches)
+
+
+def _shard_kernel_numbers(sim, card: str) -> dict:
+    """B1, B2 and B3 at load_balance_stress's final state, on shard 5 (mesh
+    row 1, column 1: offsets 32, 32 on the 128x128 tile grid), electrons:
+    each against its plain version, timed (CUDA events), with its bound."""
+    import torch
+
+    from minipic_torch.fields.tiles import extract_field_tiles
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.ops.advance import (advance_kernel, advance_plain,
+                                           live_watermark)
+    from minipic_torch.parallel.halo import exchange_halo
+    from minipic_torch.parallel.mesh import local_tile_grid
+    from minipic_torch.simulation import rebin_caps, tile_origins
+    from minipic_torch.core.state import FieldState
+
+    deck, mesh, st = sim.deck, sim.mesh, sim.shard_state
+    s = 5
+    r, c = mesh.coords(s)
+    ltr, ltc = local_tile_grid(deck, mesh)
+    t = deck.tiling
+    g = deck.guard
+    padded = exchange_halo([torch.stack(tuple(f)) for f in st.fields], g,
+                           mesh)[s]
+    ft = extract_field_tiles(FieldState(*padded.unbind(0)), ltr, ltc,
+                             t.tile_ny, t.tile_nx, g)
+    p = st.species[s][0]
+    T, cap = p.x.shape
+    spec = deck.species[0]
+    kw = dict(qm=spec.charge / spec.mass, q=spec.charge,
+              order=spec.shape_order, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+              origins=tile_origins(t, p.x.device, r * ltr, c * ltc, ltr,
+                                   ltc), g=g, dt=deck.dt, dx=deck.dx,
+              dy=deck.dy, grid=(deck.nx, deck.ny), mode="f32")
+    counts = live_watermark(p.w)
+    label = f"load_balance_stress shard {s} (mesh {r}, {c})"
+    err = _compare(p, ft, counts, kw, f"{label} advance")
+    n_wm = int(counts.sum())
+    win = T * (t.tile_ny + 2 * g) * (t.tile_nx + 2 * g)
+    shape = f"{T} tiles x {cap} slots"
+    out = dict(advance=dict(
+        shape=shape, max_abs_err=err,
+        ms=cuda_ms(lambda: advance_kernel(p, ft, counts, **kw), 5),
+        plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **kw), 1),
+        **bound(4 * (11 * n_wm + 9 * win + T),
+                ADVANCE_OPS_PER_PARTICLE * _live(p))))
+    mc, sc = rebin_caps(deck, cap)
+    skw = dict(tile_cols=ltc, tile_ny=t.tile_ny, tile_nx=t.tile_nx, b_cap=mc,
+               row0=r * ltr, col0=c * ltc)
+    got = rb.split_kernel(p, **skw)
+    want = rb.split_buckets_plain(p, **skw)
+    out["split"] = dict(
+        shape=f"{shape}, mover buffer {mc}",
+        max_abs_err=max(_same(a, b, f"{label} split {i}")
+                        for i, (a, b) in enumerate(zip(got, want))),
+        ms=cuda_ms(lambda: rb.split_kernel(p, **skw), 5),
+        plain_ms=cuda_ms(lambda: rb.split_buckets_plain(p, **skw), 1),
+        **bound(2 * 24 * T * cap + 24 * T * mc + 8 * T))
+    movers = got[1]
+    gkw = dict(tile_rows=ltr, tile_cols=ltc, tile_ny=t.tile_ny,
+               tile_nx=t.tile_nx, b_seg=sc, row0=r * ltr, col0=c * ltc,
+               grid_rows=t.tile_rows, grid_cols=t.tile_cols)
+    seg, sd = rb.segment_kernel(movers, **gkw)
+    seg_p, sd_p = rb.segment_movers_plain(movers, **gkw)
+    out["segment"] = dict(
+        shape=f"{T} tiles, mover buffer {mc}, runs {sc}",
+        max_abs_err=max(_same(seg, seg_p, f"{label} segment"),
+                        _same(sd, sd_p, f"{label} segment dropped")),
+        ms=cuda_ms(lambda: rb.segment_kernel(movers, **gkw), 5),
+        plain_ms=cuda_ms(lambda: rb.segment_movers_plain(movers, **gkw), 1),
+        **bound(24 * T * mc + 24 * T * 8 * sc + 4 * T))
+    for name, v in out.items():
+        print(f"load balance: {name} at {label}'s final state, electrons "
+              f"({v['shape']}, {_live(p)} live): kernel {v['ms']:.4f} ms, "
+              f"plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}), max abs err {v['max_abs_err']:.2e} "
+              f"[{card}]")
+    return out
+
+
+def phase_load_balance(dev, card: str) -> dict:
+    """The three load_balance decks at their default sizes on the (2, 4)
+    mesh, all eight shards on this card, through the simulations' run_step:
+    load_balance_stress sharded (its 282 steps), then B1-B3 timed at one
+    shard of its final state; load_balance_stress_counts sharded, striped
+    and through Simulation (282 steps each), the skew bars held;
+    load_balance_bunching sharded and striped, cut to BUNCHING_STEPS.
+    Returns B1-B3's numbers at the stress deck's shard, and the kernels'
+    launches in each run."""
+    import gc
+
+    import torch
+
+    from minipic_torch.decks import standard
+
+    t_phase = time.perf_counter()
+    runs = {}
+    case = standard.make("load_balance_stress")
+    deck = case.deck
+    t0 = time.perf_counter()
+    sim = case.simulation(seed=0, device=dev, layout="sharded")
+    torch.cuda.synchronize()
+    check(sim.mesh.shape == (2, 4) and sim.mesh.distinct() == [dev],
+          f"load_balance_stress: mesh {sim.mesh.shape} on "
+          f"{sim.mesh.distinct()}")
+    n = _mesh_live(sim)
+    print(f"load balance: load_balance_stress {deck.nx}^2, 2 species, "
+          f"{n} particles ({n // 2} a species), buckets "
+          f"{sim.shard_state.species[0][0].capacity} slots, f32 deposit, "
+          f"mesh {sim.mesh.shape}: loaded in {time.perf_counter() - t0:.1f} "
+          "s")
+    runs["stress sharded"] = _mesh_run(sim, deck.total_steps,
+                                       "load_balance_stress sharded", card,
+                                       dev)
+    check(runs["stress sharded"]["launches"]["segment"] > 0,
+          "load_balance_stress: the deal route did not run")
+    numbers = _shard_kernel_numbers(sim, card)
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    case = standard.make("load_balance_stress_counts")
+    for layout in ("sharded", "balanced", "single"):
+        sim = case.simulation(seed=0, device=dev, layout=layout)
+        label = f"load_balance_stress_counts {layout}"
+        runs[f"counts {layout}"] = _mesh_run(sim, case.deck.total_steps,
+                                             label, card, dev)
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    blk, stp = runs["counts sharded"], runs["counts balanced"]
+    check(blk["skew_min"] > SKEW_BLOCK_ABOVE,
+          f"counts: block skew {blk['skew_min']} not above "
+          f"{SKEW_BLOCK_ABOVE}")
+    check(stp["skew_max"] < SKEW_STRIPE_BELOW,
+          f"counts: striped skew {stp['skew_max']} not below "
+          f"{SKEW_STRIPE_BELOW}")
+    print(f"load balance: load_balance_stress_counts skew over the run: "
+          f"block {blk['skew_min']:.4f}-{blk['skew_max']:.4f} (bar > "
+          f"{SKEW_BLOCK_ABOVE}), striped {stp['skew_min']:.4f}-"
+          f"{stp['skew_max']:.4f} (bar < {SKEW_STRIPE_BELOW}); ms/step "
+          f"sharded {blk['ms_per_step']:.3f}, striped "
+          f"{stp['ms_per_step']:.3f}, single device "
+          f"{runs['counts single']['ms_per_step']:.3f} [{card}]")
+    case = standard.make("load_balance_bunching")
+    print(f"load balance: load_balance_bunching cut from "
+          f"{case.deck.total_steps} to {BUNCHING_STEPS} steps")
+    for layout in ("sharded", "balanced"):
+        sim = case.simulation(seed=0, device=dev, layout=layout)
+        runs[f"bunching {layout}"] = _mesh_run(
+            sim, BUNCHING_STEPS, f"load_balance_bunching {layout}", card, dev)
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"load balance: the phase took {time.perf_counter() - t_phase:.1f}"
+          " s")
+    return numbers, {k: v["launches"] for k, v in runs.items()}
+
+
+def _cli_mesh(tmp: Path, card: str) -> None:
+    """The multi-device simulations through the CLI: load_balance_stress_counts
+    --sharded for 20 steps at its full size, and load_balance_bunching cut
+    to 128^2 --balanced, straight for CLI_BALANCED's steps and stopped half
+    way and resumed, held to the straight runs (``_resumed_within_spread``)."""
+    from minipic_torch.ops.advance import advance_kernel
+
+    r = _cli(["--deck", "load_balance_stress_counts", "--sharded", "--steps",
+              20, "--save-every", 10, "--no-save", "--out",
+              tmp / "counts"], "load_balance_stress_counts --sharded", card)
+    check(r["overflow"] == 0 and advance_kernel.launches == 20 * 2 * 8,
+          f"cli: counts --sharded: overflow {r['overflow']}, advance "
+          f"launches {advance_kernel.launches}")
+    name, kw, steps = CLI_BALANCED
+    base = ["--deck", name, "--nx", kw["nx"], "--ny", kw["ny"], "--balanced",
+            "--save-every", steps // 2, "--no-save"]
+    label = f"{name} {kw['nx']}^2 --balanced"
+    for k in "ACD":
+        _cli(base + ["--steps", steps, "--out", tmp / f"bal_{k}"],
+             f"{label} straight {k}", card)
+    _cli(base + ["--steps", steps // 2, "--out", tmp / "bal_B"],
+         f"{label} to {steps // 2}", card)
+    _cli(base + ["--steps", steps, "--out", tmp / "bal_B", "--resume"],
+         f"{label} resumed", card)
+    ck = {k: _checkpoint(tmp / f"bal_{k}") for k in "ABCD"}
+    check(all(int(v["step"]) == steps for v in ck.values()),
+          f"cli: {label}: final steps")
+    live = {k: [int((v[f"sp{i}_w"] > 0).sum())
+                for i in range(int(v["n_species"]))] for k, v in ck.items()}
+    check(live["A"] == live["B"] == live["C"] == live["D"],
+          f"cli: {label}: live counts {live}")
+    # jz of the int8 deposit adds floats in any order across warps, so
+    # straight runs may differ in the last bits: the spread rule.
+    _resumed_within_spread(f"{label} stopped at {steps // 2}", ck, card)
+
+
 CLI_DIR = ROOT / "_cli_smoke"
 CLI_SAVE_EVERY = 425  # laser_plasma: four saves in its 1,697 steps
 CLI_SPLIT = 850  # where the resumed laser_plasma run stops and restarts
@@ -2271,6 +2826,35 @@ def _state_diffs(a: dict, b: dict) -> dict:
     return out
 
 
+def _resumed_within_spread(label: str, ck: dict, card: str) -> None:
+    """Checkpoints A, C, D of uninterrupted runs and B of a resumed one: if
+    A, C and D agree bit for bit, B must too; if not, B may differ from A
+    by no more than CLI_SPREAD times the largest difference among A, C and
+    D, per field and per particle channel (``_state_diffs``)."""
+    pairs = {p: _state_diffs(ck[p[0]], ck[p[1]])
+             for p in ("AC", "AD", "CD", "AB")}
+    spread = {k: max(pairs[p][k] for p in ("AC", "AD", "CD"))
+              for k in pairs["AB"]}
+    same = _identical(ck["A"], ck["C"]) and _identical(ck["A"], ck["D"])
+    fmt = {p: {k: f"{v:.3e}" for k, v in d.items()} for p, d in pairs.items()}
+    ratio = {k: round(pairs["AB"][k] / v, 3) for k, v in spread.items() if v}
+    print(f"cli: {label}: the uninterrupted runs "
+          f"{'agree bit for bit' if same else 'differ'}; max |X - Y| per "
+          f"field and per species channel (live particles sorted) {fmt}; "
+          f"|A - B| over the uninterrupted runs' largest {ratio} (bar "
+          f"{CLI_SPREAD:g}) [{card}]")
+    if same:
+        check(_identical(ck["A"], ck["B"]),
+              f"cli: {label}: the resumed run differs from uninterrupted "
+              "runs that agree bit for bit")
+    else:
+        worse = {k: (pairs["AB"][k], v) for k, v in spread.items()
+                 if pairs["AB"][k] > CLI_SPREAD * v}
+        check(not worse, f"cli: {label}: the resumed run differs from A by "
+              f"more than {CLI_SPREAD:g} x the uninterrupted runs' spread: "
+              f"{worse}")
+
+
 def _cli_laser_plasma(tmp: Path, dev, save: bool, card: str,
                       run_ms: float) -> dict:
     """laser_plasma at its full size through the CLI: all 1,697 steps (A),
@@ -2306,30 +2890,10 @@ def _cli_laser_plasma(tmp: Path, dev, save: bool, card: str,
                 for i in range(int(c["n_species"]))] for k, c in ck.items()}
     ovf = {k: runs[k]["overflow"] for k in "ACD"}
     ovf["B"] = runs["B850"]["overflow"] + runs["B"]["overflow"]
-    pairs = {p: _state_diffs(ck[p[0]], ck[p[1]])
-             for p in ("AC", "AD", "CD", "AB")}
-    spread = {k: max(pairs[p][k] for p in ("AC", "AD", "CD"))
-              for k in pairs["AB"]}
-    same = _identical(ck["A"], ck["C"]) and _identical(ck["A"], ck["D"])
-    fmt = {p: {k: f"{v:.3e}" for k, v in d.items()} for p, d in pairs.items()}
-    ratio = {k: round(pairs["AB"][k] / v, 3) for k, v in spread.items() if v}
-    print(f"cli: laser_plasma: the uninterrupted runs "
-          f"{'agree bit for bit' if same else 'differ'}; max |X - Y| per "
-          f"field and per species channel (live particles sorted) {fmt}; "
-          f"|A - B| over the uninterrupted runs' largest {ratio} (bar "
-          f"{CLI_SPREAD:g}); live {live}, overflow {ovf}, bucket "
-          f"slots {ck['A']['sp0_x'].shape[1]} / {ck['A']['sp1_x'].shape[1]}"
-          f" [{card}]")
-    if same:
-        check(_identical(ck["A"], ck["B"]),
-              "cli: laser_plasma: the resumed run differs from uninterrupted "
-              "runs that agree bit for bit")
-    else:
-        worse = {k: (pairs["AB"][k], v) for k, v in spread.items()
-                 if pairs["AB"][k] > CLI_SPREAD * v}
-        check(not worse, f"cli: laser_plasma: the resumed run differs from "
-              f"A by more than {CLI_SPREAD:g} x the uninterrupted runs' "
-              f"spread: {worse}")
+    _resumed_within_spread("laser_plasma", ck, card)
+    print(f"cli: laser_plasma: live {live}, overflow {ovf}, bucket slots "
+          f"{ck['A']['sp0_x'].shape[1]} / {ck['A']['sp1_x'].shape[1]} "
+          f"[{card}]")
     check(live["A"] == live["B"] == live["C"] == live["D"],
           f"cli: laser_plasma: live counts {live}")
     check(ovf["A"] == ovf["B"] == ovf["C"] == ovf["D"],
@@ -2597,6 +3161,7 @@ def phase_cli(dev, card: str, lp_run_ms=None) -> dict:
         _cli_diag_device(state, lp["deck"], card)
         del state
         _cli_pulse(tmp, dev, save, have["matplotlib"], card)
+        _cli_mesh(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         with contextlib.suppress(OSError):
@@ -2630,11 +3195,15 @@ def main() -> int:
     runs_launches = phase_small_step(dev)
     b6 = phase_decks(dev)
     phase_open_twins(dev)
+    phase_sharded_kernels(dev)
+    phase_mesh_twins(dev, card)
     b6_launches = phase_physics(dev, card)
     torch.cuda.empty_cache()
     lp_advance, lp_rebin, lp_launches, lp_ms = phase_open_physics(dev, card)
     torch.cuda.empty_cache()
     phase_sort(dev, card)
+    torch.cuda.empty_cache()
+    sharded, lb_launches = phase_load_balance(dev, card)
     torch.cuda.empty_cache()
     numbers, jobs = phase_main(dev, card)
     numbers["append_runs"]["launches"] = runs_launches
@@ -2689,6 +3258,13 @@ def main() -> int:
         for name in KERNELS:
             numbers[name].setdefault("cli", {})[
                 f"laser_plasma {run}"] = launches[name]
+    # The multi-device slice: B1-B3 at load_balance_stress's shard, and
+    # every kernel's launches in each load_balance run.
+    for name in KERNELS:
+        if name in sharded:
+            numbers[name]["sharded"] = sharded[name]
+        numbers[name]["load_balance"] = {
+            run: launches[name] for run, launches in lb_launches.items()}
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

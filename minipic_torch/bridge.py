@@ -5,7 +5,11 @@ per species, ``step`` and, where set, ``drift`` and ``window_x0``.
 ``sim_state_to_numpy`` reads any SimState with those attributes — this
 package's, or the JAX package's (``np.asarray`` converts its arrays) — so
 a test can build a state in one package and step the same particles in
-the other.
+the other.  The multi-device simulations' states are global arrays in storage
+order on both sides (shard-major or striped buckets), so a JAX
+``ShardedSimulation``'s or ``BalancedSimulation``'s state goes through
+these two functions as it is, and setting ``state`` on the port's simulation
+splits it onto its mesh.
 """
 from __future__ import annotations
 

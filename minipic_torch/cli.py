@@ -1,12 +1,17 @@
 """Command-line runner of the port (``minipic_tpu.cli``'s flags and
-artifacts; the sharded steps are not ported yet).
+artifacts).
 
     python -m minipic_torch.cli --deck reference_pulse --out Simulation/Fields
     python -m minipic_torch.cli --deck two_stream --steps 500 --save-every 100
     python -m minipic_torch.cli --deck two_stream --device cpu --precision f64
+    python -m minipic_torch.cli --deck load_balance_stress_counts --sharded
     python -m minipic_torch.cli plot all --folder Simulation/Fields
 
-Runs on the card unless ``--device cpu`` is given.  Writes
+Runs on the card unless ``--device cpu`` is given.  ``--sharded`` runs the
+block-sharded simulation and ``--balanced`` the striped one over the deck's
+device mesh (``parallel/``: its mesh_shape, on the cards round-robin, or
+every shard on the CPU with ``--device cpu``); a resumed run must use the
+same layout and mesh as the run that saved.  Writes
 reference-schema HDF5 snapshots (``fields_rank_<r>_step_<s>.h5``, readable
 by the reference's File_reader.py) and, with ``--save-particles``,
 ``particles_rank_0_step_<s>.h5``; ``params.txt``; ``history.json`` of the
@@ -28,8 +33,6 @@ import time
 # What a run writes into --out; nothing else there is ever removed.
 ARTIFACT_PATTERNS = ("fields_rank_*.h5", "params.txt", "history.json",
                      "checkpoint.npz", "particles_rank_*.h5")
-SHARDED_MESSAGE = ("the sharded steps are not ported yet (ROADMAP A9: "
-                   "parallel/* and the load_balance_* decks)")
 PROFILE_STEPS = 20
 
 
@@ -82,9 +85,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--nx", type=int, default=None)
     ap.add_argument("--ny", type=int, default=None)
     ap.add_argument("--sharded", action="store_true",
-                    help="not ported yet (ROADMAP A9)")
+                    help="block-sharded simulation over the device mesh")
     ap.add_argument("--balanced", action="store_true",
-                    help="not ported yet (ROADMAP A9)")
+                    help="striped (load-balanced) simulation over the mesh")
     ap.add_argument("--ranks", type=int, default=1,
                     help="fan snapshot files over N virtual ranks")
     ap.add_argument("--seed", type=int, default=0)
@@ -124,12 +127,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _list_decks() -> None:
-    from .decks.standard import CASES, UNPORTED
+    from .decks.standard import CASES
 
     for name in sorted(CASES):
         print(name)
-    for name in sorted(UNPORTED):
-        print(f"{name}  (not ported yet: {UNPORTED[name]})")
 
 
 def main(argv=None) -> int:
@@ -143,9 +144,9 @@ def main(argv=None) -> int:
     if args.list:
         _list_decks()
         return 0
-    for flag in ("sharded", "balanced"):
-        if getattr(args, flag):
-            raise SystemExit(f"minipic_torch: --{flag}: {SHARDED_MESSAGE}")
+    if args.sharded and args.balanced:
+        raise SystemExit("minipic_torch: --sharded and --balanced are "
+                         "mutually exclusive")
 
     import torch
 
@@ -155,10 +156,7 @@ def main(argv=None) -> int:
     from .io.params import write_params
 
     kw = {k: getattr(args, k) for k in ("nx", "ny") if getattr(args, k)}
-    try:
-        case = make(args.deck, **kw)
-    except NotImplementedError as e:
-        raise SystemExit(f"minipic_torch: {e}")
+    case = make(args.deck, **kw)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("minipic_torch: --device cuda (the default) but "
                          "CUDA is not available; --device cpu runs the "
@@ -170,8 +168,10 @@ def main(argv=None) -> int:
         deck = dataclasses.replace(deck, deposit=args.deposit)
     writer, writer_name = choose_writer(deck, args)
 
+    layout = ("sharded" if args.sharded else
+              "balanced" if args.balanced else "single")
     sim = dataclasses.replace(case, deck=deck).simulation(
-        seed=args.seed, device=args.device)
+        seed=args.seed, device=args.device, layout=layout)
     start_step = 0
     if args.resume is not None:
         ckpt = (os.path.join(args.out, "checkpoint.npz")
@@ -181,6 +181,8 @@ def main(argv=None) -> int:
             raise SystemExit(
                 f"--resume: checkpoint has {len(loaded.species)} species, "
                 f"deck has {len(deck.species)}")
+        # A multi-device simulation splits the saved layout (shard-major or
+        # striped storage order, window origin included) onto its mesh.
         sim.state = loaded
         start_step = int(loaded.step)
         print(f"resumed from {ckpt} at step {start_step}", flush=True)
@@ -212,20 +214,25 @@ def main(argv=None) -> int:
         if writer is None:
             return
         t0 = time.perf_counter()
-        if sim.state.window_x0 is not None:
+        state = sim.state  # a multi-device simulation assembles it
+        if state.window_x0 is not None:
             # Snapshots keep the window's coordinates; the ledger gives
             # lab x = window x + offset * dx.
-            window_log[int(step)] = int(sim.state.window_x0)
-        writer.submit(sim.state.fields, step)
+            window_log[int(step)] = int(state.window_x0)
+        writer.submit(state.fields, step)
         if args.save_particles and species_names:
-            writer.submit_particles(sim.state.species, species_names, step)
+            writer.submit_particles(state.species, species_names, step)
         saves += 1
         save_s += time.perf_counter() - t0
 
     if start_step == 0:
         save(0)
+    mesh = getattr(sim, "mesh", None)
+    where = (f"device={sim.device}" if mesh is None else
+             f"{layout} mesh {mesh.shape[0]}x{mesh.shape[1]} on "
+             f"{','.join(str(d) for d in mesh.distinct())}")
     print(f"deck={args.deck} grid={deck.ny}x{deck.nx} dt={deck.dt:.6g} "
-          f"steps={n_steps} device={sim.device}", flush=True)
+          f"steps={n_steps} {where}", flush=True)
     prof, prof_until = None, min(start_step + PROFILE_STEPS, n_steps)
     if args.profile and prof_until > start_step:
         from torch.profiler import ProfilerActivity, profile
@@ -266,8 +273,9 @@ def main(argv=None) -> int:
     finally:
         if prof is not None:
             stop_profile(n_steps)
-    if sim.device.type == "cuda":
-        torch.cuda.synchronize(sim.device)
+    for d in ([sim.device] if mesh is None else mesh.distinct()):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     run_s = time.perf_counter() - t_run
 
     t0 = time.perf_counter()

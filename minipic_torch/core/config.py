@@ -6,7 +6,7 @@ The reference configures runs by editing compile-time constants in ``main``
 artifact is the exported ``params.txt`` (``PIC_2D.cpp:425-438``).  Here the
 deck is a frozen dataclass tree: hashable, serializable to/from the same
 ``params.txt`` keys plus species sections, and the single source of truth
-for every derived quantity (dx, dt, tile grid).
+for every derived quantity (dx, dt, tile grid, mesh shape).
 
 Units are the reference's normalized set: lengths in c/omega_p, time in
 1/omega_p, fields in m_e c omega_p / e, charge/mass in e / m_e, density in
@@ -20,7 +20,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .geometry import Domain, Tiling
+from .geometry import Domain, Tiling, find_best_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +127,9 @@ class Deck:
 
     # --- numerics / machine mapping ---
     precision: str = "f32"  # "f32" | "f64"
+    # Device mesh (rows, cols) of the multi-device simulations (parallel/); None
+    # -> near-square over the devices given.
+    mesh_shape: Optional[Tuple[int, int]] = None
     # Particle buffer capacity per tile; None -> auto from ppc with headroom.
     tile_capacity: Optional[int] = None
     capacity_headroom: float = 1.5
@@ -318,6 +321,22 @@ class Deck:
         base = max(kc, -(-int(derived) // kc) * kc)
         return min(base, max(kc, (mover_cap // kc) * kc))
 
+    # Per-direction cross-shard particle exchange buffer capacity (slots);
+    # None -> auto from the shard edge.  Only the shard-boundary tiles feed
+    # these, so a fraction of one tile's capacity suffices.
+    exchange_capacity: Optional[int] = None
+
+    def exchange_cap(self, block_ny: int, block_nx: int) -> int:
+        """Per-direction routing buffer size.  Worst case is bursty: a quiet-
+        start lattice sends a whole boundary column/row of a shard across in
+        one step — edge_cells * ppc particles simultaneously — so the buffer
+        scales with the shard edge length, with 2x headroom."""
+        if self.exchange_capacity is not None:
+            return self.exchange_capacity
+        ppc = max((s.ppc for s in self.species), default=1)
+        burst = max(block_ny, block_nx) * ppc * 2
+        return max(64, -(-burst // 8) * 8)
+
     # ------------------------------------------------------------------
     @property
     def dtype(self):
@@ -355,6 +374,13 @@ class Deck:
         nominal = ppc * self.tile_nx * self.tile_ny
         cap = int(math.ceil(nominal * self.capacity_headroom))
         return max(8, -(-cap // 8) * 8)  # round up to a sublane multiple
+
+    def mesh_dims(self, n_devices: int) -> Tuple[int, int]:
+        """(rows, cols) device grid; near-square like the reference's rank
+        grid (Auxiliar_functions.cpp:16-22)."""
+        if self.mesh_shape is not None:
+            return self.mesh_shape
+        return find_best_grid(n_devices)
 
     def validate(self) -> None:
         t = self.tiling  # raises on divisibility violation

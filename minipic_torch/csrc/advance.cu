@@ -19,6 +19,12 @@
 // J windows are written whole, before the prefix sums (the caller applies
 // them, and in int8 mode the q*max(w) scale, in torch).
 //
+// Tile origins.  Each tile's origin in global cells comes from two int32
+// arrays ox[t], oy[t], as the TPU kernel's scalar-prefetch ox_ref, oy_ref:
+// the row-major grid on one device, a shard's block of the grid, or a
+// shard's striped tiles (the tile's window gid), so the same kernel runs
+// every layout.  The periodic fold keeps the global box (grid_nx, grid_ny).
+//
 // Boundary (P.periodic, a compile-time PERIODIC chosen at launch, so the
 // periodic kernels carry no trace of the open mode): periodic folds each
 // position to its nearest image around the tile and wraps the stored
@@ -94,7 +100,7 @@
 #endif
 
 struct AdvanceParams {
-  int num_tiles, capacity, tile_cols, tile_nx, tile_ny, guard;
+  int num_tiles, capacity, tile_nx, tile_ny, guard;
   int periodic;             // 1: periodic box (fold and wrap); 0: open walls
   float h;                  // push half-kick q/m dt/2 (int8: times 1/S^2)
   float dtdx, dtdy;         // dt/dx, dt/dy
@@ -541,6 +547,7 @@ advance_kernel(AdvanceParams P,
                const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ pz, const float* __restrict__ w,
                const int* __restrict__ counts,
+               const int* __restrict__ ox_t, const int* __restrict__ oy_t,
                const float* __restrict__ ex, const float* __restrict__ ey,
                const float* __restrict__ ez, const float* __restrict__ bx,
                const float* __restrict__ by, const float* __restrict__ bz,
@@ -611,8 +618,8 @@ advance_kernel(AdvanceParams P,
   const int count = counts[t];
   const int count32 = min(P.capacity, (count + 31) & ~31);
   const size_t pbase = (size_t)t * P.capacity;
-  const float ox = (float)((t % P.tile_cols) * P.tile_nx);
-  const float oy = (float)((t / P.tile_cols) * P.tile_ny);
+  const float ox = (float)ox_t[t];
+  const float oy = (float)oy_t[t];
   const float S = P.S;
   constexpr bool periodic = PERIODIC;
   float* const wins[3] = {s_jx, s_jy, s_jz};
@@ -868,11 +875,12 @@ size_t smem_bytes(bool quant, int np, int nwin) {
 template <int ORDER, bool QUANT, int NP, bool PERIODIC>
 cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
                    const float* px, const float* py, const float* pz,
-                   const float* w, const int* counts, const float* ex,
-                   const float* ey, const float* ez, const float* bx,
-                   const float* by, const float* bz, float* xo, float* yo,
-                   float* pxo, float* pyo, float* pzo, float* jx, float* jy,
-                   float* jz, float* dmax, cudaStream_t stream) {
+                   const float* w, const int* counts, const int* ox,
+                   const int* oy, const float* ex, const float* ey,
+                   const float* ez, const float* bx, const float* by,
+                   const float* bz, float* xo, float* yo, float* pxo,
+                   float* pyo, float* pzo, float* jx, float* jy, float* jz,
+                   float* dmax, cudaStream_t stream) {
   const int nwin = (P.tile_nx + 2 * P.guard) * (P.tile_ny + 2 * P.guard);
   const size_t smem = smem_bytes(QUANT, NP, nwin);
   auto* kernel = advance_kernel<ORDER, QUANT, NP, PERIODIC>;
@@ -880,8 +888,8 @@ cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<P.num_tiles, kThreads, smem, stream>>>(
-      P, x, y, px, py, pz, w, counts, ex, ey, ez, bx, by, bz, xo, yo, pxo,
-      pyo, pzo, jx, jy, jz, dmax);
+      P, x, y, px, py, pz, w, counts, ox, oy, ex, ey, ez, bx, by, bz, xo, yo,
+      pxo, pyo, pzo, jx, jy, jz, dmax);
   return cudaGetLastError();
 }
 
@@ -894,7 +902,8 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
                                const float* x, const float* y,
                                const float* px, const float* py,
                                const float* pz, const float* w,
-                               const int* counts, const float* ex,
+                               const int* counts, const int* ox,
+                               const int* oy, const float* ex,
                                const float* ey, const float* ez,
                                const float* bx, const float* by,
                                const float* bz, float* xo, float* yo,
@@ -906,13 +915,13 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
 #define MINIPIC_LAUNCH(O, Q, N)                                                \
   return (int)(P.periodic                                                      \
-                   ? launch<O, Q, N, true>(P, x, y, px, py, pz, w, counts, ex, \
-                                           ey, ez, bx, by, bz, xo, yo, pxo,    \
-                                           pyo, pzo, jx, jy, jz, dmax, s)      \
+                   ? launch<O, Q, N, true>(P, x, y, px, py, pz, w, counts, ox, \
+                                           oy, ex, ey, ez, bx, by, bz, xo, yo, \
+                                           pxo, pyo, pzo, jx, jy, jz, dmax, s) \
                    : launch<O, Q, N, false>(P, x, y, px, py, pz, w, counts,    \
-                                            ex, ey, ez, bx, by, bz, xo, yo,    \
-                                            pxo, pyo, pzo, jx, jy, jz, dmax,   \
-                                            s))
+                                            ox, oy, ex, ey, ez, bx, by, bz,    \
+                                            xo, yo, pxo, pyo, pzo, jx, jy, jz, \
+                                            dmax, s))
   if (!quant) {
     if (order == 1) MINIPIC_LAUNCH(1, false, 1);
     if (order == 2) MINIPIC_LAUNCH(2, false, 1);

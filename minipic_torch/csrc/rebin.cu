@@ -38,6 +38,16 @@
 // slots) and does the ranking in registers and shared words, with no
 // global atomics on the data path.
 //
+// Tile coordinates.  The split and the segment compare a particle's cell
+// with its tile's GLOBAL row and column, as the TPU kernels' _tile_rc
+// (rebin_kernels.py:306-317): tile t of a row-major block of tile_cols
+// columns whose first tile is (row0, col0) of the global grid, or, given
+// tile_ids, the tile whose global id is tile_ids[t] (tile_cols then counts
+// the global grid's columns: a shard's striped tiles).  The segment folds a
+// periodic tile delta by the global grid (grid_rows, grid_cols), so a
+// mover across a shard seam is not taken for a wrap-around.  One device
+// passes row0 = col0 = 0, no tile_ids and its own grid.
+//
 // Branch choice on the device.  rebin_auto launches the append and the defrag
 // together with complementary 0-d flags (all buckets keep 256 slots of
 // headroom, or not); a block whose flag is clear returns at once (the row
@@ -148,8 +158,23 @@ __device__ __forceinline__ void zero6(const Channels& ch, size_t i) {
 // ---------------------------------------------------------------------------
 // Split (blockDim.x == kc).
 
+// Global (row, col) of tile t (see "Tile coordinates" above).
+__device__ __forceinline__ void tile_rc(int t, int tile_cols, int row0,
+                                        int col0, const int* tile_ids,
+                                        float* row, float* col) {
+  if (tile_ids != nullptr) {
+    const int gid = tile_ids[t];
+    *row = (float)(gid / tile_cols);
+    *col = (float)(gid % tile_cols);
+  } else {
+    *row = (float)(row0 + t / tile_cols);
+    *col = (float)(col0 + t % tile_cols);
+  }
+}
+
 struct SplitArgs {
-  int cap, b_cap, tile_cols;
+  int cap, b_cap, tile_cols, row0, col0;
+  const int* tile_ids;  // nullptr: the block at (row0, col0)
   float inv_nx, inv_ny;
   Channels in, out, mov;
   const bool* force;
@@ -161,8 +186,8 @@ __global__ void split_kernel(SplitArgs a) {
   __shared__ int sh[2][33];
   const int t = blockIdx.x;
   const int kc = blockDim.x;
-  const float my_row = (float)(t / a.tile_cols);
-  const float my_col = (float)(t % a.tile_cols);
+  float my_row, my_col;
+  tile_rc(t, a.tile_cols, a.row0, a.col0, a.tile_ids, &my_row, &my_col);
   const size_t row = (size_t)t * a.cap;
   const float* x = a.in.c[0] + row;
   const float* y = a.in.c[1] + row;
@@ -220,7 +245,7 @@ __global__ void split_kernel(SplitArgs a) {
 // Segment (kSegThreads threads).
 
 struct SegmentArgs {
-  int mc, b_seg, tile_rows, tile_cols;
+  int mc, b_seg, tile_cols, row0, col0, grid_rows, grid_cols;
   float inv_nx, inv_ny;
   Channels mov, seg;
   int* dropped;
@@ -229,9 +254,9 @@ struct SegmentArgs {
 __global__ void segment_kernel(SegmentArgs a) {
   __shared__ int sh[8][33];
   const int t = blockIdx.x;
-  const float my_row = (float)(t / a.tile_cols);
-  const float my_col = (float)(t % a.tile_cols);
-  const float cols = (float)a.tile_cols, rows = (float)a.tile_rows;
+  float my_row, my_col;
+  tile_rc(t, a.tile_cols, a.row0, a.col0, nullptr, &my_row, &my_col);
+  const float cols = (float)a.grid_cols, rows = (float)a.grid_rows;
   const size_t row = (size_t)t * a.mc;
   const size_t srow = (size_t)t * 8 * a.b_seg;
   int cur[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -668,23 +693,25 @@ int finish() { return (int)cudaGetLastError(); }
 }  // namespace
 
 extern "C" int minipic_split(int num_tiles, int cap, int b_cap, int kc,
-                             int tile_cols, float inv_nx, float inv_ny,
+                             int tile_cols, int row0, int col0,
+                             const int* tile_ids, float inv_nx, float inv_ny,
                              Channels in, const bool* force, Channels out,
                              Channels mov, int* stay, int* pending,
                              void* stream) {
   if (kc <= 0 || kc > 1024 || kc % 32) return (int)cudaErrorInvalidValue;
-  SplitArgs a{cap, b_cap, tile_cols, inv_nx, inv_ny, in, out, mov, force,
-              stay, pending};
+  SplitArgs a{cap,    b_cap,  tile_cols, row0, col0, tile_ids, inv_nx,
+              inv_ny, in,     out,       mov,  force, stay,    pending};
   split_kernel<<<num_tiles, kc, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return finish();
 }
 
 extern "C" int minipic_segment(int num_tiles, int mc, int b_seg,
-                               int tile_rows, int tile_cols, float inv_nx,
+                               int tile_cols, int row0, int col0,
+                               int grid_rows, int grid_cols, float inv_nx,
                                float inv_ny, Channels mov, Channels seg,
                                int* dropped, void* stream) {
-  SegmentArgs a{mc, b_seg, tile_rows, tile_cols, inv_nx, inv_ny, mov, seg,
-                dropped};
+  SegmentArgs a{mc,        b_seg,  tile_cols, row0, col0, grid_rows,
+                grid_cols, inv_nx, inv_ny,    mov,  seg,  dropped};
   segment_kernel<<<num_tiles, kSegThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(a);
   return finish();

@@ -7,9 +7,10 @@ carries, with the JAX package's fields, sizes, field inits and seeders:
 the reference's fields-only pulse (``reference_pulse``), the three
 periodic physics decks (``two_stream``, ``weibel``, ``landau``) and the
 two laser decks between absorbing walls (``laser_plasma``, and
-``laser_wakefield_window`` in a moving window).  The three
-``load_balance_*`` decks need the device mesh; ``make`` raises
-``NotImplementedError`` for them, naming the ROADMAP item.
+``laser_wakefield_window`` in a moving window), and the three
+``load_balance_*`` decks of the 2 x 4 device mesh (``mesh_shape``), which
+run through ``parallel.step.ShardedSimulation`` or
+``parallel.balanced.BalancedSimulation``.
 
 Run one on the card::
 
@@ -20,7 +21,9 @@ Run one on the card::
     sim = Simulation(case.deck, fields=case.init_fields(case.deck))
     sim.run()
 
-(``case.simulation()`` does the same, and applies ``seed_state``.)
+(``case.simulation()`` does the same, and applies ``seed_state``;
+``case.simulation(layout="sharded")`` or ``"balanced"`` starts a
+multi-device simulation.)
 """
 from __future__ import annotations
 
@@ -42,14 +45,30 @@ class Case:
     init_fields: Optional[Callable] = None
     seed_state: Optional[Callable] = None  # (state, deck) -> state
 
-    def simulation(self, seed: int = 0, device="cuda"):
-        """The deck's Simulation as its users start it: the initial fields,
-        the species loaded from `seed`, then ``seed_state``."""
+    def simulation(self, seed: int = 0, device="cuda", layout: str = "single",
+                   devices=None):
+        """The deck's simulation as its users start it: the initial fields, the
+        species loaded from `seed`, then ``seed_state``.  `layout`
+        "single" is ``Simulation`` on `device`; "sharded" and "balanced"
+        are the multi-device simulations on `devices` (default: the deck's mesh
+        on the cards, or every shard on `device` when it is not
+        "cuda")."""
         from ..simulation import Simulation
 
         fields = (None if self.init_fields is None
                   else self.init_fields(self.deck, device=device))
-        sim = Simulation(self.deck, fields=fields, seed=seed, device=device)
+        if layout == "single":
+            sim = Simulation(self.deck, fields=fields, seed=seed,
+                             device=device)
+        else:
+            from ..parallel.balanced import BalancedSimulation
+            from ..parallel.step import ShardedSimulation
+
+            cls = {"sharded": ShardedSimulation,
+                   "balanced": BalancedSimulation}[layout]
+            on_all = None if torch.device(device).type == "cuda" else device
+            sim = cls(self.deck, fields=fields, seed=seed, devices=devices,
+                      device=on_all)
         if self.seed_state is not None:
             sim.state = self.seed_state(sim.state, self.deck)
         return sim
@@ -225,6 +244,89 @@ def laser_wakefield_window(nx: int = 512, ny: int = 256,
     return Case("laser_wakefield_window", deck, init_fields=fields)
 
 
+def load_balance_stress(nx: int = 1024, ny: int = 1024,
+                        n_particles: float = None) -> Case:
+    """BASELINE config 5: a density blob on a 1024^2 grid, 1e8 particles a
+    species, on the 2 x 4 mesh.  Weighted loading: the blob concentrates
+    weight while the particle counts stay uniform per tile, so per-shard
+    work starts balanced; this deck stresses the capacity and weight axis
+    (graded weights: the f32 deposit)."""
+    if n_particles is None:
+        n_particles = 95.0 * nx * ny  # 1e8 at the nominal 1024^2
+    ppc = max(1, round(n_particles / (nx * ny)))
+
+    def blob(x, y):
+        r2 = ((x - 51.2) ** 2 + (y - 51.2) ** 2) / (12.0 ** 2)
+        return 0.1 + 4.0 * torch.exp(-r2)
+
+    deck = Deck(
+        box_x=102.4, box_y=102.4, nx=nx, ny=ny, tile_nx=8, tile_ny=8,
+        guard=4, kchunk=0,
+        species=(
+            SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.05,
+                        density=blob),
+            SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc,
+                        density=blob),
+        ),
+        sim_time=10.0, mesh_shape=(2, 4),
+    )
+    return Case("load_balance_stress", deck)
+
+
+def load_balance_stress_counts(nx: int = 1024, ny: int = 1024,
+                               ppc: int = 95) -> Case:
+    """load_balance_stress's blob loaded in count mode: uniform weights,
+    per-cell live counts following the 0.1..4.1 profile (a ~41x contrast),
+    so per-shard work contrasts for real: on the 2 x 4 mesh the blob's
+    shards are the stragglers (``RunHistory.live_skew``); striped placement
+    is the fix.  n_max is declared, so the weight is global and the int8
+    deposit is eligible."""
+
+    def blob(x, y):
+        r2 = ((x - 51.2) ** 2 + (y - 51.2) ** 2) / (12.0 ** 2)
+        return 0.1 + 4.0 * torch.exp(-r2)
+
+    deck = Deck(
+        box_x=102.4, box_y=102.4, nx=nx, ny=ny, tile_nx=8, tile_ny=8,
+        guard=4, kchunk=0, deposit="int8",
+        species=(
+            SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, uth=0.05,
+                        density=blob, load_mode="count", n_max=4.1),
+            SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc,
+                        density=blob, load_mode="count", n_max=4.1),
+        ),
+        sim_time=10.0, mesh_shape=(2, 4),
+    )
+    return Case("load_balance_stress_counts", deck)
+
+
+def load_balance_bunching(nx: int = 512, ny: int = 512,
+                          ppc: int = 64) -> Case:
+    """A drifting count-loaded blob sweeps across the shard seams, so the
+    straggler moves from shard to shard: block placement cannot rebalance
+    it (the reference migrates tiles off hot ranks for this,
+    PIC_2D.cpp:398-412), striped placement holds the skew near 1."""
+
+    def blob(x, y):
+        r2 = ((x - 12.8) ** 2 + (y - 25.6) ** 2) / (8.0 ** 2)
+        return 0.05 + 4.0 * torch.exp(-r2)
+
+    deck = Deck(
+        box_x=51.2, box_y=51.2, nx=nx, ny=ny, tile_nx=8, tile_ny=8, guard=4,
+        kchunk=0, deposit="int8",
+        species=(
+            SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=ppc, ux=0.5,
+                        uth=0.02, density=blob, load_mode="count",
+                        n_max=4.05),
+            SpeciesSpec("ion", charge=+1.0, mass=1836.0, ppc=ppc, ux=0.5,
+                        uth=0.02, density=blob, load_mode="count",
+                        n_max=4.05),
+        ),
+        sim_time=120.0, mesh_shape=(2, 4),
+    )
+    return Case("load_balance_bunching", deck)
+
+
 CASES: Dict[str, Callable[..., Case]] = {
     "reference_pulse": reference_pulse,
     "two_stream": two_stream,
@@ -232,21 +334,13 @@ CASES: Dict[str, Callable[..., Case]] = {
     "landau": landau,
     "laser_plasma": laser_plasma,
     "laser_wakefield_window": laser_wakefield_window,
-}
-
-# The JAX package's other named decks, and the ROADMAP item each waits for.
-UNPORTED: Dict[str, str] = {
-    "load_balance_stress": "ROADMAP A9 (the 2x4 device mesh)",
-    "load_balance_stress_counts": "ROADMAP A9 (the 2x4 device mesh)",
-    "load_balance_bunching": "ROADMAP A9 (the 2x4 device mesh)",
+    "load_balance_stress": load_balance_stress,
+    "load_balance_stress_counts": load_balance_stress_counts,
+    "load_balance_bunching": load_balance_bunching,
 }
 
 
 def make(name: str, **overrides) -> Case:
-    if name in UNPORTED:
-        raise NotImplementedError(f"deck '{name}' is not ported yet: "
-                                  f"{UNPORTED[name]}")
     if name not in CASES:
-        raise KeyError(f"unknown deck '{name}'; available: "
-                       f"{sorted(CASES) + sorted(UNPORTED)}")
+        raise KeyError(f"unknown deck '{name}'; available: {sorted(CASES)}")
     return CASES[name](**overrides)

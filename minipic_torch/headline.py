@@ -8,18 +8,21 @@ re-bin).  ``headline_deck(rebin_mode="sort")`` drives the sort re-bin
 instead.
 
     python3 -m minipic_torch.headline [--steps N] [--trace PATH]
-        [--deck NAME]
+        [--deck NAME [--layout single|sharded|balanced]]
 
 on a CUDA card loads that deck (or, with ``--deck``, a deck of
 ``decks.standard`` as its users start it: its initial fields and its
-seeder, e.g. ``--deck laser_plasma``), warms up, and traces N steps that
+seeder, e.g. ``--deck laser_plasma``, through ``--layout``: one device, or
+the block-sharded or striped simulation over the deck's mesh), warms up, and
+traces N steps that
 only advance plus one forced re-bin step with ``torch.profiler`` (a deck
 with no species only advances its fields).  It prints the ms a step and
 the share of the traced wall time in which the device ran a kernel, the
 launches a step, the span
 of the device timeline each profiler range of the step covers
-(``minipic.advance``, ``.fields``, ``.rebin``, ``.diag``), and the kernels
-that take the most device time.
+(``minipic.advance``, ``.fields``, ``.rebin``, ``.diag``, and the
+multi-device simulations' collectives, ``.parallel``), and the kernels that
+take the most device time.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch
 from .core.config import Deck, SpeciesSpec
 
 RANGES = ("minipic.advance", "minipic.fields", "minipic.rebin",
-          "minipic.diag")
+          "minipic.diag", "minipic.parallel")
 
 
 def headline_deck(grid: int = 512, order: int = 2,
@@ -69,6 +72,11 @@ def _busy_us(events) -> float:
 
 def _force_rebin(sim) -> None:
     """Make the next step's drift predicate fire."""
+    if hasattr(sim, "shard_state"):  # a multi-device simulation: no assembly
+        st = sim.shard_state
+        sim.shard_state = st._replace(
+            drift=torch.full_like(st.drift, float("inf")))
+        return
     sim.state = sim.state._replace(
         drift=torch.full_like(sim.state.drift, float("inf")))
 
@@ -83,6 +91,10 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     ap.add_argument("--deck", default="", help="profile this deck of "
                     "decks.standard instead")
+    ap.add_argument("--layout", default="single",
+                    choices=("single", "sharded", "balanced"),
+                    help="one device, or the deck's mesh block-sharded or "
+                    "striped (with --deck)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -95,7 +107,8 @@ def main(argv=None) -> int:
     if args.deck:
         from .decks import standard
 
-        sim = standard.make(args.deck).simulation(seed=0, device=dev)
+        sim = standard.make(args.deck).simulation(seed=0, device=dev,
+                                                  layout=args.layout)
     else:
         sim = Simulation(headline_deck(), seed=0, device=dev)
     # Warm-up, a re-bin included: first launches load their modules.

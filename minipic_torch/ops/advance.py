@@ -15,7 +15,10 @@ implementations of one function, ``advance_tiles``:
   tensors; ``chip_smoke.py`` holds the kernel against it on the card.
 
 Both evaluate, per live slot (slot < counts[t] and w != 0; every other slot
-passes through untouched):
+passes through untouched), with tile t's origin in global cells taken from
+``origins = (ox, oy)``, int32 [T] (the TPU kernel's scalar-prefetch origins:
+the row-major grid on one device, ``simulation.tile_origins``; a shard's
+block or its striped tiles under the multi-device simulations):
 
 1. tile-local coordinates: with the nearest-image fold on a periodic box
    (reciprocal multiply, as ``simulation.tile_local_coords``), the raw
@@ -100,7 +103,7 @@ class AdvanceParams(ctypes.Structure):
 
     _fields_ = [
         ("num_tiles", ctypes.c_int), ("capacity", ctypes.c_int),
-        ("tile_cols", ctypes.c_int), ("tile_nx", ctypes.c_int),
+        ("tile_nx", ctypes.c_int),
         ("tile_ny", ctypes.c_int), ("guard", ctypes.c_int),
         ("periodic", ctypes.c_int),
         ("h", ctypes.c_float), ("dtdx", ctypes.c_float),
@@ -219,8 +222,9 @@ def _place4(cells, c, vals):
 
 def advance_plain(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
                   *, qm: float, q: float, order: int, tile_ny: int,
-                  tile_nx: int, tile_cols: int, g: int, dt: float, dx: float,
-                  dy: float, grid: Optional[Tuple[int, int]], mode: str):
+                  tile_nx: int, origins: Tuple[torch.Tensor, torch.Tensor],
+                  g: int, dt: float, dx: float, dy: float,
+                  grid: Optional[Tuple[int, int]], mode: str):
     """Plain torch version of the advance kernel (any device); `grid` None
     is the open mode.
 
@@ -234,12 +238,14 @@ def advance_plain(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
                    dt=dt, dx=dx, dy=dy, grid=grid, mode=mode)
     c32 = {n: _f(v, p.x) for n, v in k.items()}
     step = max(1, _PLAIN_BLOCK_SLOTS // cap)
+    ox, oy = origins
     parts = [
         _advance_block(ParticleState(*(a[t0:t0 + step] for a in p)),
                        FieldState(*(a[t0:t0 + step] for a in ftiles)),
-                       counts[t0:t0 + step], t0, c32, order=order,
-                       tile_ny=tile_ny, tile_nx=tile_nx, tile_cols=tile_cols,
-                       g=g, quant=mode == "int8", periodic=grid is not None)
+                       counts[t0:t0 + step],
+                       (ox[t0:t0 + step], oy[t0:t0 + step]), c32,
+                       order=order, tile_ny=tile_ny, tile_nx=tile_nx, g=g,
+                       quant=mode == "int8", periodic=grid is not None)
         for t0 in range(0, T, step)]
     if len(parts) == 1:
         return parts[0]
@@ -249,9 +255,10 @@ def advance_plain(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
 
 
 def _advance_block(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
-                   t0: int, c32, *, order: int, tile_ny: int, tile_nx: int,
-                   tile_cols: int, g: int, quant: bool, periodic: bool):
-    """advance_plain on the tiles t0, t0+1, ... that `p` holds."""
+                   origins, c32, *, order: int, tile_ny: int, tile_nx: int,
+                   g: int, quant: bool, periodic: bool):
+    """advance_plain on the block of tiles that `p` holds, with their
+    origins."""
     T, cap = p.x.shape
     dev = p.x.device
     nyg, nxg = tile_ny + 2 * g, tile_nx + 2 * g
@@ -262,9 +269,8 @@ def _advance_block(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
     live = (slot[None, :] < counts[:, None].to(torch.int64)) & (p.w != 0)
     t_idx, s_idx = live.nonzero(as_tuple=True)
     x, y, px, py, pz, w = (a[t_idx, s_idx] for a in p)
-    tg = t_idx + t0
-    ox = ((tg % tile_cols) * tile_nx).to(p.x.dtype)
-    oy = ((tg // tile_cols) * tile_ny).to(p.x.dtype)
+    ox = origins[0][t_idx].to(p.x.dtype)
+    oy = origins[1][t_idx].to(p.x.dtype)
     box_x = (c32["grid_nx"], c32["half_x"], c32["inv_nx"]) if periodic \
         else None
     box_y = (c32["grid_ny"], c32["half_y"], c32["inv_ny"]) if periodic \
@@ -410,7 +416,7 @@ class AdvanceKernel:
             lib = ctypes.CDLL(str(built.path))
             fn = lib.minipic_advance
             fn.argtypes = ([ctypes.c_int, ctypes.c_int, AdvanceParams]
-                           + [ctypes.c_void_p] * 23)
+                           + [ctypes.c_void_p] * 25)
             fn.restype = ctypes.c_int
             occ = lib.minipic_advance_blocks_per_sm
             occ.argtypes = [ctypes.c_int] * 4
@@ -431,7 +437,7 @@ class AdvanceKernel:
 
     def __call__(self, p: ParticleState, ftiles: FieldState,
                  counts: torch.Tensor, *, qm, q, order, tile_ny, tile_nx,
-                 tile_cols, g, dt, dx, dy, grid, mode):
+                 origins, g, dt, dx, dy, grid, mode):
         T, cap = p.x.shape
         nyg, nxg = tile_ny + 2 * g, tile_nx + 2 * g
         dev = p.x.device
@@ -440,6 +446,9 @@ class AdvanceKernel:
         for name, a in zip(FieldState._fields, ftiles):
             _check(a, name, torch.float32, (T, nyg, nxg), dev)
         _check(counts, "counts", torch.int32, (T,), dev)
+        ox, oy = origins
+        _check(ox, "ox", torch.int32, (T,), dev)
+        _check(oy, "oy", torch.int32, (T,), dev)
         if order not in (1, 2) or mode not in ("f32", "int8"):
             raise ValueError(f"order {order} / mode {mode!r} not built")
         if mode == "int8" and (nyg not in (8, 16) or nxg > 64):
@@ -449,20 +458,19 @@ class AdvanceKernel:
             raise ValueError(f"window {nyg}x{nxg} needs more than the "
                              f"{_SMEM_LIMIT} bytes of shared memory a block "
                              "may use")
-        if T % tile_cols:
-            raise ValueError(f"{T} tiles not a multiple of {tile_cols} cols")
         lib = self._load()
         k = _constants(qm=qm, q=q, order=order, tile_ny=tile_ny,
                        tile_nx=tile_nx, dt=dt, dx=dx, dy=dy, grid=grid,
                        mode=mode)
-        params = AdvanceParams(num_tiles=T, capacity=cap, tile_cols=tile_cols,
-                               tile_nx=tile_nx, tile_ny=tile_ny, guard=g,
+        params = AdvanceParams(num_tiles=T, capacity=cap, tile_nx=tile_nx,
+                               tile_ny=tile_ny, guard=g,
                                periodic=int(grid is not None), **k)
         outs = tuple(torch.empty_like(a) for a in p[:5])
         js = tuple(torch.empty((T, nyg, nxg), dtype=torch.float32, device=dev)
                    for _ in range(3))
         dmax = torch.empty(T, dtype=torch.float32, device=dev)
-        ptrs = ([a.data_ptr() for a in p] + [counts.data_ptr()]
+        ptrs = ([a.data_ptr() for a in p]
+                + [counts.data_ptr(), ox.data_ptr(), oy.data_ptr()]
                 + [a.data_ptr() for a in ftiles]
                 + [a.data_ptr() for a in outs + js] + [dmax.data_ptr()])
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -507,16 +515,16 @@ def live_watermark(w: torch.Tensor) -> torch.Tensor:
 def fused_push_deposit(p: ParticleState, ftiles: FieldState,
                        counts: torch.Tensor, *, qm: float, q: float,
                        order: int, tile_ny: int, tile_nx: int,
-                       tile_cols: int, g: int, dt: float, dx: float,
-                       dy: float, grid: Optional[Tuple[int, int]],
-                       mode: str):
+                       origins: Tuple[torch.Tensor, torch.Tensor], g: int,
+                       dt: float, dx: float, dy: float,
+                       grid: Optional[Tuple[int, int]], mode: str):
     """The advance with the JAX wrapper's epilogue.  Returns (pushed
     ParticleState, its positions wrapped on a periodic `grid` and unwrapped
     in the open mode (grid None), (jx, jy, jz) [T, nyg, nxg], max
     displacement this step in cells as a 0-d tensor)."""
     (xo, yo, pxo, pyo, pzo), (jx, jy, jz), dmax = advance_tiles(
         p, ftiles, counts, qm=qm, q=q, order=order, tile_ny=tile_ny,
-        tile_nx=tile_nx, tile_cols=tile_cols, g=g, dt=dt, dx=dx, dy=dy,
+        tile_nx=tile_nx, origins=origins, g=g, dt=dt, dx=dx, dy=dy,
         grid=grid, mode=mode)
     if mode == "int8":
         qws = _f(q, p.w) * p.w.max()

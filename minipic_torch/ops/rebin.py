@@ -14,7 +14,13 @@ implementations of one function:
 The payload moves by pure copies, so both are bit-equal to each other and,
 slot for slot, to the JAX package's interpreted kernels, dead slots
 included (the JAX kernels zero everything past each run or count).  What
-each computes, per tile ``t`` of a row-major tile grid:
+each computes, per tile ``t``.  A tile's row and column are GLOBAL, as the
+JAX kernels' ``_tile_rc``: tile t of a row-major block of ``tile_cols``
+columns whose first tile is ``(row0, col0)`` of the global grid (the whole
+grid on one device, a shard's block under ``parallel.step``), or, given
+``tile_ids``, the tile whose global id is ``tile_ids[t]`` (``tile_cols``
+then counts the global grid's columns: a shard's striped tiles under
+``parallel.balanced``).
 
 * **split** — a live slot whose ``floor(x * (1/tile_nx))`` or
   ``floor(y * (1/tile_ny))`` is not the tile's column or row (f32, as the
@@ -28,7 +34,8 @@ each computes, per tile ``t`` of a row-major tile grid:
   past the kept count), the stay count (the new watermark) and the pending
   count, int32 ``[T]``.
 * **segment** — each mover goes to the run of its destination direction d
-  (``DIR_OFFSETS``, periodic fold of the tile delta) in stable buffer
+  (``DIR_OFFSETS``, the tile delta folded on the periodic global grid
+  ``grid_rows`` x ``grid_cols``, by default the block's own) in stable buffer
   order; a run keeps its first ``b_seg`` movers and counts the rest.  A
   mover more than one tile from home is killed and counted.  (The JAX
   kernel flushes a run's tail only when a whole ``kc`` block still fits,
@@ -98,11 +105,17 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
-def _tile_rc(num_tiles: int, tile_cols: int, device):
-    """([T, 1], [T, 1]) float32 row and column of each tile."""
-    t = torch.arange(num_tiles, device=device)
-    return ((t // tile_cols).to(torch.float32)[:, None],
-            (t % tile_cols).to(torch.float32)[:, None])
+def _tile_rc(num_tiles: int, tile_cols: int, device, row0: int = 0,
+            col0: int = 0, tile_ids: Optional[torch.Tensor] = None):
+    """([T, 1], [T, 1]) float32 global row and column of each tile (see the
+    module docstring)."""
+    if tile_ids is not None:
+        t = tile_ids.to(device=device, dtype=torch.int64)
+        rows, cols = t // tile_cols, t % tile_cols
+    else:
+        t = torch.arange(num_tiles, device=device)
+        rows, cols = row0 + t // tile_cols, col0 + t % tile_cols
+    return (rows.to(torch.float32)[:, None], cols.to(torch.float32)[:, None])
 
 
 def _scatter_rows(src: ParticleState, mask: torch.Tensor, dest: torch.Tensor,
@@ -131,23 +144,26 @@ def _scatter_rows(src: ParticleState, mask: torch.Tensor, dest: torch.Tensor,
 # Plain torch versions.
 
 
-def _away(p: ParticleState, tile_cols: int, tile_ny: int, tile_nx: int):
+def _away(p: ParticleState, tile_cols: int, tile_ny: int, tile_nx: int,
+          row0: int = 0, col0: int = 0, tile_ids=None):
     """Live slots whose floor(pos * (1/tile)) is not their tile's cell."""
-    rows, cols = _tile_rc(p.x.shape[0], tile_cols, p.x.device)
+    rows, cols = _tile_rc(p.x.shape[0], tile_cols, p.x.device, row0, col0,
+                          tile_ids)
     col = torch.floor(p.x * _f32(1.0 / tile_nx, p.x))
     row = torch.floor(p.y * _f32(1.0 / tile_ny, p.y))
     return (p.w > 0) & ((col != cols) | (row != rows))
 
 
 def split_buckets_plain(p: ParticleState, *, tile_cols: int, tile_ny: int,
-                        tile_nx: int, b_cap: int, force=False):
+                        tile_nx: int, b_cap: int, force=False, row0: int = 0,
+                        col0: int = 0, tile_ids=None):
     """Plain version of the split (see the module docstring).  `force` is a
     bool or a 0-d bool tensor.  Returns (buckets, movers [T, b_cap], stay
     count [T], pending [T])."""
     T, cap = p.x.shape
     kc = split_chunk(cap, b_cap)
     i32 = torch.int32
-    mov = _away(p, tile_cols, tile_ny, tile_nx)
+    mov = _away(p, tile_cols, tile_ny, tile_nx, row0, col0, tile_ids)
     total = mov.sum(1, dtype=i32)
     extract = (total <= b_cap) | torch.as_tensor(force, device=p.x.device)
     mov = mov & extract[:, None]
@@ -169,18 +185,20 @@ def split_buckets_plain(p: ParticleState, *, tile_cols: int, tile_ny: int,
 
 def segment_movers_plain(movers: ParticleState, *, tile_rows: int,
                          tile_cols: int, tile_ny: int, tile_nx: int,
-                         b_seg: int):
+                         b_seg: int, row0: int = 0, col0: int = 0,
+                         grid_rows: Optional[int] = None,
+                         grid_cols: Optional[int] = None):
     """Plain version of the segment (see the module docstring).  Returns
     (segments [T, 8*b_seg], dropped [T]: run overflow plus >1-hop kills)."""
     T = movers.x.shape[0]
     i32 = torch.int32
-    rows, cols = _tile_rc(T, tile_cols, movers.x.device)
+    gr = tile_rows if grid_rows is None else grid_rows
+    gc = tile_cols if grid_cols is None else grid_cols
+    rows, cols = _tile_rc(T, tile_cols, movers.x.device, row0, col0)
     dc = torch.floor(movers.x * _f32(1.0 / tile_nx, movers.x)) - cols
     dr = torch.floor(movers.y * _f32(1.0 / tile_ny, movers.y)) - rows
-    dc = torch.where(dc > 1.5, dc - tile_cols,
-                     torch.where(dc < -1.5, dc + tile_cols, dc))
-    dr = torch.where(dr > 1.5, dr - tile_rows,
-                     torch.where(dr < -1.5, dr + tile_rows, dr))
+    dc = torch.where(dc > 1.5, dc - gc, torch.where(dc < -1.5, dc + gc, dc))
+    dr = torch.where(dr > 1.5, dr - gr, torch.where(dr < -1.5, dr + gr, dr))
     hop1 = (dc.abs() <= 1.5) & (dr.abs() <= 1.5)
     zero = torch.zeros_like(dc)
     d9 = ((torch.where(hop1, dr, zero).to(i32) + 1) * 3
@@ -346,10 +364,10 @@ def _lib():
 
         lib = ctypes.CDLL(str(build("rebin.cu").path))
         ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        lib.minipic_split.argtypes = ([ci] * 5 + [cf, cf, Channels, vp,
+        lib.minipic_split.argtypes = ([ci] * 7 + [vp, cf, cf, Channels, vp,
                                                   Channels, Channels]
                                       + [vp] * 3)
-        lib.minipic_segment.argtypes = ([ci] * 5 + [cf, cf, Channels,
+        lib.minipic_segment.argtypes = ([ci] * 8 + [cf, cf, Channels,
                                                     Channels] + [vp] * 2)
         lib.minipic_append.argtypes = ([ci] * 3 + [vp] * 3
                                        + [Channels, Channels] + [vp] * 3)
@@ -416,7 +434,8 @@ class _Kernel:
 
 class SplitKernel(_Kernel):
     def __call__(self, p: ParticleState, *, tile_cols: int, tile_ny: int,
-                 tile_nx: int, b_cap: int, force=False):
+                 tile_nx: int, b_cap: int, force=False, row0: int = 0,
+                 col0: int = 0, tile_ids: Optional[torch.Tensor] = None):
         T, cap = p.x.shape
         dev = p.x.device
         _check_p(p, "p", (T, cap), dev)
@@ -424,7 +443,9 @@ class SplitKernel(_Kernel):
         if kc > 1024 or kc % 32:
             raise ValueError(f"split chunk {kc} (bucket {cap}, buffer "
                              f"{b_cap}) is not a block size of the kernel")
-        if T % tile_cols:
+        if tile_ids is not None:
+            _check(tile_ids, "tile_ids", torch.int32, (T,), dev)
+        elif T % tile_cols:
             raise ValueError(f"{T} tiles not a multiple of {tile_cols} cols")
         force = _flag(force, dev)
         lib = _lib()
@@ -437,8 +458,10 @@ class SplitKernel(_Kernel):
         stay = torch.empty(T, dtype=torch.int32, device=dev)
         pending = torch.empty(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_split(
-            T, cap, b_cap, kc, tile_cols, 1.0 / tile_nx, 1.0 / tile_ny,
-            _channels(p), force.data_ptr(), _channels(out),
+            T, cap, b_cap, kc, tile_cols, row0, col0,
+            None if tile_ids is None else tile_ids.data_ptr(),
+            1.0 / tile_nx, 1.0 / tile_ny, _channels(p), force.data_ptr(),
+            _channels(out),
             _channels(movers), stay.data_ptr(), pending.data_ptr(),
             _stream(dev)), "split")
         self.launches += 1
@@ -447,7 +470,10 @@ class SplitKernel(_Kernel):
 
 class SegmentKernel(_Kernel):
     def __call__(self, movers: ParticleState, *, tile_rows: int,
-                 tile_cols: int, tile_ny: int, tile_nx: int, b_seg: int):
+                 tile_cols: int, tile_ny: int, tile_nx: int, b_seg: int,
+                 row0: int = 0, col0: int = 0,
+                 grid_rows: Optional[int] = None,
+                 grid_cols: Optional[int] = None):
         T, mc = movers.x.shape
         dev = movers.x.device
         _check_p(movers, "movers", (T, mc), dev)
@@ -458,7 +484,9 @@ class SegmentKernel(_Kernel):
         seg = ParticleState(*buf)
         dropped = torch.empty(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_segment(
-            T, mc, b_seg, tile_rows, tile_cols, 1.0 / tile_nx,
+            T, mc, b_seg, tile_cols, row0, col0,
+            tile_rows if grid_rows is None else grid_rows,
+            tile_cols if grid_cols is None else grid_cols, 1.0 / tile_nx,
             1.0 / tile_ny, _channels(movers), _channels(seg),
             dropped.data_ptr(), _stream(dev)), "segment")
         self.launches += 1
@@ -624,9 +652,11 @@ def _on_cpu(a: torch.Tensor, what: str) -> None:
 
 
 def split_buckets(p: ParticleState, *, tile_cols: int, tile_ny: int,
-                  tile_nx: int, b_cap: int, force=False):
+                  tile_nx: int, b_cap: int, force=False, row0: int = 0,
+                  col0: int = 0, tile_ids: Optional[torch.Tensor] = None):
     kw = dict(tile_cols=tile_cols, tile_ny=tile_ny, tile_nx=tile_nx,
-              b_cap=b_cap, force=force)
+              b_cap=b_cap, force=force, row0=row0, col0=col0,
+              tile_ids=tile_ids)
     if p.x.is_cuda:
         return split_kernel(p, **kw)
     _on_cpu(p.x, "split")
@@ -634,9 +664,12 @@ def split_buckets(p: ParticleState, *, tile_cols: int, tile_ny: int,
 
 
 def segment_movers(movers: ParticleState, *, tile_rows: int, tile_cols: int,
-                   tile_ny: int, tile_nx: int, b_seg: int):
+                   tile_ny: int, tile_nx: int, b_seg: int, row0: int = 0,
+                   col0: int = 0, grid_rows: Optional[int] = None,
+                   grid_cols: Optional[int] = None):
     kw = dict(tile_rows=tile_rows, tile_cols=tile_cols, tile_ny=tile_ny,
-              tile_nx=tile_nx, b_seg=b_seg)
+              tile_nx=tile_nx, b_seg=b_seg, row0=row0, col0=col0,
+              grid_rows=grid_rows, grid_cols=grid_cols)
     if movers.x.is_cuda:
         return segment_kernel(movers, **kw)
     _on_cpu(movers.x, "segment")
@@ -728,3 +761,13 @@ def seg_neighbor_table(tile_rows: int, tile_cols: int,
     nbr = (torch.remainder(r - dr, tile_rows) * tile_cols
            + torch.remainder(c - dc, tile_cols))
     return nbr.reshape(tile_rows * tile_cols, 8).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def identity_neighbor_table(num_tiles: int,
+                            device: torch.device) -> torch.Tensor:
+    """[T, 8] int32 with nbr[t, d] = t: the append's table for arrivals that
+    already sit at their destination tile (the sharded deal route's rolled
+    runs)."""
+    t = torch.arange(num_tiles, dtype=torch.int32, device=device)
+    return t[:, None].expand(num_tiles, 8).contiguous()

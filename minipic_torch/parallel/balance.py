@@ -29,11 +29,16 @@ class LoadStats(NamedTuple):
 
 def census(p: ParticleState) -> LoadStats:
     """Host-side load statistics of one species (reads two scalars)."""
-    counts = (p.w > 0).sum(1, dtype=torch.int32)
+    return census_of_counts((p.w > 0).sum(1, dtype=torch.int32), p.capacity)
+
+
+def census_of_counts(counts: torch.Tensor, capacity: int) -> LoadStats:
+    """``census`` from the live count of every tile (int32 [T]; the
+    multi-device simulations gather their shards' counts)."""
     total, mx = (int(v) for v in torch.stack([counts.sum(), counts.max()]))
-    mean = total / max(1, p.num_tiles)
+    mean = total / max(1, counts.numel())
     return LoadStats(total=total, max_tile=mx, mean_tile=mean,
-                     capacity=p.capacity, occupancy=mx / p.capacity,
+                     capacity=capacity, occupancy=mx / capacity,
                      imbalance=mx / max(mean, 1e-9))
 
 

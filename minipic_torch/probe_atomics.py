@@ -83,7 +83,7 @@ def _ms(fn) -> float:
 
 
 def main(argv=None) -> int:
-    from .simulation import Simulation
+    from .simulation import Simulation, tile_origins
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=3)
@@ -118,7 +118,8 @@ def main(argv=None) -> int:
     spec = deck.species[0]
     kw = dict(qm=spec.charge / spec.mass, q=spec.charge,
               order=spec.shape_order, tile_ny=tl.tile_ny, tile_nx=tl.tile_nx,
-              tile_cols=tl.tile_cols, g=g, dt=deck.dt, dx=deck.dx, dy=deck.dy,
+              origins=tile_origins(tl, dev), g=g, dt=deck.dt, dx=deck.dx,
+              dy=deck.dy,
               grid=(deck.nx, deck.ny))
 
     times = {}

@@ -146,24 +146,32 @@ def int8_weight_violations(deck: Deck, species_states,
 
 
 
-def tile_origins(tiling, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """([T,1], [T,1]) global cell coordinates of each tile's origin."""
-    t = torch.arange(tiling.num_tiles, device=device)
-    ox = (t % tiling.tile_cols).to(dtype)[:, None] * tiling.tile_nx
-    oy = (t // tiling.tile_cols).to(dtype)[:, None] * tiling.tile_ny
+def tile_origins(tiling, device, row0: int = 0, col0: int = 0,
+                 tile_rows: Optional[int] = None,
+                 tile_cols: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ox, oy) int32 [T]: the global cell coordinates of each tile's origin
+    for a row-major block of tile_rows x tile_cols tiles (the whole grid by
+    default) whose first tile is (row0, col0) of the global tile grid."""
+    rows = tiling.tile_rows if tile_rows is None else tile_rows
+    cols = tiling.tile_cols if tile_cols is None else tile_cols
+    t = torch.arange(rows * cols, device=device, dtype=torch.int32)
+    ox = (col0 + t % cols) * tiling.tile_nx
+    oy = (row0 + t // cols) * tiling.tile_ny
     return ox, oy
 
 
 def tile_local_coords(x, y, origins, tile_nx: int, tile_ny: int,
                       grid: Optional[Tuple[int, int]] = None):
     """Bucket-tile-local coordinates, with nearest-image centering on a
-    periodic `grid` (raw offsets for grid None).
+    periodic `grid` (raw offsets for grid None); `origins` as
+    ``tile_origins`` gives them.
 
     The fold is a reciprocal multiply, not a division — the same f32 ops as
     the advance's fold, so diagnostics (rho for continuity) evaluate shapes
     at the coordinates the deposit used; the int8 deposit's exactness
     check depends on it."""
-    ox, oy = origins
+    ox, oy = (o.to(x.dtype)[:, None] for o in origins)
     xi = x - ox
     eta = y - oy
     if grid is not None:
@@ -281,17 +289,33 @@ def resolve_backend(deck: Deck, device: torch.device) -> str:
 
 def advance_species_tiles(p: ParticleState, ftiles: FieldState, *, qm: float,
                           q: float, order: int, tile_ny: int, tile_nx: int,
-                          tile_cols: int, g: int, dt: float, dx: float,
-                          dy: float, grid: Optional[Tuple[int, int]],
-                          mode: str):
-    """Gather + push + move + deposit for one species over its buckets.
+                          origins: Tuple[torch.Tensor, torch.Tensor], g: int,
+                          dt: float, dx: float, dy: float,
+                          grid: Optional[Tuple[int, int]], mode: str):
+    """Gather + push + move + deposit for one species over its buckets,
+    tile t's origin at (origins[0][t], origins[1][t]) global cells.
     Returns (pushed particles, positions wrapped on a periodic `grid` and
     unwrapped for grid None, (jx, jy, jz) tile windows, max displacement in
     cells)."""
     return fused_push_deposit(
         p, ftiles, live_watermark(p.w), qm=qm, q=q, order=order,
-        tile_ny=tile_ny, tile_nx=tile_nx, tile_cols=tile_cols, g=g, dt=dt,
+        tile_ny=tile_ny, tile_nx=tile_nx, origins=origins, g=g, dt=dt,
         dx=dx, dy=dy, grid=grid, mode=mode)
+
+
+def deposit_modes(deck: Deck) -> list:
+    """Each species' deposit mode ("int8" or "f32", ``resolve_mode``)."""
+    modes = []
+    for spec in deck.species:
+        qw0 = (spec.charge * deck.dx * deck.dy / spec.ppc
+               if spec.uniform_weights() else 0.0)
+        modes.append(resolve_mode(deck.deposit, qw0, deck.tile_ny,
+                                  deck.tile_nx, deck.guard))
+        if modes[-1] == "f32" and deck.gather_precision != "exact":
+            raise NotImplementedError(
+                f"gather_precision={deck.gather_precision!r} with the f32 "
+                "deposit (the port gathers exactly)")
+    return modes
 
 
 def build_step(deck: Deck, device: torch.device):
@@ -314,6 +338,7 @@ def build_step(deck: Deck, device: torch.device):
             damping_mask(deck.ny, deck.nx, deck.absorb_width,
                          dtype=deck.dtype, device=device))
     clock = _HostClock() if deck.moving_window else None
+    origins = tile_origins(tiling, device)
     trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
     # Interval schedule: when the guard affords one extra CFL step, a
     # mover-buffer overflow defers the tile to the next step instead of
@@ -321,16 +346,7 @@ def build_step(deck: Deck, device: torch.device):
     interval_grace = uses_rebin_auto(deck) and (
         (deck.rebin_interval + 1) * deck.cfl_step_cells()
         <= deck.guard - deck.shape_reach())
-    modes = []
-    for spec in deck.species:
-        qw0 = (spec.charge * dx * dy / spec.ppc
-               if spec.uniform_weights() else 0.0)
-        modes.append(resolve_mode(deck.deposit, qw0, tiling.tile_ny,
-                                  tiling.tile_nx, g))
-        if modes[-1] == "f32" and deck.gather_precision != "exact":
-            raise NotImplementedError(
-                f"gather_precision={deck.gather_precision!r} with the f32 "
-                "deposit (the port gathers exactly)")
+    modes = deposit_modes(deck)
 
     def to_global(t):
         tr = t.reshape(tiling.tile_rows, tiling.tile_cols,
@@ -362,8 +378,8 @@ def build_step(deck: Deck, device: torch.device):
                 pnew, js, disp = advance_species_tiles(
                     p, ftiles, qm=spec.charge / spec.mass, q=spec.charge,
                     order=spec.shape_order, tile_ny=tiling.tile_ny,
-                    tile_nx=tiling.tile_nx, tile_cols=tiling.tile_cols, g=g,
-                    dt=dt, dx=dx, dy=dy, grid=grid, mode=mode)
+                    tile_nx=tiling.tile_nx, origins=origins, g=g, dt=dt,
+                    dx=dx, dy=dy, grid=grid, mode=mode)
             jsum = js if jsum is None else tuple(
                 a + b for a, b in zip(jsum, js))
             pushed.append(pnew)

@@ -22,11 +22,17 @@ from minipic_tpu.particles.deposit import deposit_rho_chunk  # noqa: E402
 from minipic_tpu.particles.species import load_species  # noqa: E402
 from minipic_tpu.simulation import (  # noqa: E402
     _tile_origins, advance_species_tiles, tile_local_coords)
+from minipic_torch.core.geometry import Tiling  # noqa: E402
 from minipic_torch.core.state import FieldState, ParticleState  # noqa: E402
 from minipic_torch.ops.advance import (  # noqa: E402
     advance_plain, advance_tiles, fused_push_deposit, live_watermark,
     qshape_scale, resolve_mode)
+from minipic_torch.simulation import tile_origins  # noqa: E402
 from minipic_torch.testing import push_out_through_walls  # noqa: E402
+
+# Tile origins of the 32^2 fixtures' 4x4 grid of 8x8 tiles.
+ORIGINS = tile_origins(Tiling(tile_rows=4, tile_cols=4, tile_ny=8,
+                              tile_nx=8), "cpu")
 
 
 def _fixture(order=1, ppc=4, kchunk=32, guard=2):
@@ -72,7 +78,8 @@ def _port_advance(deck, tiling, pt, ft, mode):
     return fused_push_deposit(
         pt, ft, live_watermark(pt.w), qm=-1.0, q=-1.0,
         order=deck.species[0].shape_order, tile_ny=tiling.tile_ny,
-        tile_nx=tiling.tile_nx, tile_cols=tiling.tile_cols, g=deck.guard,
+        tile_nx=tiling.tile_nx, origins=tile_origins(tiling, "cpu"),
+        g=deck.guard,
         dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=(deck.nx, deck.ny),
         mode=mode)
 
@@ -172,7 +179,7 @@ def test_dead_slots_pass_through_and_wrapper_routes_cpu_to_plain():
     pt = _torch(p, ParticleState)
     ft = _torch(ftiles, FieldState)
     counts = live_watermark(pt.w)
-    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, origins=ORIGINS,
               g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=(32, 32),
               mode="int8")
     a = advance_tiles(pt, ft, counts, **kw)
@@ -194,7 +201,7 @@ def test_plain_blocks_of_tiles_match_one_pass(monkeypatch):
     pt = _torch(p, ParticleState)
     ft = _torch(ftiles, FieldState)
     counts = live_watermark(pt.w)
-    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, origins=ORIGINS,
               g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=(32, 32),
               mode="int8")
     whole = advance_plain(pt, ft, counts, **kw)
@@ -215,7 +222,7 @@ def test_kernel_wrapper_checks_inputs_before_building():
     pt = _torch(p, ParticleState)
     ft = _torch(ftiles, FieldState)
     counts = live_watermark(pt.w)
-    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, origins=ORIGINS,
               g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=(32, 32),
               mode="int8")
     n0 = advance_kernel.launches
@@ -290,9 +297,8 @@ def _int8_operands(pt, counts, x1, y1, kw):
         qm=kw["qm"], q=kw["q"], order=order, tile_ny=kw["tile_ny"],
         tile_nx=kw["tile_nx"], dt=kw["dt"], dx=kw["dx"], dy=kw["dy"],
         grid=kw["grid"], mode="int8").items()}
-    t = torch.arange(T)[:, None]
-    ox = ((t % kw["tile_cols"]) * kw["tile_nx"]).float()
-    oy = ((t // kw["tile_cols"]) * kw["tile_ny"]).float()
+    ox = kw["origins"][0].float()[:, None]
+    oy = kw["origins"][1].float()[:, None]
     fx = (c32["grid_nx"], c32["half_x"], c32["inv_nx"])
     fy = (c32["grid_ny"], c32["half_y"], c32["inv_ny"])
     four = torch.arange(4, dtype=torch.float32)
@@ -433,7 +439,7 @@ def test_int8_tensor_core_decomposition_matches_plain_and_pallas(
     ft = _torch(ftiles, FieldState)
     counts = live_watermark(pt.w)
     kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
-              tile_cols=4, g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy,
+              origins=ORIGINS, g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy,
               grid=(32, 32), mode="int8")
     out, (jx, jy, jz), _ = advance_plain(pt, ft, counts, **kw)
     ops = _int8_operands(pt, counts, out[0], out[1], kw)
@@ -578,7 +584,7 @@ def _one_particle_ops(ex, ey, dx, dy, order):
     pt = ParticleState(*(torch.from_numpy(a) for a in
                          (x0, y0, x0, x0, x0, w)))
     kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
-              tile_cols=4, g=4, dt=0.1, dx=0.1, dy=0.1, grid=(32, 32))
+              origins=ORIGINS, g=4, dt=0.1, dx=0.1, dy=0.1, grid=(32, 32))
     ops = _int8_operands(pt, live_watermark(pt.w), torch.from_numpy(x1),
                          torch.from_numpy(y1), kw)
     return ops, (dx, dy)
@@ -606,7 +612,7 @@ def test_edge_fold_particle_takes_the_scatter_and_matches_plain():
                      y=torch.where(edge, ey, pt.y))
     ft = _torch(ftiles, FieldState)
     counts = live_watermark(pt.w)
-    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, origins=ORIGINS,
               g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=(32, 32),
               mode="int8")
     (x1, y1, *_), (jx, jy, _), _ = advance_plain(pt, ft, counts, **kw)
@@ -683,7 +689,7 @@ def test_open_mode_matches_pallas_interpret(order, tile, guard):
     out, jt, dt_ = fused_push_deposit(
         pt, _torch(ftiles, FieldState), live_watermark(pt.w), qm=-1.0,
         q=-1.0, order=order, tile_ny=tile, tile_nx=tile,
-        tile_cols=tiling.tile_cols, g=guard, dt=deck.dt, dx=deck.dx,
+        origins=tile_origins(tiling, "cpu"), g=guard, dt=deck.dt, dx=deck.dx,
         dy=deck.dy, grid=None, mode="f32")
     alive = np.asarray(p.w) > 0
     x1, y1 = out.x.numpy()[alive], out.y.numpy()[alive]
@@ -715,7 +721,7 @@ def test_open_and_periodic_modes_differ_only_at_the_walls():
     ft = _torch(ftiles, FieldState)
     counts = live_watermark(pt.w)
     kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
-              tile_cols=tiling.tile_cols, g=4, dt=deck.dt, dx=deck.dx,
+              origins=tile_origins(tiling, "cpu"), g=4, dt=deck.dt, dx=deck.dx,
               dy=deck.dy, mode="f32")
     po, jo, _ = advance_plain(pt, ft, counts, grid=None, **kw)
     pp, jp, _ = advance_plain(pt, ft, counts, grid=(32, 32), **kw)

@@ -1,7 +1,9 @@
 """The port's command line (minipic_torch/cli.py) on the CPU: its artifacts,
 the same snapshots and history as the JAX package's CLI, resume bit for bit
-(across a window shift too), the refusals that name ROADMAP A9, the writer
-choice, and the plot subcommand on a port run folder."""
+(across a window shift too), the multi-device simulations (--sharded and
+--balanced, their resume, their checkpoint through the JAX package and
+back), the writer choice, and the plot subcommand on a port run
+folder."""
 import json
 import os
 import sys
@@ -16,7 +18,7 @@ torch.set_num_threads(1)
 
 from minipic_tpu.cli import main as jax_cli  # noqa: E402
 from minipic_torch import cli  # noqa: E402
-from minipic_torch.decks.standard import CASES, UNPORTED  # noqa: E402
+from minipic_torch.decks.standard import CASES  # noqa: E402
 from minipic_torch.io import hdf5 as th5  # noqa: E402
 from minipic_torch.io import native  # noqa: E402
 from minipic_torch.io.checkpoint import load_checkpoint  # noqa: E402
@@ -72,12 +74,9 @@ def test_cli_list(capsys):
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
     lines = out.strip().splitlines()
-    assert len(lines) == len(CASES) + len(UNPORTED) == 9
+    assert len(lines) == len(CASES) == 9
     for name in CASES:
         assert name in lines
-    for name in UNPORTED:
-        line = next(s for s in lines if s.startswith(name))
-        assert "not ported yet" in line and "ROADMAP A9" in line
 
 
 def test_cli_reference_pulse_artifacts(pulse_run):
@@ -195,14 +194,78 @@ def test_cli_grows_on_the_step_that_overflows_at_any_cadence(tmp_path,
     assert [p.capacity for p in ckpt.species] == [1536, 1536]
 
 
+def test_cli_sharded_stress_smoke(tmp_path):
+    """--sharded on load_balance_stress cut to 64^2 (its 2 x 4 mesh, every
+    shard on the CPU; tests/test_decks_cli.py:57): no overflow, the live
+    count kept, and the per-shard skew recorded."""
+    out = str(tmp_path / "lb")
+    _run(["--deck", "load_balance_stress", "--nx", "64", "--ny", "64",
+          "--steps", "4", "--save-every", "4", "--sharded", "--out", out,
+          "--no-save", "--device", "cpu"])
+    hist = _history(out)
+    assert hist["overflow"] == [0] * 4
+    assert len(hist["live_skew"]) == 4 and min(hist["live_skew"]) >= 1.0
+    ckpt = load_checkpoint(os.path.join(out, "checkpoint.npz"),
+                           device="cpu")
+    assert int(ckpt.step) == 4
+    assert sum(int(p.alive_count()) for p in ckpt.species) == 2 * 95 * 64 * 64
+
+
+BALANCED_WINDOW = WINDOW + ["--balanced"]
+
+
+def test_cli_balanced_window_resume_bit_exact(tmp_path):
+    """--balanced on the window deck, stopped at step 15 and resumed: bit
+    for bit the straight 30-step run, window origin included
+    (tests/test_decks_cli.py:96-127)."""
+    a, b = str(tmp_path / "full"), str(tmp_path / "split")
+    _run(BALANCED_WINDOW + ["--steps", "30", "--out", a])
+    _run(BALANCED_WINDOW + ["--steps", "15", "--out", b])
+    _run(BALANCED_WINDOW + ["--steps", "30", "--out", b, "--resume"])
+    sa, sb = _same_checkpoints(a, b)
+    assert int(sa.step) == 30
+    assert int(sa.window_x0) == int(sb.window_x0) > 0
+
+
+def test_cli_sharded_checkpoint_through_jax_and_back(tmp_path):
+    """A checkpoint of the port's --sharded run (shard-major buckets) loads
+    into the JAX package's load_checkpoint as it is, JAX's save_checkpoint
+    writes it again, and the port resumes from that file onto its mesh:
+    bit for bit the straight run."""
+    from minipic_tpu.io.checkpoint import load_checkpoint as jload
+    from minipic_tpu.io.checkpoint import save_checkpoint as jsave
+
+    args = WINDOW + ["--sharded"]
+    a, b = str(tmp_path / "full"), str(tmp_path / "split")
+    _run(args + ["--steps", "24", "--out", a])
+    _run(args + ["--steps", "12", "--out", b])
+    mine = load_checkpoint(os.path.join(b, "checkpoint.npz"), device="cpu")
+    theirs = jload(os.path.join(b, "checkpoint.npz"))
+    for x, y in zip(mine.fields, theirs.fields):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    for pm, pj in zip(mine.species, theirs.species):
+        for x, y in zip(pm, pj):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert int(theirs.window_x0) == int(mine.window_x0)
+    via = str(tmp_path / "via_jax.npz")
+    jsave(via, theirs)
+    _run(args + ["--steps", "24", "--out", b, "--resume", via])
+    _same_checkpoints(a, b)
+
+
 @pytest.mark.parametrize("args", [
-    ["--sharded"], ["--balanced"], ["--deck", "load_balance_stress"],
-    ["--deck", "load_balance_bunching", "--device", "cpu"],
+    ["--sharded", "--balanced", "--device", "cpu"],
+    ["--deck", "load_balance_bunching", "--sharded"],
+    ["--deck", "load_balance_bunching", "--balanced"],
 ])
-def test_cli_refuses_what_waits_for_a9(tmp_path, args):
+def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch, args):
+    """Both layouts at once, or a multi-device simulation on the card (the
+    default device) without one: refused before anything is written."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         cli.main(args + ["--out", str(tmp_path)])
-    assert "ROADMAP A9" in str(e.value.code)
+    msg = str(e.value.code)
+    assert "mutually exclusive" in msg or "CUDA" in msg
     assert not os.listdir(tmp_path)
 
 

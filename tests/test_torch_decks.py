@@ -1,8 +1,9 @@
 """The port's named decks (minipic_torch/decks/standard.py) against the JAX
-package's: every Deck field and derived size, the field inits and the
-seeders on a handed-over state, and step twins: two_stream on the
-small-bucket re-bin route, laser_plasma between absorbing walls and
-laser_wakefield_window through two window shifts."""
+package's: every Deck field and derived size (the three load_balance_*
+decks of the device mesh too), the field inits and the seeders on a
+handed-over state, and step twins: two_stream on the small-bucket re-bin
+route, laser_plasma between absorbing walls and laser_wakefield_window
+through two window shifts."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -120,13 +121,38 @@ def test_seed_state_matches_jax(name):
     assert changed >= 1
 
 
-@pytest.mark.parametrize("name", [
-    "load_balance_stress", "load_balance_stress_counts",
-    "load_balance_bunching"])
-def test_unported_decks_raise(name):
-    assert name in jstd.CASES
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstd.make(name)
+LOAD_BALANCE = ("load_balance_stress", "load_balance_stress_counts",
+                "load_balance_bunching")
+
+
+@pytest.mark.parametrize("name", LOAD_BALANCE)
+def test_load_balance_deck_matches_jax(name):
+    """Every Deck and species field (the torch densities against JAX's),
+    the derived sizes and params.txt; the two stress decks' buckets take
+    the deal route, load_balance_bunching's the small-bucket route."""
+    jd, td = jstd.make(name).deck, tstd.make(name).deck
+    for f in dataclasses.fields(tcfg.Deck):
+        if f.name != "species":
+            assert getattr(td, f.name) == getattr(jd, f.name), f.name
+    assert td.mesh_shape == (2, 4) and td.mesh_dims(1) == jd.mesh_dims(1)
+    for ts, js in zip(td.species, jd.species):
+        for f in dataclasses.fields(tcfg.SpeciesSpec):
+            if f.name == "density":
+                _same_density(ts, js)
+            else:
+                assert getattr(ts, f.name) == getattr(js, f.name), f.name
+    cap = td.capacity()
+    assert cap == jd.capacity()
+    mc = td.mover_cap(cap)
+    assert mc == jd.mover_cap(cap)
+    assert td.mover_seg_cap(mc) == jd.mover_seg_cap(mc)
+    assert td.exchange_cap(512, 256) == jd.exchange_cap(512, 256)
+    assert td.drift_threshold() == jd.drift_threshold()
+    assert td.total_steps == jd.total_steps
+    assert td.params_txt() == jd.params_txt()
+    bc = bucket_capacity(td)
+    deal = bc >= 8 * td.mover_seg_cap(td.mover_cap(bc)) + 256
+    assert deal == (name != "load_balance_bunching")
 
 
 def test_unknown_deck_is_a_key_error():

@@ -10,14 +10,22 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from minipic_torch.core.geometry import Tiling  # noqa: E402
 from minipic_torch.core.state import FieldState, ParticleState  # noqa: E402
 from minipic_torch.ops.advance import (  # noqa: E402
     AdvanceKernel, advance_kernel, advance_plain, advance_tiles,
     live_watermark)
 from minipic_torch.probe_atomics import no_deposit_source  # noqa: E402
+from minipic_torch.simulation import tile_origins  # noqa: E402
 from minipic_torch.testing import push_out_through_walls  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+
+
+def _origins(dev, rows, cols, ny=8, nx=8):
+    """Tile origins (int32 [T]) of a rows x cols grid of ny x nx tiles."""
+    return tile_origins(Tiling(tile_rows=rows, tile_cols=cols, tile_ny=ny,
+                               tile_nx=nx), dev)
 
 
 @pytest.fixture
@@ -54,8 +62,8 @@ def test_kernel_matches_plain_on_the_card(cuda, order, mode):
     p, ft = _inputs(cuda)
     counts = live_watermark(p.w)
     kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
-              tile_cols=4, g=4, dt=0.035, dx=0.1, dy=0.1, grid=(32, 32),
-              mode=mode)
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32), mode=mode)
     n0 = advance_kernel.launches
     pk, jk, dk = advance_tiles(p, ft, counts, **kw)
     assert advance_kernel.launches == n0 + 1
@@ -110,8 +118,8 @@ def test_kernel_matches_plain_in_lattice_order_and_the_edge_fold(
     p = _lattice(p, every)
     counts = live_watermark(p.w)
     kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
-              tile_cols=4, g=4, dt=0.035, dx=0.1, dy=0.1, grid=(32, 32),
-              mode=mode)
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32), mode=mode)
     pk, jk, dk = advance_tiles(p, ft, counts, **kw)
     pp, jp, dp = advance_plain(p, ft, counts, **kw)
     torch.cuda.synchronize()
@@ -149,8 +157,8 @@ def test_int8_kernel_matches_plain_on_wider_windows(cuda, tile_nx):
                       for _ in range(6)))
     counts = live_watermark(p.w)
     kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=tile_nx,
-              tile_cols=2, g=g, dt=0.035, dx=0.1, dy=0.1, grid=(nx, ny),
-              mode="int8")
+              origins=_origins(cuda, 2, 2, 8, tile_nx), g=g, dt=0.035,
+              dx=0.1, dy=0.1, grid=(nx, ny), mode="int8")
     pk, jk, dk = advance_tiles(p, ft, counts, **kw)
     pp, jp, dp = advance_plain(p, ft, counts, **kw)
     torch.cuda.synchronize()
@@ -165,8 +173,9 @@ def test_int8_kernel_matches_plain_on_wider_windows(cuda, tile_nx):
 def test_kernel_wrapper_rejects_bad_inputs(cuda):
     p, ft = _inputs(cuda)
     counts = live_watermark(p.w)
-    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,
-              g=4, dt=0.035, dx=0.1, dy=0.1, grid=(32, 32), mode="int8")
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32), mode="int8")
     with pytest.raises(ValueError):
         advance_kernel(p._replace(x=p.x.double()), ft, counts, **kw)
     with pytest.raises(ValueError):
@@ -187,8 +196,9 @@ def test_no_atomics_probe_pushes_alike_and_deposits_nothing(cuda, tmp_path,
     src.write_text(no_deposit_source())
     p, ft = _inputs(cuda)
     counts = live_watermark(p.w)
-    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8, tile_cols=4,
-              g=4, dt=0.035, dx=0.1, dy=0.1, grid=(32, 32), mode=mode)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32), mode=mode)
     pv, jv, dv = AdvanceKernel(src)(p, ft, counts, **kw)
     pk, _, dk = advance_kernel(p, ft, counts, **kw)
     torch.cuda.synchronize()
@@ -244,7 +254,8 @@ def test_open_mode_kernel_matches_plain_on_the_card(cuda, order, tile, g,
     p, ft = _open_inputs(cuda, tile, g, cap)
     counts = live_watermark(p.w)
     kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=tile, tile_nx=tile,
-              tile_cols=32 // tile, g=g, dt=0.035, dx=0.1, dy=0.1,
+              origins=_origins(cuda, 32 // tile, 32 // tile, tile, tile),
+              g=g, dt=0.035, dx=0.1, dy=0.1,
               grid=None, mode="f32")
     n0 = advance_kernel.launches
     pk, jk, dk = advance_tiles(p, ft, counts, **kw)
@@ -718,3 +729,117 @@ def test_snapshot_buffers_match_the_cpu(cuda):
     cg, bg = hdf5.particle_buffer(st.species)
     cc, bc = hdf5.particle_buffer(cpu)
     assert cg == cc and (bg == bc).all()
+
+
+# ----------------------------------------------------------------------
+# The advance, split and segment in global tile coordinates (the
+# multi-device simulations' modes) against their plain versions, and a (2, 2)
+# sharded twin with every shard on the card.
+
+def _relocate(p, gids, nx=64, tiles=8):
+    """Buckets of the 4x4 grid of 32^2 fixtures moved to the tiles `gids` of
+    an 8x8 grid on a 64^2 box (their positions shifted with their tile)."""
+    dev = p.x.device
+    t = torch.arange(16, device=dev)[:, None]
+    g = torch.as_tensor(gids, device=dev)[:, None]
+
+    def move(v, old, new):
+        # The offset from the old tile's origin, unwrapped on the 32^2 box.
+        off = torch.remainder(v - old * 8 + 16, 32) - 16
+        v = torch.remainder(new.float() * 8 + off, nx)
+        return torch.where(v >= nx, v - nx, v)
+
+    return p._replace(
+        x=torch.where(p.w > 0, move(p.x, t % 4, g % tiles), p.x),
+        y=torch.where(p.w > 0, move(p.y, t // 4, g // tiles), p.y))
+
+
+# Shard (1, 1) of a (2, 2) mesh on the 8x8 grid; the stripe of shard 3 of
+# 8 extended to 16 tiles.
+_BLOCK = [(4 + i) * 8 + 4 + j for i in range(4) for j in range(4)]
+_GIDS = [3, 12, 17, 26, 35, 44, 49, 58, 7, 8, 21, 30, 39, 40, 53, 62]
+
+
+@pytest.mark.parametrize("mode", ["int8", "f32"])
+@pytest.mark.parametrize("layout", ["block", "gids"])
+def test_kernel_with_global_origins_matches_plain(cuda, layout, mode):
+    gids = _BLOCK if layout == "block" else _GIDS
+    p, ft = _inputs(cuda)
+    p = _relocate(p, gids)
+    g = torch.tensor(gids, device=cuda, dtype=torch.int32)
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              origins=((g % 8) * 8, (g // 8) * 8), g=4, dt=0.035, dx=0.1,
+              dy=0.1, grid=(64, 64), mode=mode)
+    pk, jk, dk = advance_tiles(p, ft, counts, **kw)
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(pk, pp):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+    if mode == "int8":
+        assert torch.equal(jk[0], jp[0]) and torch.equal(jk[1], jp[1])
+    for a, b in zip(jk, jp):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("layout", ["block", "gids"])
+def test_split_kernel_in_global_coordinates_matches_plain(cuda, layout):
+    from minipic_torch.ops import rebin as rb
+
+    gids = _BLOCK if layout == "block" else _GIDS
+    p = _relocate(_stale(cuda), gids)
+    if layout == "block":
+        kw = dict(tile_cols=4, row0=4, col0=4)
+    else:
+        kw = dict(tile_cols=8, tile_ids=torch.tensor(gids, device=cuda,
+                                                     dtype=torch.int32))
+    kw.update(tile_ny=8, tile_nx=8, b_cap=1536)
+    got = rb.split_buckets(p, **kw)
+    want = rb.split_buckets_plain(p, **kw)
+    _equal(got[0], want[0], "buckets")
+    _equal(got[1], want[1], "movers")
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert int((want[1].w > 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("origin", [(4, 4), (0, 0)])
+def test_segment_kernel_in_global_coordinates_matches_plain(cuda, origin):
+    from minipic_torch.ops import rebin as rb
+
+    r0, c0 = origin
+    gids = [(r0 + i) * 8 + c0 + j for i in range(4) for j in range(4)]
+    p = _relocate(_stale(cuda), gids)
+    kw = dict(tile_cols=4, tile_ny=8, tile_nx=8, row0=r0, col0=c0)
+    _, movers, _, _ = rb.split_buckets_plain(p, b_cap=1536, **kw)
+    kw.update(tile_rows=4, b_seg=512, grid_rows=8, grid_cols=8)
+    seg, dropped = rb.segment_movers(movers, **kw)
+    seg_p, dropped_p = rb.segment_movers_plain(movers, **kw)
+    _equal(seg, seg_p, "seg")
+    assert torch.equal(dropped, dropped_p) and int(dropped_p.sum()) == 0
+
+
+def test_sharded_twin_on_the_card(cuda):
+    """ShardedSimulation at (2, 2), every shard on the card, against
+    Simulation there (tests/test_parallel.py:293-299's f32 bars, int8 and
+    guard 4): energies, live counts exact, overflow 0."""
+    from minipic_torch.core.config import Deck, SpeciesSpec
+    from minipic_torch.parallel.step import ShardedSimulation
+    from minipic_torch.simulation import Simulation
+
+    deck = Deck(box_x=8.0, box_y=8.0, nx=64, ny=64, tile_nx=8, tile_ny=8,
+                guard=4, deposit="int8", mesh_shape=(2, 2),
+                species=(SpeciesSpec("ele", charge=-1.0, mass=1.0, ppc=4,
+                                     ux=0.3, uy=0.2, uth=0.05),
+                         SpeciesSpec("ion", charge=+1.0, mass=5.0, ppc=4,
+                                     ux=-0.1, uth=0.02)))
+    ref = Simulation(deck, seed=7, device=cuda)
+    sh = ShardedSimulation(deck, seed=7)
+    assert sh.mesh.devices == [cuda] * 4
+    dref, dsh = ref.step(12), sh.step(12)
+    assert int(dref.overflow) == 0 and int(dsh.overflow) == 0
+    torch.testing.assert_close(dsh.field_energy, dref.field_energy,
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(dsh.kinetic_energy, dref.kinetic_energy,
+                               rtol=1e-6, atol=0)
+    assert int(dsh.shard_live.sum()) == int(dref.shard_live[0])

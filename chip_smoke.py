@@ -7,11 +7,16 @@ Phases, each printing what it found; any failure exits non-zero:
 
 1. build: compiles the advance kernel (csrc/advance.cu) and the re-bin
    kernels (csrc/rebin.cu) from this checkout, one nvcc each, at once,
-   and prints each kernel's registers, shared memory and spills (ptxas);
+   and prints each kernel's registers, shared memory and spills (ptxas)
+   and the atomic instructions in each advance kernel's SASS (whether the
+   f64 deposit's shared double atomicAdd is one instruction or a
+   compare-and-swap loop);
 2. kernel: the advance kernel against its plain torch version on the card,
    on 64 tiles of the headline tile shape (8x8, guard 4, 27136 slots,
-   thermal particles, non-zero fields) in int8 and f32 modes, TSC and CIC,
-   in three layouts: lattice order as loaded (a warp's lanes share few
+   thermal particles, non-zero fields) in int8, f32 and f64 modes, TSC and
+   CIC (f64: positions and momenta within 2 ulp of each channel's scale,
+   J within 1e-12 of its peak, continuity under 1e-10 of scale), in three
+   layouts: lattice order as loaded (a warp's lanes share few
    bases), displaced particles in shuffled slots, and lattice order with a
    few particles in the window-edge fold (int8 operands past 127); then
    each re-bin kernel against its plain version on 64-tile subsets with
@@ -23,11 +28,12 @@ Phases, each printing what it found; any failure exits non-zero:
    headline's tile shape; append_incoming (normal, a tile that does not
    fit, inactive) and the defrag with a dense incoming slab at the physics
    decks' (1536 slots); and ``rebin_auto`` on both routes and
-   ``rebin_incremental`` through the kernels against the CPU.  Open
-   kernel: the advance in its open mode (grid None, the decks with
-   absorbing walls) against its plain version at laser_plasma's shape
-   (CIC, 20^2 windows, 1536 slots) and laser_wakefield_window's (TSC,
-   16^2, 512 slots), f32, with particles leaving through every wall and
+   ``rebin_incremental`` through the kernels against the CPU; then all of
+   it again over float64 channels.  Open kernel: the advance in its open
+   mode (grid None, the decks with absorbing walls) against its plain
+   version at laser_plasma's shape (CIC, 20^2 windows, 1536 slots; f32
+   and f64) and laser_wakefield_window's (TSC, 16^2, 512 slots; f32),
+   with particles leaving through every wall and
    corner and dead slots: positions and momenta equal, J within 2e-5 of
    its peak; the periodic mode on the same subsets as before;
 3. small step: three 32^2 decks stepped on the card (kernels) against the
@@ -72,6 +78,10 @@ Phases, each printing what it found; any failure exits non-zero:
    then again with its walls, shifts and injections counted on the device
    (every injected weight the profile's at absolute x to 1e-6, the live
    count's books exact: net injection less the kills at each wall);
+   f64 runs at full size: the energy acceptance in f64 (the exact f64
+   deposit, max |dE|/E0 < 1e-3, overflow 0; the JAX package's CPU f64
+   record printed beside it), append_incoming on its final state, and
+   ``reference_pulse`` in f64 for its 63,639 steps (the same bars);
 7. sort route: the headline deck with ``rebin_mode="sort"``, 20 steps with
    one forced re-bin;
 8. load balance: the three ``load_balance_*`` decks at their default
@@ -92,7 +102,10 @@ Phases, each printing what it found; any failure exits non-zero:
    one's time (the advance also on a copy with each bucket's live slots
    shuffled), with the whole deal-route re-bin (fused and through
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
-   that state;
+   that state; then all of it again for the headline deck in f64 (99.9 M
+   particles in double, the advance's f64 mode, the re-bin over float64
+   channels), with the f64 advance on a 64-tile subset of its final state
+   and its continuity residual there (under 1e-10 of scale);
 10. cli: the command line (``minipic_torch.cli.main``, in this process,
    into a git-ignored folder of this checkout that it removes), after
    probing for h5py, matplotlib and the native writer (with neither
@@ -126,7 +139,10 @@ that laser_plasma's run launched, their launches there and their numbers
 at its final state per species, under "laser_plasma"; every kernel's
 launches in each of the cli phase's laser_plasma runs, under "cli"; B1-B3
 at load_balance_stress's shard, under "sharded"; every kernel's launches in
-each load_balance run, under "load_balance"); the last line is
+each load_balance run, under "load_balance"; each kernel's numbers on the
+f64 path, under "f64": the f64 headline's launches, error, times and bound
+(bytes at 8-byte channels, operations at the card's f64 peak), and
+append_incoming's at the f64 energy deck); the last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it fails
 before printing any result.
 """
@@ -183,9 +199,13 @@ KERNELS = {
     "extract": (REBIN_SOURCE, f"{RK}:394"),
 }
 # The card's peaks for the bound (H100 SXM, NVIDIA's data sheet): HBM3 and
-# f32 outside the tensor cores.
+# f32 outside the tensor cores.  The f64 rate is taken from the card
+# (fp64_ops_per_s).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# FP64 lanes of an SM outside the tensor cores on sm_90 (one FMA, two
+# operations, each a clock).
+FP64_LANES_PER_SM = 64
 # The advance's f32 operations per live particle, counted from
 # csrc/advance.cu at TSC: ~100 for the two shape sets, ~110 for the six
 # gathers, ~60 for the Boris push and move, ~130 for the Esirkepov terms.
@@ -194,6 +214,9 @@ ADVANCE_OPS_PER_PARTICLE = 400
 # arrays: the spread of PERF.md's runs at the main path's final state (H100
 # 80GB HBM3, 700 W).
 PARENT_ADVANCE_MS = (6.17, 6.48)
+# The f64 deposit's continuity residual, of scale: exact charge
+# conservation to f64 round-off.
+F64_CONTINUITY = 1e-10
 # int8 jx/jy are integer sums, exact in any order, so kernel and plain
 # version agree cell for cell unless a position differs by 1 ulp and moves
 # a shape quantum; allow a few such cells per comparison.
@@ -271,11 +294,35 @@ def device_times(jobs) -> list:
     return out
 
 
-def bound(nbytes: float, ops: float = 0.0) -> dict:
+_FP64_OPS_PER_S = []
+
+
+def fp64_ops_per_s() -> float:
+    """The card's f64 peak outside the tensor cores: its SMs
+    (``multi_processor_count``) x FP64_LANES_PER_SM x 2 operations x its
+    largest SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    if not _FP64_OPS_PER_S:
+        import torch
+
+        r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+        check(r.returncode == 0, f"nvidia-smi failed: {r.stderr.strip()}")
+        mhz = float(r.stdout.strip().splitlines()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _FP64_OPS_PER_S.append(sms * FP64_LANES_PER_SM * 2 * mhz * 1e6)
+        print(f"bound: f64 peak {_FP64_OPS_PER_S[0] / 1e12:.2f} TFLOP/s = "
+              f"{sms} SMs x {FP64_LANES_PER_SM} FP64 lanes x 2 x {mhz:g} "
+              "MHz (the card's largest SM clock)")
+    return _FP64_OPS_PER_S[0]
+
+
+def bound(nbytes: float, ops: float = 0.0, f64: bool = False) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    HBM rate and the operations over the f32 peak."""
+    HBM rate and the operations over the f32 peak (`f64`: the card's f64
+    peak, fp64_ops_per_s)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / F32_OPS_PER_S * 1e3
+    to = ops / (fp64_ops_per_s() if f64 else F32_OPS_PER_S) * 1e3
     return dict(bound_ms=max(tb, to),
                 bound_by="bytes" if tb >= to else "operations",
                 library_ms=None)
@@ -283,6 +330,29 @@ def bound(nbytes: float, ops: float = 0.0) -> dict:
 
 def _live(p) -> int:
     return int((p.w > 0).sum())
+
+
+def _sass_shared_atomics(lib) -> dict:
+    """{kernel (mangled): the set of atomic opcodes in its SASS (ATOMS.*
+    shared memory, ATOM.* / RED.* generic or global)}, from ``cuobjdump
+    -sass`` of the built library."""
+    import re
+
+    from minipic_torch.ops._build import _nvcc
+
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    r = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300)
+    check(r.returncode == 0, f"cuobjdump failed: {r.stderr.strip()[-500:]}")
+    out, name = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = set()
+        elif name is not None:
+            out[name].update(re.findall(r"\b(?:ATOMS|ATOM|RED)\.[A-Z0-9_.]+",
+                                        line))
+    return out
 
 
 def phase_build() -> None:
@@ -302,6 +372,16 @@ def phase_build() -> None:
                 print(f"build: ptxas: {line.strip()}")
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s")
+    # Shared-memory atomics as compiled: does the f64 deposit's atomicAdd
+    # on a shared double run as one instruction or as a compare-and-swap
+    # loop on this target?
+    import re
+
+    for kernel, ops in _sass_shared_atomics(built["advance.cu"].path).items():
+        # The real type is the last template argument: d(ouble) or f(loat).
+        m = re.search(r"advance_kernelI.*?E([df])EEv", kernel)
+        kind = "f64" if m and m.group(1) == "d" else "f32/int8"
+        print(f"build: SASS {kind} {kernel[:90]}: atomics {sorted(ops)}")
     from minipic_torch.ops.rebin import extract_smem_bytes
 
     print("build: extract_kernel: dynamic shared memory "
@@ -327,15 +407,16 @@ def _shuffle_slots(p, counts, gen):
 SUBSET_LAYOUTS = ("lattice", "shuffled", "edge")
 
 
-def _subset(order: int, dev, layout: str = "shuffled"):
+def _subset(order: int, dev, layout: str = "shuffled", dtype=None):
     """64 tiles of the headline tile shape with thermal particles and
-    smooth fields.  `layout`: "lattice" as loaded (each cell's particles in
-    consecutive slots); "shuffled": displaced up to 1 cell off their tiles
-    (stale buckets), each bucket's slots in random order; "edge": lattice
-    order, with every 97th particle moved 3.9-4.3 cells below and left of
-    its tile and every 89th 3.1-3.4 cells above and right of it, so that
-    their centre cells are the window's edge rows and columns, where the
-    edge fold lifts TSC's int8 operands past 127 (the scatter route)."""
+    smooth fields, in float32 (or `dtype`: the same values).  `layout`:
+    "lattice" as loaded (each cell's particles in consecutive slots);
+    "shuffled": displaced up to 1 cell off their tiles (stale buckets),
+    each bucket's slots in random order; "edge": lattice order, with
+    every 97th particle moved 3.9-4.3 cells below and left of its tile and
+    every 89th 3.1-3.4 cells above and right of it, so that their centre
+    cells are the window's edge rows and columns, where the edge fold
+    lifts TSC's int8 operands past 127 (the scatter route)."""
     import torch
 
     from minipic_torch import headline
@@ -385,22 +466,31 @@ def _subset(order: int, dev, layout: str = "shuffled"):
                      for c in range(6)))
     ft = extract_field_tiles(pad_fields_periodic(f, deck.guard), t.tile_rows,
                              t.tile_cols, t.tile_ny, t.tile_nx, deck.guard)
+    if dtype is not None:
+        p = type(p)(*(a.to(dtype) for a in p))
+        ft = type(ft)(*(a.to(dtype) for a in ft))
     return deck, p, ft
 
 
-def _kw(deck, mode, dev):
+def _kw(deck, mode, dev, origins=None):
+    """The advance's arguments for deck's first species in `mode`, on its
+    whole tile grid, or on the tiles whose origins are `origins`."""
     from minipic_torch.simulation import tile_origins
 
     t = deck.tiling
     return dict(qm=-1.0, q=-1.0, order=deck.species[0].shape_order,
                 tile_ny=t.tile_ny, tile_nx=t.tile_nx,
-                origins=tile_origins(t, dev), g=deck.guard, dt=deck.dt,
-                dx=deck.dx, dy=deck.dy, grid=(deck.nx, deck.ny), mode=mode)
+                origins=(tile_origins(t, dev) if origins is None
+                         else origins), g=deck.guard,
+                dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=(deck.nx, deck.ny),
+                mode=mode)
 
 
-def _continuity(deck, p0, mode, ft):
+def _continuity(deck, p0, mode, ft, origins=None):
     """max |(rho1 - rho0)/dt + div J| / (max|rho0|/dt) of the kernel's own
-    int8 output, with rho from the same quantized shapes.  The dense rho
+    output, with rho from the shapes the deposit used: quantized in int8
+    mode, exact in f64 mode.  `origins`: the tiles' origins (int32 [T] on
+    the card) when they are not the deck's whole grid.  The dense rho
     diagnostic runs on the CPU, as in the CPU tests, so that the residual
     measures the kernel's J: formed on the card (H100), the f32 matmul over
     a tile's 27136 slots alone left 2.8e-6 of scale."""
@@ -414,18 +504,20 @@ def _continuity(deck, p0, mode, ft):
     t = deck.tiling
     order = deck.species[0].shape_order
     cpu = torch.device("cpu")
-    origins = tile_origins(t, cpu)
+    cpu_origins = (tile_origins(t, cpu) if origins is None
+                   else tuple(o.to(cpu) for o in origins))
 
     def rho(p):
         p = type(p)(*(a.to(cpu) for a in p))
-        xi, eta = tile_local_coords(p.x, p.y, origins, t.tile_nx, t.tile_ny,
-                                    (deck.nx, deck.ny))
-        return deposit_rho_chunk(xi, eta, -p.w, t.tile_ny, t.tile_nx,
-                                 deck.guard, order, deck.dx, deck.dy,
-                                 quantize=qshape_scale(order))
+        xi, eta = tile_local_coords(p.x, p.y, cpu_origins, t.tile_nx,
+                                    t.tile_ny, (deck.nx, deck.ny))
+        return deposit_rho_chunk(
+            xi, eta, -p.w, t.tile_ny, t.tile_nx, deck.guard, order, deck.dx,
+            deck.dy, quantize=qshape_scale(order) if mode == "int8" else 0.0)
 
-    p1, (jx, jy, _), _ = fused_push_deposit(p0, ft, live_watermark(p0.w),
-                                            **_kw(deck, mode, p0.x.device))
+    p1, (jx, jy, _), _ = fused_push_deposit(
+        p0, ft, live_watermark(p0.w),
+        **_kw(deck, mode, p0.x.device, origins))
     jx, jy = jx.to(cpu), jy.to(cpu)
     zx = torch.zeros_like(jx[:, :, :1])
     zy = torch.zeros_like(jy[:, :1, :])
@@ -434,6 +526,26 @@ def _continuity(deck, p0, mode, ft):
     r0 = rho(p0)
     res = (rho(p1) - r0) / deck.dt + divx + divy
     return float(res.abs().max()) / (float(r0.abs().max()) / deck.dt)
+
+
+def _ulps(a, b) -> float:
+    """max |a - b| in ulps of the channel's scale (the spacing of its type
+    at max |b|): the push's sums cancel near zero, so a value carries its
+    operands' error."""
+    import torch
+
+    if not a.numel():
+        return 0.0
+    return float((a - b).abs().max() / torch.finfo(b.dtype).eps
+                 / b.abs().max().clamp(min=1e-300))
+
+
+# f64 mode against its plain version: positions and momenta within this
+# many ulps of each channel's scale (the same ops in the same order but the
+# gather's, no contraction), J within F64_J_TOL of its window's peak
+# (double atomics in another order).
+F64_ULPS = 2
+F64_J_TOL = 1e-12
 
 
 def _compare(p, ft, counts, kw, label: str) -> float:
@@ -447,6 +559,7 @@ def _compare(p, ft, counts, kw, label: str) -> float:
     (pp, jp, dp) = advance_plain(p, ft, counts, **kw)
     torch.cuda.synchronize()
     live = p.w > 0
+    f64 = kw["mode"] == "f64"
     err = 0.0
     for name, a, b, old in zip(("x", "y", "px", "py", "pz"), pk, pp, p):
         check(bool(torch.isfinite(a[live]).all()), f"{label} {name} not "
@@ -454,10 +567,15 @@ def _compare(p, ft, counts, kw, label: str) -> float:
         check(torch.equal(a[~live], old[~live]),
               f"{label} {name}: dead slots changed")
         d = (a - b)[live].abs()
-        # Same ops on the same card, no contraction: ~bit-equal; hold to
-        # the CPU tests' 2e-6.
-        check(bool((d <= 2e-6 + 2e-6 * b[live].abs()).all()),
-              f"{label} {name}: max diff {float(d.max())}")
+        if f64:
+            u = _ulps(a[live], b[live])
+            check(u <= F64_ULPS, f"{label} {name}: {u:.2f} ulps of the "
+                  f"channel's scale (max diff {float(d.max())})")
+        else:
+            # Same ops on the same card, no contraction: ~bit-equal; hold
+            # to the CPU tests' 2e-6.
+            check(bool((d <= 2e-6 + 2e-6 * b[live].abs()).all()),
+                  f"{label} {name}: max diff {float(d.max())}")
         err = max(err, float(d.max()))
     for name, a, b in zip(("jx", "jy", "jz"), jk, jp):
         scale = float(b.abs().max())
@@ -471,10 +589,12 @@ def _compare(p, ft, counts, kw, label: str) -> float:
         else:
             # f32 sums of ~3.5e3 terms per cell in two atomic orders,
             # before the prefix sums: 1e-5 of the window's peak.
-            check(float(d.max()) <= 1e-5 * scale,
-                  f"{label} {name}: {float(d.max())} > 1e-5 * {scale}")
+            tol = F64_J_TOL if f64 else 1e-5
+            check(float(d.max()) <= tol * scale,
+                  f"{label} {name}: {float(d.max())} > {tol} * {scale}")
         err = max(err, float(d.max()))
-    check(abs(float(dk.max()) - float(dp.max())) <= 1e-6 * float(dp.max()),
+    dtol = 1e-12 if f64 else 1e-6
+    check(abs(float(dk.max()) - float(dp.max())) <= dtol * float(dp.max()),
           f"{label}: dmax differs")
     return err
 
@@ -486,28 +606,32 @@ def phase_kernel(dev) -> None:
 
     from minipic_torch.ops.advance import live_watermark
 
+    from minipic_torch.ops.advance import MODE_DTYPES
+
     for layout, (order, mode) in itertools.product(
             SUBSET_LAYOUTS, ((2, "int8"), (2, "f32"), (1, "int8"),
-                             (1, "f32"))):
-        deck, p, ft = _subset(order, dev, layout)
+                             (1, "f32"), (2, "f64"), (1, "f64"))):
+        deck, p, ft = _subset(order, dev, layout, MODE_DTYPES[mode])
         label = f"subset {layout} o{order} {mode}"
         err = _compare(p, ft, live_watermark(p.w), _kw(deck, mode, dev),
                        label)
         msg = (f"kernel: {label}: {int((p.w > 0).sum())} particles, max abs "
                f"err {err:.3e}")
-        if mode == "int8":
+        if mode in ("int8", "f64"):
             cont = _continuity(deck, p, mode, ft)
-            msg += f", continuity residual {cont:.3e} of scale"
-            check(cont < 3e-6, f"{label} continuity {cont}")
+            bar = 3e-6 if mode == "int8" else F64_CONTINUITY
+            msg += f", continuity residual {cont:.3e} of scale (bar {bar})"
+            check(cont < bar, f"{label} continuity {cont}")
         print(msg)
 
 
-def _rebin_subset(dev, ppc=None, sigma=0.35, seed=21):
+def _rebin_subset(dev, ppc=None, sigma=0.35, seed=21, dtype=None):
     """64 tiles of the headline tile shape (27136 slots) with thermal
     particles displaced by a Gaussian of `sigma` cells clipped at 2 cells:
     stale buckets, ~7% of the particles off their tile at 0.35, about the
     main path's share at its drift trigger.  `ppc` raises the load (381
-    per cell in the headline) for a crowded state."""
+    per cell in the headline) for a crowded state.  Made in float32;
+    `dtype`: the same values in that type."""
     import dataclasses
 
     import torch
@@ -532,8 +656,10 @@ def _rebin_subset(dev, ppc=None, sigma=0.35, seed=21):
         v = torch.remainder(a + torch.clamp(d, -2.0, 2.0), n)
         return torch.where(live, torch.where(v >= n, v - n, v), a)
 
-    return deck, cap, p._replace(x=shifted(p.x, deck.nx),
-                                 y=shifted(p.y, deck.ny))
+    p = p._replace(x=shifted(p.x, deck.nx), y=shifted(p.y, deck.ny))
+    if dtype is not None:
+        p = type(p)(*(a.to(dtype) for a in p))
+    return deck, cap, p
 
 
 def _same(a, b, label: str) -> float:
@@ -555,16 +681,17 @@ def _clone(p):
     return type(p)(*(a.clone() for a in p))
 
 
-def phase_rebin_kernels(dev) -> None:
+def phase_rebin_kernels(dev, dtype=None) -> None:
     """Each re-bin kernel against its plain version on the 64-tile subset,
     then the whole deal route on a crowded subset, where the defrag is the
-    kernel that runs."""
+    kernel that runs; float32 channels, or the same states in `dtype`."""
     import torch
 
     from minipic_torch.ops import rebin as rb
     from minipic_torch.particles.binning import rebin_auto
 
-    deck, cap, p = _rebin_subset(dev)
+    deck, cap, p = _rebin_subset(dev, dtype=dtype)
+    tag = "" if dtype is None else f" {str(dtype)[6:]}"
     t = deck.tiling
     grid = dict(tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx)
     mc = deck.mover_cap(cap)
@@ -583,8 +710,8 @@ def phase_rebin_kernels(dev) -> None:
         _same(got[3], want[3], f"split {label} pending")
         n_mov = int((want[1].w > 0).sum())
         n_pend = int(want[3].sum())
-        print(f"kernel: split {label}: {n_live} particles, buffer {b_cap}, "
-              f"{n_mov} movers out, {n_pend} "
+        print(f"kernel{tag}: split {label}: {n_live} particles, buffer "
+              f"{b_cap}, {n_mov} movers out, {n_pend} "
               f"{'dropped' if force else 'pending'}: equal")
         check((n_pend > 0) == (label != "normal"), f"split {label}: "
               f"{n_pend} pending")
@@ -602,7 +729,7 @@ def phase_rebin_kernels(dev) -> None:
         seg_p, dropped_p = rb.segment_movers_plain(m, **kw)
         _same(seg, seg_p, f"segment {label}")
         _same(dropped, dropped_p, f"segment {label} dropped")
-        print(f"kernel: segment {label}: runs of {b_seg}, "
+        print(f"kernel{tag}: segment {label}: runs of {b_seg}, "
               f"{int(dropped_p.sum())} dropped: equal")
         check((int(dropped_p.sum()) > 0) == (label != "normal"),
               f"segment {label}: dropped {int(dropped_p.sum())}")
@@ -626,13 +753,14 @@ def phase_rebin_kernels(dev) -> None:
         _same(got, want, f"defrag {label}")
         _same(got_c, want_c, f"defrag {label} counts")
         _same(got_d, want_d, f"defrag {label} dropped")
-    print(f"kernel: append and defrag (merge, holes): {int(wm.sum())} "
+    print(f"kernel{tag}: append and defrag (merge, holes): {int(wm.sum())} "
           "stayers: equal")
 
     # The whole deal route through the kernels against the plain versions
     # on the CPU; the crowded state (ppc 420 in the same buckets) leaves
     # some bucket within 256 slots of its capacity, so the defrag runs.
-    for label, q in (("normal", p), ("crowded", _rebin_subset(dev, 420)[2])):
+    crowded = _rebin_subset(dev, 420, dtype=dtype)[2]
+    for label, q in (("normal", p), ("crowded", crowded)):
         for k in rb.KERNELS.values():
             k.reset()
         got, dropped, pending = rebin_auto(q, t, mc, seg_cap=sc)
@@ -643,18 +771,19 @@ def phase_rebin_kernels(dev) -> None:
               and int(pending) == int(pending_p), f"rebin_auto {label} "
               "counts")
         ran = (rb.append_kernel.taken_count(), rb.defrag_kernel.taken_count())
-        print(f"kernel: rebin_auto {label}: {int((q.w > 0).sum())} "
+        print(f"kernel{tag}: rebin_auto {label}: {int((q.w > 0).sum())} "
               f"particles, dropped {int(dropped)}, pending {int(pending)}, "
               f"append/defrag ran {ran[0]}/{ran[1]}: equal to the CPU")
         check(ran == ((0, 1) if label == "crowded" else (1, 0)),
               f"rebin_auto {label}: append/defrag ran {ran}")
 
 
-def _physics_subset(dev, ppc=16, sigma=0.5, seed=41):
+def _physics_subset(dev, ppc=16, sigma=0.5, seed=41, dtype=None):
     """The two_stream deck's 64 tiles (1536-slot buckets, mover buffer
     640) with its right beam displaced by a Gaussian of `sigma` cells
     clipped at 2 cells: stale buckets of the small-bucket route.  `ppc`
-    raises the load for a crowded state."""
+    raises the load for a crowded state.  Made in float32; `dtype`: the
+    same values in that type."""
     import torch
 
     from minipic_torch.decks import standard
@@ -675,15 +804,18 @@ def _physics_subset(dev, ppc=16, sigma=0.5, seed=41):
         v = torch.remainder(a + torch.clamp(d, -2.0, 2.0), n)
         return torch.where(live, torch.where(v >= n, v - n, v), a)
 
-    return deck, cap, p._replace(x=shifted(p.x, deck.nx),
-                                 y=shifted(p.y, deck.ny))
+    p = p._replace(x=shifted(p.x, deck.nx), y=shifted(p.y, deck.ny))
+    if dtype is not None:
+        p = type(p)(*(a.to(dtype) for a in p))
+    return deck, cap, p
 
 
-def phase_rebin_kernels_b6_b8(dev) -> None:
+def phase_rebin_kernels_b6_b8(dev, dtype=None) -> None:
     """append_runs and the extract on the headline's 64-tile subset,
     append_incoming and the dense defrag on the physics decks' tiles, each
     against its plain version; then the small-bucket rebin_auto and
-    rebin_incremental through the kernels against the CPU."""
+    rebin_incremental through the kernels against the CPU; float32
+    channels, or the same states in `dtype`."""
     import torch
 
     from minipic_torch.ops import rebin as rb
@@ -691,7 +823,8 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
                                                  rebin_incremental,
                                                  route_movers)
 
-    deck, cap, p = _rebin_subset(dev)
+    deck, cap, p = _rebin_subset(dev, dtype=dtype)
+    tag = "" if dtype is None else f" {str(dtype)[6:]}"
     t = deck.tiling
     grid = dict(tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx)
     mc = deck.mover_cap(cap)
@@ -710,8 +843,8 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
     _same(got_d, want_d, "append_runs dropped")
     _same(got, fused, "append_runs against the fused append")
     _same(got_d, fused_d, "append_runs dropped against the fused append")
-    print(f"kernel: append_runs: {int((inc.w > 0).sum())} arrivals in runs "
-          f"of {sc}: equal to its plain version and to the fused append")
+    print(f"kernel{tag}: append_runs: {int((inc.w > 0).sum())} arrivals in "
+          f"runs of {sc}: equal to its plain version and to the fused append")
     # The same runs with runs 0, 3 and 7 of every tile emptied: the flat
     # copy steps over them.
     gone = torch.zeros(8, dtype=torch.bool, device=dev)
@@ -724,7 +857,7 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
     got_d = rb.append_runs_kernel(got, sparse, wm, b_seg=sc)
     _same(got, want, "append_runs with empty runs")
     _same(got_d, want_d, "append_runs with empty runs dropped")
-    print(f"kernel: append_runs with runs 0, 3 and 7 empty: "
+    print(f"kernel{tag}: append_runs with runs 0, 3 and 7 empty: "
           f"{int((sparse.w > 0).sum())} arrivals: equal")
 
     holes = torch.rand(p.w.shape, device=dev) < 0.3
@@ -744,12 +877,12 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
         for i, (a, b) in enumerate(zip(got, want)):
             _same(a, b, f"extract {label} output {i}")
         n_pend = int(want[3].sum())
-        print(f"kernel: extract {label}: buckets {q.x.shape[1]}, buffer "
+        print(f"kernel{tag}: extract {label}: buckets {q.x.shape[1]}, buffer "
               f"{b_cap}, {_live(want[1])} movers out, {n_pend} "
               f"{'dropped' if force else 'pending'}: equal")
         check((n_pend > 0) == short, f"extract {label}: {n_pend} not kept")
 
-    sdeck, scap, sp = _physics_subset(dev)
+    sdeck, scap, sp = _physics_subset(dev, dtype=dtype)
     st = sdeck.tiling
     sgrid = dict(tile_cols=st.tile_cols, tile_ny=st.tile_ny,
                  tile_nx=st.tile_nx)
@@ -769,12 +902,12 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
         got_d = rb.append_incoming_kernel(got, sinc, w_m, active=active)
         _same(got, want, f"append_incoming {label}")
         _same(got_d, want_d, f"append_incoming {label} dropped")
-        print(f"kernel: append_incoming {label}: buckets {scap}, incoming "
-              f"{smc}, {int(n_in.sum())} arrivals, {int(want_d.sum())} "
-              "dropped: equal")
+        print(f"kernel{tag}: append_incoming {label}: buckets {scap}, "
+              f"incoming {smc}, {int(n_in.sum())} arrivals, "
+              f"{int(want_d.sum())} dropped: equal")
         check((int(want_d.sum()) > 0) == (label == "not fitting"),
               f"append_incoming {label}: dropped {int(want_d.sum())}")
-    _, _, crowd = _physics_subset(dev, ppc=22)
+    _, _, crowd = _physics_subset(dev, ppc=22, dtype=dtype)
     _, cmov, _, _ = rb.split_buckets_plain(crowd, **sgrid, b_cap=smc)
     cinc, _ = route_movers(cmov, st, smc)
     want, want_c, want_d = rb.defrag_buckets_plain(crowd, cinc)
@@ -784,7 +917,7 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
     _same(got_c, want_c, "defrag dense counts")
     _same(got_d, want_d, "defrag dense dropped")
     check(int(want_d.sum()) > 0, "defrag dense: no census overflow")
-    print(f"kernel: defrag with a dense incoming slab: {_live(crowd)} + "
+    print(f"kernel{tag}: defrag with a dense incoming slab: {_live(crowd)} + "
           f"{_live(cinc)} arrivals, {int(want_d.sum())} dropped: equal")
 
     for label, q in (("normal", sp), ("crowded", crowd)):
@@ -803,7 +936,7 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
         check(rb.segment_kernel.launches == 0, "small route ran the segment")
         check(ran == ((0, 1) if label == "crowded" else (1, 0)),
               f"small rebin_auto {label}: append_incoming/defrag ran {ran}")
-        print(f"kernel: small-bucket rebin_auto {label}: {_live(q)} "
+        print(f"kernel{tag}: small-bucket rebin_auto {label}: {_live(q)} "
               f"particles, dropped {int(dropped)}, append_incoming/defrag "
               f"ran {ran[0]}/{ran[1]}: equal to the CPU")
     cpu = type(sp)(*(a.cpu() for a in sp))
@@ -812,7 +945,7 @@ def phase_rebin_kernels_b6_b8(dev) -> None:
     _same(type(sp)(*(a.cpu() for a in got)), want, "rebin_incremental")
     check(int(dropped) == int(dropped_p) and int(wm_after) == int(wm_p),
           "rebin_incremental counts")
-    print(f"kernel: rebin_incremental: {_live(sp)} particles, dropped "
+    print(f"kernel{tag}: rebin_incremental: {_live(sp)} particles, dropped "
           f"{int(dropped)}, max watermark {int(wm_after)}: equal to the CPU")
 
 
@@ -1097,42 +1230,57 @@ def timed_run(sim, steps, every, sample, label, card, closed=True,
     return launches, wall
 
 
-def phase_physics(dev, card: str) -> int:
-    """The physics bars on the card, through Simulation.run.  Returns
-    append_incoming's launches in the two_stream run."""
+def _energy_acceptance(dev, card: str, precision: str):
+    """The 10k-step energy acceptance in `precision` through Simulation.run:
+    max |dE|/E0 < 1e-3, overflow 0.  Returns (its re-bin launches, the
+    simulation)."""
     from minipic_torch.decks import standard
-    from minipic_torch.diag.analysis import (energy_drift, field_spectrum_x,
-                                             growth_rate,
-                                             two_stream_growth_theory)
+    from minipic_torch.diag.analysis import energy_drift
     from minipic_torch.simulation import Simulation
 
     # The energy acceptance deck exactly as scripts/energy_probe.py builds
     # it at docs/energy_tpu_10k_int8q.json's settings: 64^2, ppc 16, u0
-    # 0.2, beams at uth 0.05 (ions cold), TSC, int8, headroom 3.
+    # 0.2, beams at uth 0.05 (ions cold), TSC, int8 (f64: the exact f64
+    # deposit, as the JAX package's f64 runs), headroom 3.
     case = standard.two_stream(nx=64, ny=64, ppc=16, u0=0.2)
     sp = tuple(dataclasses.replace(s, uth=(0.05 if s.mass <= 1.0 else 0.0),
                                    shape_order=2)
                for s in case.deck.species)
-    deck = dataclasses.replace(case.deck, species=sp, precision="f32",
+    deck = dataclasses.replace(case.deck, species=sp, precision=precision,
                                gather_precision="exact",
                                capacity_headroom=3.0)
     sim = Simulation(deck, seed=0, device=dev)
     sim.state = case.seed_state(sim.state, deck)
     hist = []
-    timed_run(sim, ENERGY_STEPS, ENERGY_EVERY,
-              lambda st, i: hist.append((i, *_energies(st, deck))),
-              "two-stream energy acceptance (energy_probe's deck)", card)
+    label = "two-stream energy acceptance (energy_probe's deck)"
+    if precision != "f32":
+        label = f"{label} {precision}"
+    launches, _ = timed_run(
+        sim, ENERGY_STEPS, ENERGY_EVERY,
+        lambda st, i: hist.append((i, *_energies(st, deck))), label, card)
     check(len(hist) == ENERGY_STEPS // ENERGY_EVERY + 1, "energy samples")
     check(sim.overflow_total == 0, f"energy deck: overflow "
           f"{sim.overflow_total}")
     tot = [f + k for _, f, k in hist]
     worst = max(range(len(tot)), key=lambda i: abs(tot[i] - tot[0]))
     drift = energy_drift([(f, k) for _, f, k in hist])
-    print(f"physics: energy: E0 {tot[0]:.9e}, max |dE|/E0 {drift:.4e} at "
-          f"step {hist[worst][0]}, end {abs(tot[-1] - tot[0]) / tot[0]:.4e}, "
-          f"field share at the end {hist[-1][1] / tot[-1]:.4e} (bar 1e-3) "
-          f"[{card}]")
+    print(f"physics: energy {precision}: E0 {tot[0]:.9e}, max |dE|/E0 "
+          f"{drift:.4e} at step {hist[worst][0]}, end "
+          f"{abs(tot[-1] - tot[0]) / tot[0]:.4e}, field share at the end "
+          f"{hist[-1][1] / tot[-1]:.4e} (bar 1e-3) [{card}]")
     check(drift < 1e-3, f"energy drift {drift:.3e} >= 1e-3")
+    return launches, sim
+
+
+def phase_physics(dev, card: str) -> int:
+    """The physics bars on the card, through Simulation.run.  Returns
+    append_incoming's launches in the two_stream run."""
+    from minipic_torch.decks import standard
+    from minipic_torch.diag.analysis import (field_spectrum_x, growth_rate,
+                                             two_stream_growth_theory)
+    from minipic_torch.simulation import Simulation
+
+    _energy_acceptance(dev, card, "f32")
 
     case = standard.make("weibel")
     deck = case.deck
@@ -1218,14 +1366,14 @@ def phase_physics(dev, card: str) -> int:
     return launches["append_incoming"]
 
 
-def _open_subset(name: str, dev, seed=31):
+def _open_subset(name: str, dev, seed=31, dtype=None):
     """A cut of deck `name` (OPEN_SUBSETS: its tile shape, guard, order,
     bucket size and f32 deposit) loaded on the card: the electrons up to
     0.3 cells off their tiles inside the box, momenta x20 (uth 0.2), every
     7th slot dead, and in the tiles at each wall particles within 0.2
     cells of it moving out at |u| = 3, through each wall and, diagonally,
     each corner; fields: the deck's laser plus a 0.02 wave on every
-    component."""
+    component.  Made in float32; `dtype`: the same values in that type."""
     import torch
 
     from minipic_torch.decks import standard
@@ -1269,10 +1417,13 @@ def _open_subset(name: str, dev, seed=31):
                   for c, a in enumerate(f)))
     ft = extract_field_tiles(pad_fields_periodic(f, deck.guard), t.tile_rows,
                              t.tile_cols, t.tile_ny, t.tile_nx, deck.guard)
+    if dtype is not None:
+        p = type(p)(*(a.to(dtype) for a in p))
+        ft = type(ft)(*(a.to(dtype) for a in ft))
     return deck, p, ft
 
 
-def _open_kw(deck, dev, spec=None):
+def _open_kw(deck, dev, spec=None, mode="f32"):
     from minipic_torch.simulation import tile_origins
 
     t = deck.tiling
@@ -1280,20 +1431,22 @@ def _open_kw(deck, dev, spec=None):
     return dict(qm=spec.charge / spec.mass, q=spec.charge,
                 order=spec.shape_order, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
                 origins=tile_origins(t, dev), g=deck.guard, dt=deck.dt,
-                dx=deck.dx, dy=deck.dy, grid=None, mode="f32")
+                dx=deck.dx, dy=deck.dy, grid=None, mode=mode)
 
 
 def _compare_open(deck, p, ft, label: str, kw=None) -> float:
     """The advance kernel against its plain version in the open mode on
-    the same inputs: live particles' positions and momenta equal, dead
-    slots untouched, J within OPEN_J_TOL of its peak; returns the largest
-    absolute difference of J (the particles' is 0)."""
+    the same inputs: live particles' positions and momenta equal (f64
+    mode: within F64_ULPS of each channel's scale), dead slots untouched,
+    J within OPEN_J_TOL of its peak (f64 mode: F64_J_TOL); returns the
+    largest absolute difference of J."""
     import torch
 
     from minipic_torch.ops.advance import (advance_kernel, advance_plain,
                                            live_watermark)
 
     kw = _open_kw(deck, p.x.device) if kw is None else kw
+    f64 = kw["mode"] == "f64"
     counts = live_watermark(p.w)
     pk, jk, dk = advance_kernel(p, ft, counts, **kw)
     pp, jp, dp = advance_plain(p, ft, counts, **kw)
@@ -1301,19 +1454,26 @@ def _compare_open(deck, p, ft, label: str, kw=None) -> float:
     live = p.w > 0
     for name, a, b, old in zip(("x", "y", "px", "py", "pz"), pk, pp, p):
         d = (a - b)[live].abs()
-        check(torch.equal(a[live], b[live]),
-              f"{label} {name}: {int((d > 0).sum())} of {int(live.sum())} "
-              f"live particles differ, by up to {float(d.max()):.3e}")
+        if f64:
+            u = _ulps(a[live], b[live])
+            check(u <= F64_ULPS, f"{label} {name}: {u:.2f} ulps of the "
+                  f"channel's scale (max diff {float(d.max()):.3e})")
+        else:
+            check(torch.equal(a[live], b[live]),
+                  f"{label} {name}: {int((d > 0).sum())} of "
+                  f"{int(live.sum())} live particles differ, by up to "
+                  f"{float(d.max()):.3e}")
         check(torch.equal(a[~live], old[~live]),
               f"{label} {name}: dead slots changed")
     err = 0.0
+    tol = F64_J_TOL if f64 else OPEN_J_TOL
     for name, a, b in zip(("jx", "jy", "jz"), jk, jp):
         scale = float(b.abs().max())
         d = float((a - b).abs().max())
-        check(d <= OPEN_J_TOL * scale,
-              f"{label} {name}: {d} > {OPEN_J_TOL} * {scale}")
+        check(d <= tol * scale, f"{label} {name}: {d} > {tol} * {scale}")
         err = max(err, d)
-    check(abs(float(dk.max()) - float(dp.max())) <= 1e-6 * float(dp.max()),
+    dtol = 1e-12 if f64 else 1e-6
+    check(abs(float(dk.max()) - float(dp.max())) <= dtol * float(dp.max()),
           f"{label}: dmax differs")
     return err
 
@@ -1323,18 +1483,24 @@ def phase_open_kernel(dev) -> None:
     at the laser decks' shapes, leavers through every wall and corner and
     dead slots included; the periodic mode on the same subsets still
     matches."""
+    import torch
+
     from minipic_torch.ops.advance import advance_kernel, live_watermark
 
-    for name in OPEN_SUBSETS:
-        deck, p, ft = _open_subset(name, dev)
+    # Both decks in f32; laser_plasma's also in f64 (B1's f64 mode between
+    # absorbing walls).
+    for name, mode in [(n, "f32") for n in OPEN_SUBSETS] + [
+            ("laser_plasma", "f64")]:
+        deck, p, ft = _open_subset(
+            name, dev, dtype=torch.float64 if mode == "f64" else None)
         t = deck.tiling
         label = (f"open {name} shape (order {deck.species[0].shape_order}, "
                  f"{t.tile_ny + 2 * deck.guard}^2 windows, "
-                 f"{p.capacity} slots, f32)")
-        err = _compare_open(deck, p, ft, label)
+                 f"{p.capacity} slots, {mode})")
+        kw = _open_kw(deck, dev, mode=mode)
+        err = _compare_open(deck, p, ft, label, kw)
         # The leavers' moves, stored unwrapped: out through every wall.
-        (x1, y1, *_), _, _ = advance_kernel(p, ft, live_watermark(p.w),
-                                            **_open_kw(deck, dev))
+        (x1, y1, *_), _, _ = advance_kernel(p, ft, live_watermark(p.w), **kw)
         live = p.w > 0
         x1, y1 = x1[live], y1[live]
         out = [int(o.sum()) for o in (x1 < 0, x1 >= deck.nx, y1 < 0,
@@ -1344,12 +1510,14 @@ def phase_open_kernel(dev) -> None:
         check(min(out) >= 4 and corners >= 4,
               f"{label}: leavers {out}, through corners {corners}")
         perr = _compare(p, ft, live_watermark(p.w),
-                        dict(_open_kw(deck, dev), grid=(deck.nx, deck.ny)),
+                        dict(kw, grid=(deck.nx, deck.ny)),
                         f"{label}, periodic mode")
         print(f"kernel: {label}: {int(live.sum())} particles, leavers "
               f"(x<0, x>=nx, y<0, y>=ny) {out}, through corners {corners}: "
-              f"positions and momenta equal, J max abs err {err:.3e}; the "
-              f"periodic mode on the same subset max abs err {perr:.3e}")
+              f"positions and momenta equal"
+              f"{f' within {F64_ULPS} ulps' if mode == 'f64' else ''}, J "
+              f"max abs err {err:.3e}; the periodic mode on the same subset "
+              f"max abs err {perr:.3e}")
 
 
 def phase_open_twins(dev) -> None:
@@ -1414,11 +1582,12 @@ def phase_open_twins(dev) -> None:
               f"{rb.defrag_kernel.launches})")
 
 
-def _pulse_physics(dev, card: str) -> None:
-    """reference_pulse for its full span through Simulation.run, the mid-y
-    Bz lineout collected on the device every total_steps // 260 steps (the
-    JAX package's validation run's sampling): the pulse's speed and its
-    two peak amplitudes at t = 500 against docs/VALIDATION.md."""
+def _pulse_physics(dev, card: str, precision: str = "f32") -> None:
+    """reference_pulse in `precision` for its full span through
+    Simulation.run, the mid-y Bz lineout collected on the device every
+    total_steps // 260 steps (the JAX package's validation run's
+    sampling): the pulse's speed and its two peak amplitudes at t = 500
+    against docs/VALIDATION.md."""
     import numpy as np
     import torch
 
@@ -1429,8 +1598,10 @@ def _pulse_physics(dev, card: str) -> None:
                                              track_peak_speed)
 
     case = standard.make("reference_pulse")
-    deck = case.deck
+    deck = dataclasses.replace(case.deck, precision=precision)
+    case = dataclasses.replace(case, deck=deck)
     sim = case.simulation(device=dev)
+    check(sim.state.fields.bz.dtype == deck.dtype, "reference_pulse dtype")
     n = deck.total_steps
     every = n // PULSE_SAMPLES
     mid = deck.ny // 2
@@ -1457,7 +1628,7 @@ def _pulse_physics(dev, card: str) -> None:
     p1, p2 = peak_amplitudes(lineout(bz))
     p10, p20 = peak_amplitudes(lineout(
         case.init_fields(deck, device="cpu").bz.double().numpy()))
-    print(f"physics: reference_pulse {deck.nx}^2: {n} steps (t "
+    print(f"physics: reference_pulse {deck.nx}^2 {precision}: {n} steps (t "
           f"{n * deck.dt:.4f}) in {wall:.2f} s, {1e3 * wall / n:.4f} ms/step; "
           f"{len(lines)} lineouts every {every} steps; leading-peak speed "
           f"(fit_pulse_speed) {speed:.6f} c (bar: within 2e-4 of the "
@@ -1469,6 +1640,33 @@ def _pulse_physics(dev, card: str) -> None:
           f"reference_pulse: speed {speed}")
     check(abs(p1 / 0.0833 - 1) <= 0.03 and abs(p2 / 0.0683 - 1) <= 0.03,
           f"reference_pulse: peak amplitudes {p1}, {p2}")
+
+
+# The JAX package's f64 record of the energy deck, on the CPU (its f64 TPU
+# backend crashed: scripts/energy_probe.py:35-36); printed for reference.
+JAX_F64_RECORD = "docs/energy_cpu64_3k.json"
+
+
+def phase_f64_physics(dev, card: str) -> dict:
+    """The f64 runs at full size on the card: the 10k-step energy
+    acceptance in f64 (printed beside the JAX package's CPU f64 record),
+    then append_incoming's numbers on its final state (B6 in f64), and
+    reference_pulse in f64 for its 63,639 steps.  Returns B6's numbers with
+    its launches in the energy run."""
+    launches, sim = _energy_acceptance(dev, card, "f64")
+    with open(ROOT / JAX_F64_RECORD) as f:
+        rec = json.load(f)
+    cfg = rec["config"]
+    print(f"physics: for reference only, the JAX package's f64 record "
+          f"({JAX_F64_RECORD}: {cfg['platform']}, order {cfg['order']}, "
+          f"{cfg['steps']} steps in {rec['wall_s']} s): max |dE|/E0 "
+          f"{rec['max_drift']:.4e}, overflow {rec['overflow']}")
+    deck = sim.deck
+    b6 = _route_numbers(sim.state.species[0], deck)["append_incoming"]
+    b6["launches"] = launches["append_incoming"]
+    del sim
+    _pulse_physics(dev, card, "f64")
+    return b6
 
 
 def _route_numbers(p, deck, reps=20) -> dict:
@@ -1484,6 +1682,9 @@ def _route_numbers(p, deck, reps=20) -> dict:
 
     t = deck.tiling
     T, cap = p.x.shape
+    # Bytes of one channel value and of one slot's six.
+    e = p.x.element_size()
+    sb = 6 * e
     mc, sc = rebin_caps(deck, cap)
     deal = sc > 0 and cap >= 8 * sc + 256
     skw = dict(tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
@@ -1495,7 +1696,7 @@ def _route_numbers(p, deck, reps=20) -> dict:
                         for i, (a, b) in enumerate(zip(got, want))),
         plain_ms=cuda_ms(lambda: rb.split_buckets_plain(p, **skw), 1),
         job=(lambda: rb.split_kernel(p, **skw), reps, "split_kernel"),
-        **bound(2 * 24 * T * cap + 24 * T * mc + 8 * T)))
+        **bound(2 * sb * T * cap + sb * T * mc + 8 * T)))
     p1, movers, wm, _ = got
     # Each defrag merges into a fresh copy of the split buckets.
     copies = iter([_clone(p1) for _ in range(reps + 1)])
@@ -1511,7 +1712,7 @@ def _route_numbers(p, deck, reps=20) -> dict:
                              1),
             job=(lambda: rb.segment_kernel(movers, **gkw), reps,
                  "segment_kernel"),
-            **bound(24 * T * mc + 24 * T * 8 * sc + 4 * T))
+            **bound(sb * T * mc + sb * T * 8 * sc + 4 * T))
         nbr = rb.seg_neighbor_table(t.tile_rows, t.tile_cols, p.x.device)
         n_in = int((seg.w > 0).sum())
         want, want_d = rb.append_segments_plain(p1, seg, wm, nbr, b_seg=sc)
@@ -1526,7 +1727,7 @@ def _route_numbers(p, deck, reps=20) -> dict:
                 p1, seg, wm, nbr, b_seg=sc), 1),
             job=(lambda: rb.append_kernel(q, seg, wm, nbr, b_seg=sc), reps,
                  "append_kernel"),
-            **bound(4 * T * 8 * sc + 2 * 24 * n_in + 40 * T))
+            **bound(e * T * 8 * sc + 2 * sb * n_in + 40 * T))
         inc = rb.roll_segments(seg, nbr, sc)
         want, want_c, want_d = rb.defrag_buckets_plain(p1, inc)
         r = _clone(p1)
@@ -1534,7 +1735,7 @@ def _route_numbers(p, deck, reps=20) -> dict:
         defrag_job = (lambda: rb.defrag_kernel(next(copies), seg, nbr,
                                                b_seg=sc), reps,
                       "defrag_kernel")
-        in_bytes = 4 * T * 8 * sc + 24 * n_in + 32 * T
+        in_bytes = e * T * 8 * sc + sb * n_in + 32 * T
     else:
         inc, _ = route_movers(movers, t, mc)
         n_in = int((inc.w > 0).sum())
@@ -1551,19 +1752,19 @@ def _route_numbers(p, deck, reps=20) -> dict:
                                reps),
             job=(lambda: rb.append_incoming_kernel(q, inc, wm), reps,
                  "append_rows_kernel"),
-            **bound(4 * T * mc + 4 * T + 2 * 24 * n_in))
+            **bound(e * T * mc + 4 * T + 2 * sb * n_in))
         want, want_c, want_d = rb.defrag_buckets_plain(p1, inc)
         r = _clone(p1)
         got_c, got_d = rb.defrag_kernel(r, inc)
         defrag_job = (lambda: rb.defrag_kernel(next(copies), inc), reps,
                       "defrag_kernel")
-        in_bytes = 24 * T * mc
+        in_bytes = sb * T * mc
     out["defrag"] = dict(
         max_abs_err=max(_same(r, want, "route defrag"),
                         _same(got_c, want_c, "route defrag counts"),
                         _same(got_d, want_d, "route defrag dropped")),
         plain_ms=cuda_ms(lambda: rb.defrag_buckets_plain(p1, inc), 1),
-        job=defrag_job, **bound(2 * 24 * T * cap + in_bytes + 8 * T))
+        job=defrag_job, **bound(2 * sb * T * cap + in_bytes + 8 * T))
     for v in out.values():
         v.update(route="deal" if deal else "small-bucket",
                  shape=f"{T} tiles x {cap} slots, mover buffer {mc}"
@@ -1881,35 +2082,43 @@ def _run(sim, steps: int, card: str, label: str, force_at=None):
     return rebin_ms
 
 
-def phase_main(dev, card: str) -> dict:
-    """The headline deck as bench.py builds it, on the card; returns each
-    kernel's numbers for the JSON line: launches in the run, and error
-    and times at its shape."""
+def phase_main(dev, card: str, precision: str = "f32") -> dict:
+    """The headline deck as bench.py builds it, on the card (`precision`
+    "f64": the same deck in f64, the advance's f64 mode and the re-bin
+    kernels over float64 channels); returns each kernel's numbers for the
+    JSON line: launches in the run, and error and times at its shape."""
     import torch
 
     from minipic_torch import headline
     from minipic_torch.ops import rebin as rb
     from minipic_torch.ops.advance import advance_kernel
-    from minipic_torch.simulation import Simulation
+    from minipic_torch.simulation import Simulation, deposit_modes
 
-    deck = headline.headline_deck()
+    deck = dataclasses.replace(headline.headline_deck(), precision=precision)
     check(deck.rebin_mode == "auto", "headline deck is not bench.py's")
+    mode = deposit_modes(deck)[0]
+    f64 = mode == "f64"
+    check(mode == ("f64" if precision == "f64" else "int8"),
+          f"headline {precision} deposit mode {mode}")
+    tag = "main" if precision == "f32" else f"main {precision}"
     t0 = time.perf_counter()
     sim = Simulation(deck, seed=0, device=dev)
     torch.cuda.synchronize()
     p0 = sim.state.species[0]
-    print(f"main: {int((p0.w > 0).sum())} particles, buckets "
-          f"{tuple(p0.x.shape)}, {deck.nx}^2, TSC, int8, deal-route re-bin; "
-          f"loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"{tag}: {int((p0.w > 0).sum())} particles, buckets "
+          f"{tuple(p0.x.shape)} {p0.x.dtype}, {deck.nx}^2, TSC, {mode} "
+          f"deposit, deal-route re-bin; loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
     del p0
     advance_kernel.launches = 0
     for k in rb.KERNELS.values():
         k.reset()
-    rebin_ms = _run(sim, MAIN_STEPS, card, "main")
+    rebin_ms = _run(sim, MAIN_STEPS, card, tag)
     launches = {"advance": advance_kernel.launches,
                 **{n: k.launches for n, k in rb.KERNELS.items()}}
     ran = (rb.append_kernel.taken_count(), rb.defrag_kernel.taken_count())
-    print(f"main: launches {launches}; append/defrag ran {ran[0]}/{ran[1]}")
+    print(f"{tag}: launches {launches}; append/defrag ran "
+          f"{ran[0]}/{ran[1]}")
     check(launches["advance"] == MAIN_STEPS, "advance launches")
     # A re-bin that left movers pending keeps the drift budget, so it is
     # not among the re-bin steps: every split must have reset it.
@@ -1936,36 +2145,60 @@ def phase_main(dev, card: str) -> dict:
                              t.tile_rows, t.tile_cols, t.tile_ny, t.tile_nx,
                              deck.guard)
     counts = live_watermark(p.w)
-    kw = _kw(deck, "int8", dev)
-    err = _compare(p, ft, counts, kw, "main-path shape o2 int8")
+    kw = _kw(deck, mode, dev)
+    err = _compare(p, ft, counts, kw, f"{tag}-path shape o2 {mode}")
     # Bytes: six channels in and five out up to each watermark, the field
-    # windows in, the J windows and displacements out.
+    # windows in, the J windows and displacements out; e bytes a value.
+    e = p.x.element_size()
+    sb = 6 * e
     n_wm = int(counts.sum())
     win = T * (t.tile_ny + 2 * deck.guard) * (t.tile_nx + 2 * deck.guard)
     numbers["advance"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: advance_kernel(p, ft, counts, **kw), 5),
         plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **kw), 2),
-        **bound(4 * (11 * n_wm + 9 * win + T),
-                ADVANCE_OPS_PER_PARTICLE * _live(p)))
+        **bound(e * (11 * n_wm + 9 * win + T),
+                ADVANCE_OPS_PER_PARTICLE * _live(p), f64=f64))
     # The same work with each bucket's live slots in random order: a warp's
     # lanes then hold up to 32 bases.
     ps = _shuffle_slots(p, counts,
                         torch.Generator(device=dev).manual_seed(3))
-    err_s = _compare(ps, ft, counts, kw, "main-path shape, shuffled slots")
+    err_s = _compare(ps, ft, counts, kw,
+                     f"{tag}-path shape, shuffled slots")
     shuffled_ms = cuda_ms(lambda: advance_kernel(ps, ft, counts, **kw), 5)
-    del ps, ft
+    del ps
     nyg, nxg = t.tile_ny + 2 * deck.guard, t.tile_nx + 2 * deck.guard
-    print(f"main: advance at the main path's final state "
+    print(f"{tag}: advance at the main path's final state "
           f"{numbers['advance']['ms']:.3f} ms, with its slots shuffled "
           f"{shuffled_ms:.3f} ms (max abs err {err_s:.3e}); bound "
-          f"{numbers['advance']['bound_ms']:.3f} ms; "
-          f"{advance_kernel.blocks_per_sm(2, 'int8', nyg, nxg)} blocks of "
+          f"{numbers['advance']['bound_ms']:.3f} ms "
+          f"({numbers['advance']['bound_by']}); "
+          f"{advance_kernel.blocks_per_sm(2, mode, nyg, nxg)} blocks of "
           f"256 threads per SM [{card}]")
-    lo, hi = PARENT_ADVANCE_MS
-    print(f"main: the advance with its per-tile origin arrays "
-          f"{numbers['advance']['ms']:.3f} ms beside the parent kernel's "
-          f"{lo}-{hi} ms at this state (PERF.md, the same card model)")
+    if f64:
+        # B1's f64 mode on a 64-tile subset of this state (the first row
+        # of tiles, with their origins), and its continuity residual.
+        sub = type(p)(*(a[:SUBSET_TILES].contiguous() for a in p))
+        fsub = type(ft)(*(a[:SUBSET_TILES].contiguous() for a in ft))
+        origins = tuple(o[:SUBSET_TILES].contiguous()
+                        for o in kw["origins"])
+        skw = dict(kw, origins=origins)
+        serr = _compare(sub, fsub, live_watermark(sub.w), skw,
+                        f"{tag} 64-tile subset")
+        cont = _continuity(deck, sub, mode, fsub, origins)
+        print(f"{tag}: advance on a 64-tile subset of the final state "
+              f"({_live(sub)} particles): max abs err {serr:.3e}, "
+              f"continuity residual {cont:.3e} of scale (bar "
+              f"{F64_CONTINUITY})")
+        check(cont < F64_CONTINUITY, f"{tag} continuity {cont}")
+        del sub, fsub
+    else:
+        lo, hi = PARENT_ADVANCE_MS
+        print(f"{tag}: the advance with its per-tile origin arrays "
+              f"{numbers['advance']['ms']:.3f} ms beside the parent "
+              f"kernel's {lo}-{hi} ms at this state (PERF.md, the same card "
+              "model)")
+    del ft
 
     mc = deck.mover_cap(cap)
     sc = deck.mover_seg_cap(mc)
@@ -1973,35 +2206,35 @@ def phase_main(dev, card: str) -> dict:
     skw = dict(grid, b_cap=mc)
     got = rb.split_kernel(p, **skw)
     want = rb.split_buckets_plain(p, **skw)
-    err = max(_same(a, b, f"main split {i}")
+    err = max(_same(a, b, f"{tag} split {i}")
               for i, (a, b) in enumerate(zip(got, want)))
     numbers["split"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: rb.split_kernel(p, **skw), 3),
         plain_ms=cuda_ms(lambda: rb.split_buckets_plain(p, **skw), 1),
-        **bound(24 * T * cap + 24 * T * cap + 24 * T * mc + 8 * T))
+        **bound(2 * sb * T * cap + sb * T * mc + 8 * T))
     p1, movers, wm, pending = got
     del want
     gkw = dict(tile_rows=t.tile_rows, **grid, b_seg=sc)
     seg, sd = rb.segment_kernel(movers, **gkw)
     seg_p, sd_p = rb.segment_movers_plain(movers, **gkw)
-    err = max(_same(seg, seg_p, "main segment"),
-              _same(sd, sd_p, "main segment dropped"))
+    err = max(_same(seg, seg_p, f"{tag} segment"),
+              _same(sd, sd_p, f"{tag} segment dropped"))
     numbers["segment"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: rb.segment_kernel(movers, **gkw), 3),
         plain_ms=cuda_ms(lambda: rb.segment_movers_plain(movers, **gkw), 1),
-        **bound(24 * T * mc + 24 * T * 8 * sc + 4 * T))
+        **bound(sb * T * mc + sb * T * 8 * sc + 4 * T))
     del seg_p
     nbr = rb.seg_neighbor_table(t.tile_rows, t.tile_cols, dev)
     n_in = int((seg.w > 0).sum())
     # The appends read the runs' w, the live arrivals, the watermarks (and
     # the table), and write the arrivals and the dropped counts.
-    app_bytes = 4 * T * 8 * sc + 2 * 24 * n_in + 8 * T
+    app_bytes = e * T * 8 * sc + 2 * sb * n_in + 8 * T
     want, want_d = rb.append_segments_plain(p1, seg, wm, nbr, b_seg=sc)
     q = _clone(p1)
     got_d = rb.append_kernel(q, seg, wm, nbr, b_seg=sc)
-    err = max(_same(q, want, "main append"),
-              _same(got_d, want_d, "main append dropped"))
+    err = max(_same(q, want, f"{tag} append"),
+              _same(got_d, want_d, f"{tag} append dropped"))
     # The append is idempotent on its own output (same runs, same
     # watermarks), so repeated launches time it fairly.
     numbers["append"] = dict(
@@ -2013,9 +2246,9 @@ def phase_main(dev, card: str) -> dict:
     inc = rb.roll_segments(seg, nbr, sc)
     r = _clone(p1)
     got_d = rb.append_runs_kernel(r, inc, wm, b_seg=sc)
-    err = max(_same(r, want, "main append_runs"),
-              _same(got_d, want_d, "main append_runs dropped"),
-              _same(r, q, "main append_runs against the append"))
+    err = max(_same(r, want, f"{tag} append_runs"),
+              _same(got_d, want_d, f"{tag} append_runs dropped"),
+              _same(r, q, f"{tag} append_runs against the append"))
     numbers["append_runs"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: rb.append_runs_kernel(r, inc, wm, b_seg=sc), 3),
@@ -2026,9 +2259,9 @@ def phase_main(dev, card: str) -> dict:
     want, want_c, want_d = rb.defrag_buckets_plain(p1, inc)
     q = _clone(p1)
     got_c, got_d = rb.defrag_kernel(q, seg, nbr, b_seg=sc)
-    err = max(_same(q, want, "main defrag"),
-              _same(got_c, want_c, "main defrag counts"),
-              _same(got_d, want_d, "main defrag dropped"))
+    err = max(_same(q, want, f"{tag} defrag"),
+              _same(got_c, want_c, f"{tag} defrag counts"),
+              _same(got_d, want_d, f"{tag} defrag dropped"))
     # Timed on a copy of the split buckets per launch: a second merge
     # into its own output would not be the same work.
     qs = [_clone(p1) for _ in range(3)]
@@ -2038,21 +2271,21 @@ def phase_main(dev, card: str) -> dict:
         ms=cuda_ms(lambda: rb.defrag_kernel(next(it), seg, nbr, b_seg=sc), 2,
                    warm=1),
         plain_ms=cuda_ms(lambda: rb.defrag_buckets_plain(p1, inc), 1),
-        **bound(2 * 24 * T * cap + 4 * T * 8 * sc + 24 * n_in + 32 * T
+        **bound(2 * sb * T * cap + e * T * 8 * sc + sb * n_in + 32 * T
                 + 8 * T))
     del want, q, qs, inc
 
     got = rb.extract_kernel(p, **skw)
     want = rb.extract_movers_plain(p, **skw)
-    err = max(_same(a, b, f"main extract {i}")
+    err = max(_same(a, b, f"{tag} extract {i}")
               for i, (a, b) in enumerate(zip(got, want)))
     n_ext = _live(want[1])
     numbers["extract"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: rb.extract_kernel(p, **skw), 3),
         plain_ms=cuda_ms(lambda: rb.extract_movers_plain(p, **skw), 1),
-        **bound(12 * T * cap + 12 * n_ext + 4 * T * cap + 24 * T * mc
+        **bound(3 * e * T * cap + 3 * e * n_ext + e * T * cap + sb * T * mc
                 + 8 * T))
-    print(f"main: extract: {n_ext} movers out, {int(want[3].sum())} not "
+    print(f"{tag}: extract: {n_ext} movers out, {int(want[3].sum())} not "
           "kept: equal")
     del got, want
 
@@ -2067,22 +2300,24 @@ def phase_main(dev, card: str) -> dict:
              "append_rows_kernel")]
 
     fused_out = rebin_auto(p, t, mc, seg_cap=sc)
+    rb.append_runs_kernel.reset()
     runs_out = rebin_auto(p, t, mc, seg_cap=sc, fused=False)
-    _same(runs_out[0], fused_out[0], "main rebin_auto fused=False")
+    runs_launches = rb.append_runs_kernel.launches
+    _same(runs_out[0], fused_out[0], f"{tag} rebin_auto fused=False")
     check(int(runs_out[1]) == int(fused_out[1])
           and int(runs_out[2]) == int(fused_out[2]),
-          "main rebin_auto fused=False counts")
+          f"{tag} rebin_auto fused=False counts")
     del fused_out, runs_out
     auto_ms = cuda_ms(lambda: rebin_auto(p, t, mc, seg_cap=sc), 3)
     unfused_ms = cuda_ms(lambda: rebin_auto(p, t, mc, seg_cap=sc,
                                             fused=False), 3)
     sort_ms = cuda_ms(lambda: rebin(p, t), 3)
     for name, v in numbers.items():
-        print(f"main: {name} at the main path's shape: kernel "
+        print(f"{tag}: {name} at the main path's shape: kernel "
               f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
               f"{v['bound_ms']:.3f} ms ({v['bound_by']}), max abs err "
               f"{v['max_abs_err']:.3e} [{card}]")
-    print(f"main: advance kernel {numbers['advance']['ms']:.3f} ms = "
+    print(f"{tag}: advance kernel {numbers['advance']['ms']:.3f} ms = "
           f"{_live(p) / (numbers['advance']['ms'] / 1e3):.4e} "
           f"pushes/s alone; deal-route re-bin (rebin_auto) {auto_ms:.3f} ms, "
           f"through append_runs (fused=False, equal) {unfused_ms:.3f} ms, "
@@ -2106,12 +2341,13 @@ def phase_main(dev, card: str) -> dict:
     check(_live(p2) + int(dropped) == n0, "rebin_incremental lost particles")
     check(all(bool(torch.isfinite(a).all()) for a in p2),
           "rebin_incremental: particles not finite")
-    print(f"main: rebin_incremental on the final state: {inc_ms:.3f} ms "
+    print(f"{tag}: rebin_incremental on the final state: {inc_ms:.3f} ms "
           f"(host clock, first call), dropped {int(dropped)}, max watermark "
           f"{int(wm_after)} of {cap}, launches extract "
           f"{inc_launches['extract']}, append_incoming "
           f"{inc_launches['append_incoming']} [{card}]")
     launches["extract"] = inc_launches["extract"]
+    launches["append_runs"] = runs_launches
     return ({n: dict(launches=launches[n], **v) for n, v in numbers.items()},
             jobs)
 
@@ -2669,7 +2905,12 @@ CLI_CHANNELS = ("x", "y", "px", "py", "pz", "w")
 # CLI_SPREAD times the largest difference among three uninterrupted runs,
 # field by field and channel by channel.  Between pairs of uninterrupted
 # laser_plasma runs these differences vary up to 3x; a resume that lost
-# state would differ by orders of magnitude.
+# state would differ by orders of magnitude.  Where the uninterrupted runs
+# differ at all, a channel in which all three happen to agree may still
+# differ by a rounding in a fourth run (load_balance_bunching's positions
+# differ by one ulp between some pairs of straight runs and not others), so
+# each channel's spread counts as at least one ulp of its largest value
+# (``_rounding_units``).
 CLI_SPREAD = 4.0
 
 
@@ -2826,14 +3067,34 @@ def _state_diffs(a: dict, b: dict) -> dict:
     return out
 
 
+def _rounding_units(a: dict) -> dict:
+    """One ulp of the largest |value| of a checkpoint, in its own dtype: per
+    field component, and per species and channel over the live particles
+    (the keys of ``_state_diffs``)."""
+    import numpy as np
+
+    def ulp(x):
+        return float(np.spacing(np.abs(x).max(initial=0).astype(x.dtype)))
+
+    out = {k: ulp(a[k]) for k in a if k.startswith("fields_")}
+    for i in range(int(a["n_species"])):
+        live = a[f"sp{i}_w"] > 0
+        for c in CLI_CHANNELS:
+            out[f"sp{i}_{c}"] = ulp(a[f"sp{i}_{c}"][live])
+    return out
+
+
 def _resumed_within_spread(label: str, ck: dict, card: str) -> None:
     """Checkpoints A, C, D of uninterrupted runs and B of a resumed one: if
     A, C and D agree bit for bit, B must too; if not, B may differ from A
     by no more than CLI_SPREAD times the largest difference among A, C and
-    D, per field and per particle channel (``_state_diffs``)."""
+    D, per field and per particle channel (``_state_diffs``), that
+    difference taken as at least one ulp of the channel's largest value
+    (``_rounding_units``)."""
     pairs = {p: _state_diffs(ck[p[0]], ck[p[1]])
              for p in ("AC", "AD", "CD", "AB")}
-    spread = {k: max(pairs[p][k] for p in ("AC", "AD", "CD"))
+    unit = _rounding_units(ck["A"])
+    spread = {k: max([unit[k]] + [pairs[p][k] for p in ("AC", "AD", "CD")])
               for k in pairs["AB"]}
     same = _identical(ck["A"], ck["C"]) and _identical(ck["A"], ck["D"])
     fmt = {p: {k: f"{v:.3e}" for k, v in d.items()} for p, d in pairs.items()}
@@ -2861,7 +3122,8 @@ def _cli_laser_plasma(tmp: Path, dev, save: bool, card: str,
     850 steps then --resume to 1,697 (B), and twice more uninterrupted (C,
     D).  If A, C and D agree bit for bit, B must too; if not, B may differ
     from A by no more than CLI_SPREAD times the largest difference among
-    A, C and D, per field and per particle channel (``_state_diffs``).
+    A, C and D, per field and per particle channel (``_state_diffs``), and
+    at least one ulp of its largest value (``_rounding_units``).
     Live counts and overflow equal in all four."""
     import numpy as np
 
@@ -3190,14 +3452,17 @@ def main() -> int:
     phase_build()
     phase_kernel(dev)
     phase_open_kernel(dev)
-    phase_rebin_kernels(dev)
-    phase_rebin_kernels_b6_b8(dev)
+    for dtype in (None, torch.float64):
+        phase_rebin_kernels(dev, dtype)
+        phase_rebin_kernels_b6_b8(dev, dtype)
     runs_launches = phase_small_step(dev)
     b6 = phase_decks(dev)
     phase_open_twins(dev)
     phase_sharded_kernels(dev)
     phase_mesh_twins(dev, card)
     b6_launches = phase_physics(dev, card)
+    torch.cuda.empty_cache()
+    b6_f64 = phase_f64_physics(dev, card)
     torch.cuda.empty_cache()
     lp_advance, lp_rebin, lp_launches, lp_ms = phase_open_physics(dev, card)
     torch.cuda.empty_cache()
@@ -3208,6 +3473,9 @@ def main() -> int:
     numbers, jobs = phase_main(dev, card)
     numbers["append_runs"]["launches"] = runs_launches
     numbers["advance"]["open"] = lp_advance
+    torch.cuda.empty_cache()
+    numbers64, jobs64 = phase_main(dev, card, "f64")
+    torch.cuda.empty_cache()
     # The command line before the profile (it slows what runs after it).
     cli_launches = phase_cli(dev, card, lp_ms)
     # Device times last, in one profile (device_times).  First the launch
@@ -3221,7 +3489,25 @@ def main() -> int:
                   for k, v in route.items()]
     floor_ms, *times = device_times(
         [floor_job] + [b6[d].pop("job") for d in decks] + jobs
-        + [v.pop("job") for _, _, v in lp_kernels])
+        + [v.pop("job") for _, _, v in lp_kernels]
+        + [b6_f64.pop("job")] + jobs64)
+    # The f64 path's: append_incoming on the f64 energy deck's final
+    # state, the two copy kernels of the f64 headline.
+    b6_f64["ms"], *copy64 = times[-1 - len(jobs64):]
+    times = times[:-1 - len(jobs64)]
+    for name, ms in zip(("append", "append_runs"), copy64):
+        print(f"device: {name} at the f64 main path's shape: kernel "
+              f"{ms:.4f} ms on the device (profiler), "
+              f"{numbers64[name]['ms']:.4f} ms by CUDA events [{card}]")
+        numbers64[name]["ms"] = ms
+    print(f"device: append_incoming on the f64 energy deck's final state "
+          f"({b6_f64['shape']}): kernel {b6_f64['ms']:.4f} ms on the device "
+          f"(profiler), {b6_f64['wrapper_ms']:.4f} ms a call through the "
+          f"wrapper, plain {b6_f64['plain_ms']:.3f} ms, bound "
+          f"{b6_f64['bound_ms']:.4f} ms [{card}]")
+    numbers64["append_incoming"] = {
+        k: v for k, v in b6_f64.items()
+        if k not in ("shape", "wrapper_ms", "route")}
     lp_times = times[-len(lp_kernels):]
     times = times[:-len(lp_kernels)]
     for d, ms in zip(decks, times):
@@ -3265,6 +3551,9 @@ def main() -> int:
             numbers[name]["sharded"] = sharded[name]
         numbers[name]["load_balance"] = {
             run: launches[name] for run, launches in lb_launches.items()}
+        # The f64 path: the f64 headline's numbers (append_incoming's at
+        # the f64 energy deck), with each kernel's launches there.
+        numbers[name]["f64"] = numbers64[name]
     print(card)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

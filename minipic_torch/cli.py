@@ -96,7 +96,8 @@ def _parser() -> argparse.ArgumentParser:
         help="record energies every N steps (one device read a record); "
         "overflow is read on every step that re-binned whatever N is")
     ap.add_argument("--precision", choices=["f32", "f64"], default=None,
-                    help="the deck's precision (f64 runs on the CPU only)")
+                    help="the deck's precision (f64: particles and fields in "
+                    "double, the exact f64 deposit, on either device)")
     ap.add_argument(
         "--deposit", choices=["highest", "int8"], default=None,
         help="deposit mode: 'int8' = the matched-quantization integer "

@@ -68,6 +68,15 @@
 // bases it sums each group's 48 values by shuffle trees and one lane per
 // cell adds each sum with one atomic; otherwise each lane adds its own.
 //
+// f64 mode (decks with precision "f64"; the JAX package's exact f64
+// Esirkepov deposit, whatever the deck's deposit asks): the f32 mode's code
+// instantiated on R = double.  Particles, field and J windows, shapes, the
+// fold, the Boris push (1.0 / sqrt), the move, the displacement and the
+// warp's shuffle trees are all double; its own entry point
+// (minipic_advance_f64) takes double constants.  One block per SM is asked
+// of the compiler (the double registers), and the nine double windows take
+// 72 bytes a cell of shared memory.
+//
 // What bounds it on this card.  Per particle it moves about 44 bytes of HBM
 // (read x, y, px, py, pz, w; write x, y, px, py, pz), about 4.4 GB per step
 // at the headline (1e8 particles): 1.32 ms at 3.35 TB/s; its ~400 f32
@@ -99,23 +108,65 @@
 #define MINIPIC_NO_DEPOSIT 0
 #endif
 
-struct AdvanceParams {
+// R: float (the int8 and f32 modes) or double (the f64 mode).
+template <typename R>
+struct AdvanceParamsT {
   int num_tiles, capacity, tile_nx, tile_ny, guard;
-  int periodic;             // 1: periodic box (fold and wrap); 0: open walls
-  float h;                  // push half-kick q/m dt/2 (int8: times 1/S^2)
-  float dtdx, dtdy;         // dt/dx, dt/dy
-  float q;                  // species charge
-  float grid_nx, grid_ny;   // periodic box in cells (fold and wrap; 0 open)
-  float inv_nx, inv_ny;     // 1/nx, 1/ny (0 open)
-  float half_x, half_y;     // (nx - tile_nx)/2, (ny - tile_ny)/2 (0 open)
-  float cjx, cjy;           // jx, jy factors (f32: -1/(dt dy), -1/(dt dx);
-                            // int8: -1/(2 S^2 dt dy), -1/(2 S^2 dt dx))
-  float cz;                 // 1/(dx dy)
-  float czq;                // 1/S^2
-  float S;                  // shape quantization scale
+  int periodic;         // 1: periodic box (fold and wrap); 0: open walls
+  R h;                  // push half-kick q/m dt/2 (int8: times 1/S^2)
+  R dtdx, dtdy;         // dt/dx, dt/dy
+  R q;                  // species charge
+  R grid_nx, grid_ny;   // periodic box in cells (fold and wrap; 0 open)
+  R inv_nx, inv_ny;     // 1/nx, 1/ny (0 open)
+  R half_x, half_y;     // (nx - tile_nx)/2, (ny - tile_ny)/2 (0 open)
+  R cjx, cjy;           // jx, jy factors (f32, f64: -1/(dt dy), -1/(dt dx);
+                        // int8: -1/(2 S^2 dt dy), -1/(2 S^2 dt dx))
+  R cz;                 // 1/(dx dy)
+  R czq;                // 1/S^2
+  R S;                  // shape quantization scale
 };
+using AdvanceParams = AdvanceParamsT<float>;
+using AdvanceParams64 = AdvanceParamsT<double>;
 
 namespace {
+
+// The math of one real type: float's single-precision functions, double's
+// own, correctly rounded where IEEE asks it (sqrt, division).
+__device__ __forceinline__ float r_floor(float v) { return floorf(v); }
+__device__ __forceinline__ double r_floor(double v) { return floor(v); }
+__device__ __forceinline__ float r_abs(float v) { return fabsf(v); }
+__device__ __forceinline__ double r_abs(double v) { return fabs(v); }
+__device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double r_max(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ float r_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double r_min(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float r_sqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double r_sqrt(double v) { return sqrt(v); }
+
+// The block's max displacement in shared memory: non-negative floats (and
+// doubles) order as their bits read as integers.
+__device__ __forceinline__ void max_bits(int* m, float v) {
+  atomicMax(m, __float_as_int(v));
+}
+__device__ __forceinline__ void max_bits(unsigned long long* m, double v) {
+  atomicMax(m, (unsigned long long)__double_as_longlong(v));
+}
+__device__ __forceinline__ float from_bits(int b) { return __int_as_float(b); }
+__device__ __forceinline__ double from_bits(unsigned long long b) {
+  return __longlong_as_double((long long)b);
+}
+template <typename R>
+struct MaxBits {
+  using type = int;
+};
+template <>
+struct MaxBits<double> {
+  using type = unsigned long long;
+};
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -124,7 +175,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // falls back to per-lane atomics.
 constexpr int kMaxGroups = 4;
 constexpr bool kDeposit = !MINIPIC_NO_DEPOSIT;
-constexpr float kThird = (float)(1.0 / 3.0);
 constexpr float kSixth = (float)(1.0 / 6.0);
 
 // Staging bytes of one warp for its tensor-core products, at NP pairs of
@@ -136,14 +186,14 @@ __host__ __device__ constexpr int stage_bytes(int np) {
   return 9216 + 3072 * np;
 }
 
-template <int ORDER>
-__device__ __forceinline__ float shape_val(float u) {
-  const float au = fabsf(u);
-  if (ORDER == 1) return fmaxf(0.0f, 1.0f - au);
-  const float inner = 0.75f - au * au;
-  const float o = 1.5f - au;
-  const float outer = 0.5f * (o * o);
-  return au <= 0.5f ? inner : (au <= 1.5f ? outer : 0.0f);
+template <int ORDER, typename R>
+__device__ __forceinline__ R shape_val(R u) {
+  const R au = r_abs(u);
+  if (ORDER == 1) return r_max(R(0), R(1) - au);
+  const R inner = R(0.75) - au * au;
+  const R o = R(1.5) - au;
+  const R outer = R(0.5) * (o * o);
+  return au <= R(0.5) ? inner : (au <= R(1.5) ? outer : R(0));
 }
 
 // shape_val for |u| in [0.5, 1.5].
@@ -154,13 +204,14 @@ __device__ __forceinline__ float shape_outer(float u) {
   return 0.5f * (o * o);
 }
 
-// Centre cell c (returned, as float) and the support values at c-1, c, c+1
-// of one stagger class (half: cell coordinates a + 1/2).
-template <int ORDER, bool QUANT>
-__device__ __forceinline__ float support3(float pos, bool half, int n_rows,
-                                          int g, float S, float v[3]) {
-  const float c = half ? floorf(pos) : floorf(pos + 0.5f);
-  if (QUANT) {
+// Centre cell c (returned, as a real) and the support values at c-1, c,
+// c+1 of one stagger class (half: cell coordinates a + 1/2).  QUANT is
+// float only.
+template <int ORDER, bool QUANT, typename R>
+__device__ __forceinline__ R support3(R pos, bool half, int n_rows, int g,
+                                      R S, R v[3]) {
+  const R c = half ? r_floor(pos) : r_floor(pos + R(0.5));
+  if constexpr (QUANT) {
     float tm = pos - (c - 1.0f);
     float tp = pos - (c + 1.0f);
     if (half) {
@@ -181,8 +232,8 @@ __device__ __forceinline__ float support3(float pos, bool half, int n_rows,
   } else {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      float u = pos - (c + (float)(k - 1));
-      if (half) u = u - 0.5f;
+      R u = pos - (c + R(k - 1));
+      if (half) u = u - R(0.5);
       v[k] = shape_val<ORDER>(u);
     }
   }
@@ -190,16 +241,16 @@ __device__ __forceinline__ float support3(float pos, bool half, int n_rows,
 }
 
 // sum_j sy[j] * (sum_i F[row, col] * sx[i]); off-window cells skipped.
-__device__ __forceinline__ float gather(const float* F, int cy,
-                                        const float sy[3], int cx,
-                                        const float sx[3], int g, int nyg,
-                                        int nxg) {
-  float e = 0.0f;
+template <typename R>
+__device__ __forceinline__ R gather(const R* F, int cy, const R sy[3],
+                                    int cx, const R sx[3], int g, int nyg,
+                                    int nxg) {
+  R e = R(0);
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int r = cy + j - 1 + g;
     if (r < 0 || r >= nyg) continue;
-    float m = 0.0f;
+    R m = R(0);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const int col = cx + i - 1 + g;
@@ -214,14 +265,14 @@ __device__ __forceinline__ float gather(const float* F, int cy,
 // gather() of a support inside the window, from F at its first cell: no
 // checks, and the plain version's order (the first term is not added to a
 // zero).
-__device__ __forceinline__ float gather_in(const float* F, int nxg,
-                                           const float sy[3],
-                                           const float sx[3]) {
-  float e = 0.0f;
+template <typename R>
+__device__ __forceinline__ R gather_in(const R* F, int nxg, const R sy[3],
+                                       const R sx[3]) {
+  R e = R(0);
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float* row = F + j * nxg;
-    float m = row[0] * sx[0];
+    const R* row = F + j * nxg;
+    R m = row[0] * sx[0];
     m = m + row[1] * sx[1];
     m = m + row[2] * sx[2];
     e = j == 0 ? m * sy[0] : e + m * sy[j];
@@ -229,22 +280,24 @@ __device__ __forceinline__ float gather_in(const float* F, int nxg,
   return e;
 }
 
-__device__ __forceinline__ float fold(float pos, float origin, float gn,
-                                      float half, float inv) {
-  const float xi = pos - origin;
-  return xi - gn * floorf((xi + half) * inv);
+template <typename R>
+__device__ __forceinline__ R fold(R pos, R origin, R gn, R half, R inv) {
+  const R xi = pos - origin;
+  return xi - gn * r_floor((xi + half) * inv);
 }
 
 // Tile-local coordinate: the nearest-image fold on a periodic box, the raw
 // offset between open walls.
-__device__ __forceinline__ float local(float pos, float origin, bool periodic,
-                                       float gn, float half, float inv) {
+template <typename R>
+__device__ __forceinline__ R local(R pos, R origin, bool periodic, R gn,
+                                   R half, R inv) {
   return periodic ? fold(pos, origin, gn, half, inv) : pos - origin;
 }
 
-__device__ __forceinline__ float wrap(float v, float n, float inv) {
-  float w = v - n * floorf(v * inv);
-  if (w < 0.0f) w = w + n;
+template <typename R>
+__device__ __forceinline__ R wrap(R v, R n, R inv) {
+  R w = v - n * r_floor(v * inv);
+  if (w < R(0)) w = w + n;
   if (w >= n) w = w - n;
   return w;
 }
@@ -470,19 +523,20 @@ struct Stage {
 
 // One stage of reduce16: lanes 2*HALF apart swap half of their remaining
 // 2*HALF values and add the other half.
-template <int HALF>
-__device__ __forceinline__ void tree_stage(float v[16], int lane) {
+template <int HALF, typename R>
+__device__ __forceinline__ void tree_stage(R v[16], int lane) {
   const bool up = (lane & (2 * HALF)) != 0;
 #pragma unroll
   for (int i = 0; i < HALF; ++i) {
-    const float send = up ? v[i] : v[i + HALF];
-    const float keep = up ? v[i + HALF] : v[i];
+    const R send = up ? v[i] : v[i + HALF];
+    const R keep = up ? v[i + HALF] : v[i];
     v[i] = keep + __shfl_xor_sync(kFull, send, 2 * HALF);
   }
 }
 
 // The warp's sum of value (lane >> 1) & 15 of v[16] (v is overwritten).
-__device__ __forceinline__ float reduce16(float v[16], int lane) {
+template <typename R>
+__device__ __forceinline__ R reduce16(R v[16], int lane) {
   tree_stage<8>(v, lane);
   tree_stage<4>(v, lane);
   tree_stage<2>(v, lane);
@@ -490,12 +544,13 @@ __device__ __forceinline__ float reduce16(float v[16], int lane) {
   return v[0] + __shfl_xor_sync(kFull, v[0], 1);
 }
 
-// f32 mode: adds the jx, jy and jz terms v[3][16] (cell (row0 + k/4, col0
-// + k%4) for k = 0..15) of every depositing lane to the windows win[3]: per
-// 4x4 base, summed in the warp by shuffle trees, when the warp holds at
-// most kMaxGroups bases; else lane by lane.
-__device__ __forceinline__ void warp_deposit(float* const win[3],
-                                             float v[3][16], bool dep,
+// f32 and f64 modes: adds the jx, jy and jz terms v[3][16] (cell (row0 +
+// k/4, col0 + k%4) for k = 0..15) of every depositing lane to the windows
+// win[3]: per 4x4 base, summed in the warp by shuffle trees, when the warp
+// holds at most kMaxGroups bases; else lane by lane.
+template <typename R>
+__device__ __forceinline__ void warp_deposit(R* const win[3], R v[3][16],
+                                             bool dep,
                                              int row0, int col0, int lane,
                                              int nyg, int nxg) {
   // A base off the window by 4 or more adds nothing: clamp it to make a key.
@@ -516,10 +571,10 @@ __device__ __forceinline__ void warp_deposit(float* const win[3],
                        c < nxg;
 #pragma unroll
       for (int n = 0; n < 3; ++n) {
-        float t[16];
+        R t[16];
 #pragma unroll
-        for (int k = 0; k < 16; ++k) t[k] = mine ? v[n][k] : 0.0f;
-        const float s = reduce16(t, lane);
+        for (int k = 0; k < 16; ++k) t[k] = mine ? v[n][k] : R(0);
+        const R s = reduce16(t, lane);
         if (add) atomicAdd(&win[n][r * nxg + c], s);
       }
     }
@@ -540,38 +595,44 @@ __device__ __forceinline__ void warp_deposit(float* const win[3],
   }
 }
 
-template <int ORDER, bool QUANT, int NP, bool PERIODIC>
-__global__ void __launch_bounds__(kThreads, 2)
-advance_kernel(AdvanceParams P,
-               const float* __restrict__ x, const float* __restrict__ y,
-               const float* __restrict__ px, const float* __restrict__ py,
-               const float* __restrict__ pz, const float* __restrict__ w,
+// Blocks per SM asked of the compiler: 2 for float; 1 for double, whose
+// registers are twice as many.
+template <typename R>
+constexpr int kMinBlocks = sizeof(R) == 4 ? 2 : 1;
+
+template <int ORDER, bool QUANT, int NP, bool PERIODIC, typename R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<R>)
+advance_kernel(AdvanceParamsT<R> P,
+               const R* __restrict__ x, const R* __restrict__ y,
+               const R* __restrict__ px, const R* __restrict__ py,
+               const R* __restrict__ pz, const R* __restrict__ w,
                const int* __restrict__ counts,
                const int* __restrict__ ox_t, const int* __restrict__ oy_t,
-               const float* __restrict__ ex, const float* __restrict__ ey,
-               const float* __restrict__ ez, const float* __restrict__ bx,
-               const float* __restrict__ by, const float* __restrict__ bz,
-               float* __restrict__ xo, float* __restrict__ yo,
-               float* __restrict__ pxo, float* __restrict__ pyo,
-               float* __restrict__ pzo,
-               float* __restrict__ jxo, float* __restrict__ jyo,
-               float* __restrict__ jzo, float* __restrict__ dmax) {
+               const R* __restrict__ ex, const R* __restrict__ ey,
+               const R* __restrict__ ez, const R* __restrict__ bx,
+               const R* __restrict__ by, const R* __restrict__ bz,
+               R* __restrict__ xo, R* __restrict__ yo,
+               R* __restrict__ pxo, R* __restrict__ pyo,
+               R* __restrict__ pzo,
+               R* __restrict__ jxo, R* __restrict__ jyo,
+               R* __restrict__ jzo, R* __restrict__ dmax) {
+  static_assert(!QUANT || sizeof(R) == 4, "the int8 mode is float only");
   constexpr int NT = 2 * NP;  // column tiles of 8
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int s_dmax;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ typename MaxBits<R>::type s_dmax;
   const int g = P.guard;
   const int nxg = P.tile_nx + 2 * g;
   const int nyg = P.tile_ny + 2 * g;
   const int nwin = nxg * nyg;
-  float* f_ex = smem;
-  float* f_ey = f_ex + nwin;
-  float* f_ez = f_ey + nwin;
-  float* f_bx = f_ez + nwin;
-  float* f_by = f_bx + nwin;
-  float* f_bz = f_by + nwin;
-  float* s_jx = f_bz + nwin;  // int32 in QUANT mode
-  float* s_jy = s_jx + nwin;  // int32 in QUANT mode
-  float* s_jz = s_jy + nwin;
+  R* f_ex = reinterpret_cast<R*>(smem_raw);
+  R* f_ey = f_ex + nwin;
+  R* f_ez = f_ey + nwin;
+  R* f_bx = f_ez + nwin;
+  R* f_by = f_bx + nwin;
+  R* f_bz = f_by + nwin;
+  R* s_jx = f_bz + nwin;  // int32 in QUANT mode
+  R* s_jy = s_jx + nwin;  // int32 in QUANT mode
+  R* s_jz = s_jy + nwin;
   int* i_jx = reinterpret_cast<int*>(s_jx);
   int* i_jy = reinterpret_cast<int*>(s_jy);
   const int lane = threadIdx.x & 31;
@@ -602,9 +663,9 @@ advance_kernel(AdvanceParams P,
     f_bx[i] = bx[fbase + i];
     f_by[i] = by[fbase + i];
     f_bz[i] = bz[fbase + i];
-    s_jx[i] = 0.0f;  // all-zero bits: int 0 as well
-    s_jy[i] = 0.0f;
-    s_jz[i] = 0.0f;
+    s_jx[i] = R(0);  // all-zero bits: int 0 as well
+    s_jy[i] = R(0);
+    s_jz[i] = R(0);
   }
   if (QUANT) {
     unsigned* words = reinterpret_cast<unsigned*>(s_jz + nwin);
@@ -618,17 +679,17 @@ advance_kernel(AdvanceParams P,
   const int count = counts[t];
   const int count32 = min(P.capacity, (count + 31) & ~31);
   const size_t pbase = (size_t)t * P.capacity;
-  const float ox = (float)ox_t[t];
-  const float oy = (float)oy_t[t];
-  const float S = P.S;
+  const R ox = (R)ox_t[t];
+  const R oy = (R)oy_t[t];
+  const R S = P.S;
+  const R third = R(1.0 / 3.0);
   constexpr bool periodic = PERIODIC;
-  float* const wins[3] = {s_jx, s_jy, s_jz};
-  float local_max = 0.0f;
+  R* const wins[3] = {s_jx, s_jy, s_jz};
+  R local_max = R(0);
 
   // The slab loop: trip count uniform across the warp; six values of the
   // next slab in flight while this one computes.
-  float nx0 = 0.0f, ny0 = 0.0f, nux = 0.0f, nuy = 0.0f, nuz = 0.0f,
-        nwv = 0.0f;
+  R nx0 = R(0), ny0 = R(0), nux = R(0), nuy = R(0), nuz = R(0), nwv = R(0);
   {
     const int s = warp * 32 + lane;
     if (s < count32) {
@@ -640,17 +701,17 @@ advance_kernel(AdvanceParams P,
   for (int sbase = warp * 32; sbase < count32; sbase += kThreads) {
     const int s = sbase + lane;
     const size_t k = pbase + s;
-    const float x0 = nx0, y0 = ny0, ux = nux, uy = nuy, uz = nuz, wv = nwv;
+    const R x0 = nx0, y0 = ny0, ux = nux, uy = nuy, uz = nuz, wv = nwv;
     if (s + kThreads < count32) {
       const size_t kn = k + kThreads;
       nx0 = x[kn]; ny0 = y[kn]; nux = px[kn]; nuy = py[kn]; nuz = pz[kn];
       nwv = w[kn];
     }
-    const bool live = s < count && wv != 0.0f;
+    const bool live = s < count && wv != R(0);
     bool prod = false;  // int8 jx/jy through the tensor cores
     int row0 = 0, col0 = 0;
     Operands ops;      // QUANT
-    float v[3][16];    // f32 mode: jx, jy, jz terms
+    R v[3][16];        // f32 and f64 modes: jx, jy, jz terms
     if (!live) {
       if (s < count32) {
         xo[k] = x0;
@@ -660,18 +721,18 @@ advance_kernel(AdvanceParams P,
         pzo[k] = uz;
       }
     } else {
-      const float xi = local(x0, ox, periodic, P.grid_nx, P.half_x, P.inv_nx);
-      const float eta = local(y0, oy, periodic, P.grid_ny, P.half_y, P.inv_ny);
+      const R xi = local(x0, ox, periodic, P.grid_nx, P.half_x, P.inv_nx);
+      const R eta = local(y0, oy, periodic, P.grid_ny, P.half_y, P.inv_ny);
 
-      float sxi[3], sxh[3], syi[3], syh[3];
-      const float cxi = support3<ORDER, QUANT>(xi, false, nxg, g, S, sxi);
-      const float cxh = support3<ORDER, QUANT>(xi, true, nxg, g, S, sxh);
-      const float cyi = support3<ORDER, QUANT>(eta, false, nyg, g, S, syi);
-      const float cyh = support3<ORDER, QUANT>(eta, true, nyg, g, S, syh);
+      R sxi[3], sxh[3], syi[3], syh[3];
+      const R cxi = support3<ORDER, QUANT>(xi, false, nxg, g, S, sxi);
+      const R cxh = support3<ORDER, QUANT>(xi, true, nxg, g, S, sxh);
+      const R cyi = support3<ORDER, QUANT>(eta, false, nyg, g, S, syi);
+      const R cyh = support3<ORDER, QUANT>(eta, true, nyg, g, S, syh);
       const int ixi = (int)cxi, ixh = (int)cxh, iyi = (int)cyi,
                 iyh = (int)cyh;
 
-      float e1, e2, e3, b1, b2, b3;
+      R e1, e2, e3, b1, b2, b3;
       if (min(iyi, iyh) + g >= 1 && max(iyi, iyh) + g <= nyg - 2 &&
           min(ixi, ixh) + g >= 1 && max(ixi, ixh) + g <= nxg - 2) {
         // Both staggers' 3x3 supports inside the window (nearly always).
@@ -693,52 +754,49 @@ advance_kernel(AdvanceParams P,
       }
 
       // Boris rotation (ppd_kernel.py:649-661, same association).
-      const float h = P.h;
-      const float pxm = ux + h * e1;
-      const float pym = uy + h * e2;
-      const float pzm = uz + h * e3;
-      const float gi =
-          1.0f / sqrtf(1.0f + pxm * pxm + pym * pym + pzm * pzm);
-      const float tx = h * b1 * gi, ty = h * b2 * gi, tz = h * b3 * gi;
-      const float sf = 2.0f / (1.0f + tx * tx + ty * ty + tz * tz);
-      const float sxr = tx * sf, syr = ty * sf, szr = tz * sf;
-      const float ppx = pxm + (pym * tz - pzm * ty);
-      const float ppy = pym + (pzm * tx - pxm * tz);
-      const float ppz = pzm + (pxm * ty - pym * tx);
-      const float pxn = pxm + (ppy * szr - ppz * syr) + h * e1;
-      const float pyn = pym + (ppz * sxr - ppx * szr) + h * e2;
-      const float pzn = pzm + (ppx * syr - ppy * sxr) + h * e3;
-      const float gn =
-          1.0f / sqrtf(1.0f + pxn * pxn + pyn * pyn + pzn * pzn);
-      const float xn = x0 + pxn * gn * P.dtdx;
-      const float yn = y0 + pyn * gn * P.dtdy;
+      const R h = P.h;
+      const R pxm = ux + h * e1;
+      const R pym = uy + h * e2;
+      const R pzm = uz + h * e3;
+      const R gi = R(1) / r_sqrt(R(1) + pxm * pxm + pym * pym + pzm * pzm);
+      const R tx = h * b1 * gi, ty = h * b2 * gi, tz = h * b3 * gi;
+      const R sf = R(2) / (R(1) + tx * tx + ty * ty + tz * tz);
+      const R sxr = tx * sf, syr = ty * sf, szr = tz * sf;
+      const R ppx = pxm + (pym * tz - pzm * ty);
+      const R ppy = pym + (pzm * tx - pxm * tz);
+      const R ppz = pzm + (pxm * ty - pym * tx);
+      const R pxn = pxm + (ppy * szr - ppz * syr) + h * e1;
+      const R pyn = pym + (ppz * sxr - ppx * szr) + h * e2;
+      const R pzn = pzm + (ppx * syr - ppy * sxr) + h * e3;
+      const R gn = R(1) / r_sqrt(R(1) + pxn * pxn + pyn * pyn + pzn * pzn);
+      const R xn = x0 + pxn * gn * P.dtdx;
+      const R yn = y0 + pyn * gn * P.dtdy;
       // Open walls: the unwrapped move (the caller kills and clamps).
-      const float x1 = periodic ? wrap(xn, P.grid_nx, P.inv_nx) : xn;
-      const float y1 = periodic ? wrap(yn, P.grid_ny, P.inv_ny) : yn;
+      const R x1 = periodic ? wrap(xn, P.grid_nx, P.inv_nx) : xn;
+      const R y1 = periodic ? wrap(yn, P.grid_ny, P.inv_ny) : yn;
       xo[k] = x1;
       yo[k] = y1;
       pxo[k] = pxn;
       pyo[k] = pyn;
       pzo[k] = pzn;
-      local_max = fmaxf(local_max, fmaxf(fabsf(xn - x0), fabsf(yn - y0)));
+      local_max = r_max(local_max, r_max(r_abs(xn - x0), r_abs(yn - y0)));
 
       if (kDeposit) {
         // Esirkepov over the union support, 4 cells from min(c0, c1) - 1;
         // s1 from the stored position through the same ops as next step's
         // s0.
-        const float xi1 =
-            local(x1, ox, periodic, P.grid_nx, P.half_x, P.inv_nx);
-        const float eta1 =
+        const R xi1 = local(x1, ox, periodic, P.grid_nx, P.half_x, P.inv_nx);
+        const R eta1 =
             local(y1, oy, periodic, P.grid_ny, P.half_y, P.inv_ny);
-        float q1x3[3], q1y3[3];
-        const float c1x = support3<ORDER, QUANT>(xi1, false, nxg, g, S, q1x3);
-        const float c1y = support3<ORDER, QUANT>(eta1, false, nyg, g, S, q1y3);
-        const float basex = fminf(cxi, c1x) - 1.0f;
-        const float basey = fminf(cyi, c1y) - 1.0f;
+        R q1x3[3], q1y3[3];
+        const R c1x = support3<ORDER, QUANT>(xi1, false, nxg, g, S, q1x3);
+        const R c1y = support3<ORDER, QUANT>(eta1, false, nyg, g, S, q1y3);
+        const R basex = r_min(cxi, c1x) - R(1);
+        const R basey = r_min(cyi, c1y) - R(1);
         col0 = (int)basex + g;
         row0 = (int)basey + g;
-        const float qw = P.q * wv;
-        const float cz = qw * (pzn * gn) * P.cz;
+        const R qw = P.q * wv;
+        const R cz = qw * (pzn * gn) * P.cz;
         if constexpr (QUANT) {
           float q0x[4], q1x[4], q0y[4], q1y[4];
           if (fabsf(cxi - c1x) <= 1.0f && fabsf(cyi - c1y) <= 1.0f) {
@@ -771,25 +829,25 @@ advance_kernel(AdvanceParams P,
           }
         } else {
           // jx: a_y x a_x; jy: r_y x r_x; jz: lz0 x rz0 + lz1 x rz1.
-          const float wjx = qw * P.cjx, wjy = qw * P.cjy;
-          float a_x[4], a_y[4], r_x[4], r_y[4];
-          float lz0[4], lz1[4], rz0[4], rz1[4];
+          const R wjx = qw * P.cjx, wjy = qw * P.cjy;
+          R a_x[4], a_y[4], r_x[4], r_y[4];
+          R lz0[4], lz1[4], rz0[4], rz1[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float cx = basex + (float)i, cy = basey + (float)i;
-            const float s0x = shape_val<ORDER>(xi - cx);
-            const float s1x = shape_val<ORDER>(xi1 - cx);
-            const float s0y = shape_val<ORDER>(eta - cy);
-            const float s1y = shape_val<ORDER>(eta1 - cy);
-            const float dsx = s1x - s0x, dsy = s1y - s0y;
-            a_y[i] = (s0y + 0.5f * dsy) * wjx;
+            const R cx = basex + (R)i, cy = basey + (R)i;
+            const R s0x = shape_val<ORDER>(xi - cx);
+            const R s1x = shape_val<ORDER>(xi1 - cx);
+            const R s0y = shape_val<ORDER>(eta - cy);
+            const R s1y = shape_val<ORDER>(eta1 - cy);
+            const R dsx = s1x - s0x, dsy = s1y - s0y;
+            a_y[i] = (s0y + R(0.5) * dsy) * wjx;
             a_x[i] = dsx;
             r_y[i] = dsy * wjy;
-            r_x[i] = s0x + 0.5f * dsx;
+            r_x[i] = s0x + R(0.5) * dsx;
             lz0[i] = s0y * cz;
             lz1[i] = dsy * cz;
             rz0[i] = r_x[i];
-            rz1[i] = 0.5f * s0x + kThird * dsx;
+            rz1[i] = R(0.5) * s0x + third * dsx;
           }
 #pragma unroll
           for (int j = 0; j < 4; ++j)
@@ -825,7 +883,7 @@ advance_kernel(AdvanceParams P,
     }
   }
 
-  if (QUANT && kDeposit) {
+  if constexpr (QUANT && kDeposit) {
     // Each warp's sums into the block's windows, once.
     const int grp = lane >> 2, tq = lane & 3;
 #pragma unroll
@@ -850,8 +908,8 @@ advance_kernel(AdvanceParams P,
     pzo[k] = pz[k];
   }
 
-  // Displacements are >= 0, so their float bits order as ints.
-  atomicMax(&s_dmax, __float_as_int(local_max));
+  // Displacements are >= 0, so their bits order as integers.
+  max_bits(&s_dmax, local_max);
   __syncthreads();
   for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
     if (QUANT) {
@@ -863,27 +921,27 @@ advance_kernel(AdvanceParams P,
     }
     jzo[fbase + i] = s_jz[i];
   }
-  if (threadIdx.x == 0) dmax[t] = __int_as_float(s_dmax);
+  if (threadIdx.x == 0) dmax[t] = from_bits(s_dmax);
 }
 
-// Dynamic shared memory of one block: nine windows, and the int8 staging.
-size_t smem_bytes(bool quant, int np, int nwin) {
-  return (size_t)9 * nwin * sizeof(float) +
+// Dynamic shared memory of one block: nine windows of `real` bytes a cell,
+// and the int8 staging.
+size_t smem_bytes(bool quant, int np, int nwin, size_t real = sizeof(float)) {
+  return (size_t)9 * nwin * real +
          (quant ? (size_t)kWarps * stage_bytes(np) : 0);
 }
 
-template <int ORDER, bool QUANT, int NP, bool PERIODIC>
-cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
-                   const float* px, const float* py, const float* pz,
-                   const float* w, const int* counts, const int* ox,
-                   const int* oy, const float* ex, const float* ey,
-                   const float* ez, const float* bx, const float* by,
-                   const float* bz, float* xo, float* yo, float* pxo,
-                   float* pyo, float* pzo, float* jx, float* jy, float* jz,
-                   float* dmax, cudaStream_t stream) {
+template <int ORDER, bool QUANT, int NP, bool PERIODIC, typename R>
+cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
+                   const R* px, const R* py, const R* pz, const R* w,
+                   const int* counts, const int* ox, const int* oy,
+                   const R* ex, const R* ey, const R* ez, const R* bx,
+                   const R* by, const R* bz, R* xo, R* yo, R* pxo, R* pyo,
+                   R* pzo, R* jx, R* jy, R* jz, R* dmax,
+                   cudaStream_t stream) {
   const int nwin = (P.tile_nx + 2 * P.guard) * (P.tile_ny + 2 * P.guard);
-  const size_t smem = smem_bytes(QUANT, NP, nwin);
-  auto* kernel = advance_kernel<ORDER, QUANT, NP, PERIODIC>;
+  const size_t smem = smem_bytes(QUANT, NP, nwin, sizeof(R));
+  auto* kernel = advance_kernel<ORDER, QUANT, NP, PERIODIC, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -894,6 +952,17 @@ cudaError_t launch(const AdvanceParams& P, const float* x, const float* y,
 }
 
 }  // namespace
+
+// Both boundaries of one instantiation, chosen by P.periodic.
+#define MINIPIC_LAUNCH(O, Q, N)                                                \
+  return (int)(P.periodic                                                      \
+                   ? launch<O, Q, N, true>(P, x, y, px, py, pz, w, counts, ox, \
+                                           oy, ex, ey, ez, bx, by, bz, xo, yo, \
+                                           pxo, pyo, pzo, jx, jy, jz, dmax, s) \
+                   : launch<O, Q, N, false>(P, x, y, px, py, pz, w, counts,    \
+                                            ox, oy, ex, ey, ez, bx, by, bz,    \
+                                            xo, yo, pxo, pyo, pzo, jx, jy, jz, \
+                                            dmax, s))
 
 // Plain C entry point (bound with ctypes).  Returns the CUDA error code of
 // the launch (0 on success); launches on `stream`, allocates nothing.  The
@@ -913,15 +982,6 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nxg = P.tile_nx + 2 * P.guard;
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
-#define MINIPIC_LAUNCH(O, Q, N)                                                \
-  return (int)(P.periodic                                                      \
-                   ? launch<O, Q, N, true>(P, x, y, px, py, pz, w, counts, ox, \
-                                           oy, ex, ey, ez, bx, by, bz, xo, yo, \
-                                           pxo, pyo, pzo, jx, jy, jz, dmax, s) \
-                   : launch<O, Q, N, false>(P, x, y, px, py, pz, w, counts,    \
-                                            ox, oy, ex, ey, ez, bx, by, bz,    \
-                                            xo, yo, pxo, pyo, pzo, jx, jy, jz, \
-                                            dmax, s))
   if (!quant) {
     if (order == 1) MINIPIC_LAUNCH(1, false, 1);
     if (order == 2) MINIPIC_LAUNCH(2, false, 1);
@@ -933,36 +993,59 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
     if (order == 2 && np == 2) MINIPIC_LAUNCH(2, true, 2);
     if (order == 2 && np == 4) MINIPIC_LAUNCH(2, true, 4);
   }
-#undef MINIPIC_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM of the periodic kernel that minipic_advance would
-// launch for this window (the occupancy calculator's answer), or -1 on
-// error.
-extern "C" int minipic_advance_blocks_per_sm(int order, int quant, int nyg,
+// The f64 mode: the same kernel on double particles, windows and constants.
+extern "C" int minipic_advance_f64(int order, AdvanceParams64 P,
+                                   const double* x, const double* y,
+                                   const double* px, const double* py,
+                                   const double* pz, const double* w,
+                                   const int* counts, const int* ox,
+                                   const int* oy, const double* ex,
+                                   const double* ey, const double* ez,
+                                   const double* bx, const double* by,
+                                   const double* bz, double* xo, double* yo,
+                                   double* pxo, double* pyo, double* pzo,
+                                   double* jx, double* jy, double* jz,
+                                   double* dmax, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (order == 1) MINIPIC_LAUNCH(1, false, 1);
+  if (order == 2) MINIPIC_LAUNCH(2, false, 1);
+  return (int)cudaErrorInvalidValue;
+}
+#undef MINIPIC_LAUNCH
+
+// Resident blocks per SM of the periodic kernel that minipic_advance (mode
+// 0 f32, 1 int8) or minipic_advance_f64 (mode 2) would launch for this
+// window (the occupancy calculator's answer), or -1 on error.
+extern "C" int minipic_advance_blocks_per_sm(int order, int mode, int nyg,
                                              int nxg) {
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
-  const size_t smem = smem_bytes(quant != 0, np, nyg * nxg);
+  const bool quant = mode == 1;
+  const size_t smem = smem_bytes(quant, np, nyg * nxg,
+                                 mode == 2 ? sizeof(double) : sizeof(float));
   int blocks = -1;
   cudaError_t err = cudaErrorInvalidValue;
-#define MINIPIC_OCC(O, Q, N)                                                  \
+#define MINIPIC_OCC(O, Q, N, R)                                               \
   do {                                                                        \
-    auto* k = advance_kernel<O, Q, N, true>;                                  \
+    auto* k = advance_kernel<O, Q, N, true, R>;                               \
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, \
                                (int)smem);                                    \
     if (err == cudaSuccess)                                                   \
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,         \
                                                           kThreads, smem);    \
   } while (0)
-  if (!quant && order == 1) MINIPIC_OCC(1, false, 1);
-  if (!quant && order == 2) MINIPIC_OCC(2, false, 1);
-  if (quant && order == 1 && np == 1) MINIPIC_OCC(1, true, 1);
-  if (quant && order == 1 && np == 2) MINIPIC_OCC(1, true, 2);
-  if (quant && order == 1 && np == 4) MINIPIC_OCC(1, true, 4);
-  if (quant && order == 2 && np == 1) MINIPIC_OCC(2, true, 1);
-  if (quant && order == 2 && np == 2) MINIPIC_OCC(2, true, 2);
-  if (quant && order == 2 && np == 4) MINIPIC_OCC(2, true, 4);
+  if (mode == 0 && order == 1) MINIPIC_OCC(1, false, 1, float);
+  if (mode == 0 && order == 2) MINIPIC_OCC(2, false, 1, float);
+  if (mode == 2 && order == 1) MINIPIC_OCC(1, false, 1, double);
+  if (mode == 2 && order == 2) MINIPIC_OCC(2, false, 1, double);
+  if (quant && order == 1 && np == 1) MINIPIC_OCC(1, true, 1, float);
+  if (quant && order == 1 && np == 2) MINIPIC_OCC(1, true, 2, float);
+  if (quant && order == 1 && np == 4) MINIPIC_OCC(1, true, 4, float);
+  if (quant && order == 2 && np == 1) MINIPIC_OCC(2, true, 1, float);
+  if (quant && order == 2 && np == 2) MINIPIC_OCC(2, true, 2, float);
+  if (quant && order == 2 && np == 4) MINIPIC_OCC(2, true, 4, float);
 #undef MINIPIC_OCC
   return err == cudaSuccess ? blocks : -1;
 }

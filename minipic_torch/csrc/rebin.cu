@@ -8,9 +8,12 @@
 // minipic_torch/ops/rebin.py (its docstring states what each computes).
 //
 // Layout.  One thread block per tile for every kernel.  Particles are six
-// float channels (x, y, px, py, pz, w), each [T, width] row-major; a slot is
+// channels (x, y, px, py, pz, w) of one element type, float or double (the
+// decks of precision f64: every kernel is a template on it, the tile
+// predicates evaluated in that type), each [T, width] row-major; a slot is
 // live iff w > 0.  The payload moves by copies only, so each kernel is
-// bit-equal to its plain version.
+// bit-equal to its plain version.  Ranks, counts and ballot words are the
+// same for both types; a double channel moves twice the bytes.
 //
 // The TPU kernels compact through permutation matmuls on the MXU, chunk by
 // chunk.  Here a chunk is one slot per thread: a block-wide stable rank of a
@@ -56,11 +59,31 @@
 
 #include <cuda_runtime.h>
 
+// The six channels of one element type T (float or double), and their
+// pointers as the C entry points take them.
+template <typename T>
+struct ChannelsT {
+  T* c[6];
+};
 struct Channels {
-  float* c[6];
+  void* c[6];
 };
 
 namespace {
+
+template <typename T>
+ChannelsT<T> typed(const Channels& ch) {
+  ChannelsT<T> out;
+  for (int k = 0; k < 6; ++k) out.c[k] = static_cast<T*>(ch.c[k]);
+  return out;
+}
+
+// The tile predicates in the channels' type: floor(x * (1/tile_nx)) is the
+// f32 rule of the TPU kernels on float channels and the f64 one on double.
+__device__ __forceinline__ float r_floor(float v) { return floorf(v); }
+__device__ __forceinline__ double r_floor(double v) { return floor(v); }
+__device__ __forceinline__ float r_abs(float v) { return fabsf(v); }
+__device__ __forceinline__ double r_abs(double v) { return fabs(v); }
 
 constexpr int kSegThreads = 512;
 constexpr int kAppendThreads = 256;  // 8 warps: one per direction
@@ -138,68 +161,74 @@ __device__ __forceinline__ int block_max(int v, int* sh) {
   return m;
 }
 
-__device__ __forceinline__ void load6(const Channels& ch, size_t i,
-                                      float (&v)[6]) {
+template <typename T>
+__device__ __forceinline__ void load6(const ChannelsT<T>& ch, size_t i,
+                                      T (&v)[6]) {
 #pragma unroll
   for (int k = 0; k < 6; ++k) v[k] = ch.c[k][i];
 }
 
-__device__ __forceinline__ void store6(const Channels& ch, size_t i,
-                                       const float (&v)[6]) {
+template <typename T>
+__device__ __forceinline__ void store6(const ChannelsT<T>& ch, size_t i,
+                                       const T (&v)[6]) {
 #pragma unroll
   for (int k = 0; k < 6; ++k) ch.c[k][i] = v[k];
 }
 
-__device__ __forceinline__ void zero6(const Channels& ch, size_t i) {
+template <typename T>
+__device__ __forceinline__ void zero6(const ChannelsT<T>& ch, size_t i) {
 #pragma unroll
-  for (int k = 0; k < 6; ++k) ch.c[k][i] = 0.0f;
+  for (int k = 0; k < 6; ++k) ch.c[k][i] = T(0);
 }
 
 // ---------------------------------------------------------------------------
 // Split (blockDim.x == kc).
 
 // Global (row, col) of tile t (see "Tile coordinates" above).
+template <typename T>
 __device__ __forceinline__ void tile_rc(int t, int tile_cols, int row0,
                                         int col0, const int* tile_ids,
-                                        float* row, float* col) {
+                                        T* row, T* col) {
   if (tile_ids != nullptr) {
     const int gid = tile_ids[t];
-    *row = (float)(gid / tile_cols);
-    *col = (float)(gid % tile_cols);
+    *row = (T)(gid / tile_cols);
+    *col = (T)(gid % tile_cols);
   } else {
-    *row = (float)(row0 + t / tile_cols);
-    *col = (float)(col0 + t % tile_cols);
+    *row = (T)(row0 + t / tile_cols);
+    *col = (T)(col0 + t % tile_cols);
   }
 }
 
+template <typename T>
 struct SplitArgs {
   int cap, b_cap, tile_cols, row0, col0;
   const int* tile_ids;  // nullptr: the block at (row0, col0)
-  float inv_nx, inv_ny;
-  Channels in, out, mov;
+  T inv_nx, inv_ny;
+  ChannelsT<T> in, out, mov;
   const bool* force;
   int* stay;
   int* pending;
 };
 
-__global__ void split_kernel(SplitArgs a) {
+template <typename T>
+__global__ void split_kernel(SplitArgs<T> a) {
   __shared__ int sh[2][33];
   const int t = blockIdx.x;
   const int kc = blockDim.x;
-  float my_row, my_col;
+  T my_row, my_col;
   tile_rc(t, a.tile_cols, a.row0, a.col0, a.tile_ids, &my_row, &my_col);
   const size_t row = (size_t)t * a.cap;
-  const float* x = a.in.c[0] + row;
-  const float* y = a.in.c[1] + row;
-  const float* w = a.in.c[5] + row;
+  const T* x = a.in.c[0] + row;
+  const T* y = a.in.c[1] + row;
+  const T* w = a.in.c[5] + row;
 
   // Pass 1: the tile's movers (all-or-nothing decision) and last live slot.
   int n_mov = 0, last = -1;
   for (int s = threadIdx.x; s < a.cap; s += kc) {
-    if (w[s] > 0.0f) {
+    if (w[s] > T(0)) {
       last = s;
-      n_mov += (floorf(x[s] * a.inv_nx) != my_col) ||
-               (floorf(y[s] * a.inv_ny) != my_row);
+      n_mov += (r_floor(x[s] * a.inv_nx) != my_col) ||
+               (r_floor(y[s] * a.inv_ny) != my_row);
     }
   }
   const int total = block_sum(n_mov, sh[0]);
@@ -211,13 +240,13 @@ __global__ void split_kernel(SplitArgs a) {
   const size_t mrow = (size_t)t * a.b_cap;
   for (int base = 0; base <= last; base += kc) {
     const int s = base + threadIdx.x;
-    float v[6] = {0, 0, 0, 0, 0, 0};
+    T v[6] = {0, 0, 0, 0, 0, 0};
     bool live = false, away = false;
     if (s < a.cap) {
       load6(a.in, row + s, v);
-      live = v[5] > 0.0f;
-      away = (floorf(v[0] * a.inv_nx) != my_col) ||
-             (floorf(v[1] * a.inv_ny) != my_row);
+      live = v[5] > T(0);
+      away = (r_floor(v[0] * a.inv_nx) != my_col) ||
+             (r_floor(v[1] * a.inv_ny) != my_row);
     }
     const bool mv = live && away && extract;
     const bool f[2] = {live && !mv, mv};
@@ -244,35 +273,37 @@ __global__ void split_kernel(SplitArgs a) {
 // ---------------------------------------------------------------------------
 // Segment (kSegThreads threads).
 
+template <typename T>
 struct SegmentArgs {
   int mc, b_seg, tile_cols, row0, col0, grid_rows, grid_cols;
-  float inv_nx, inv_ny;
-  Channels mov, seg;
+  T inv_nx, inv_ny;
+  ChannelsT<T> mov, seg;
   int* dropped;
 };
 
-__global__ void segment_kernel(SegmentArgs a) {
+template <typename T>
+__global__ void segment_kernel(SegmentArgs<T> a) {
   __shared__ int sh[8][33];
   const int t = blockIdx.x;
-  float my_row, my_col;
+  T my_row, my_col;
   tile_rc(t, a.tile_cols, a.row0, a.col0, nullptr, &my_row, &my_col);
-  const float cols = (float)a.grid_cols, rows = (float)a.grid_rows;
+  const T cols = (T)a.grid_cols, rows = (T)a.grid_rows;
   const size_t row = (size_t)t * a.mc;
   const size_t srow = (size_t)t * 8 * a.b_seg;
   int cur[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   int killed = 0;
   for (int base = 0; base < a.mc; base += blockDim.x) {
     const int s = base + threadIdx.x;
-    float v[6] = {0, 0, 0, 0, 0, 0};
+    T v[6] = {0, 0, 0, 0, 0, 0};
     int d8 = -1;
     if (s < a.mc) {
       load6(a.mov, row + s, v);
-      if (v[5] > 0.0f) {
-        float dc = floorf(v[0] * a.inv_nx) - my_col;
-        float dr = floorf(v[1] * a.inv_ny) - my_row;
-        dc = dc > 1.5f ? dc - cols : (dc < -1.5f ? dc + cols : dc);
-        dr = dr > 1.5f ? dr - rows : (dr < -1.5f ? dr + rows : dr);
-        if (fabsf(dc) <= 1.5f && fabsf(dr) <= 1.5f) {
+      if (v[5] > T(0)) {
+        T dc = r_floor(v[0] * a.inv_nx) - my_col;
+        T dr = r_floor(v[1] * a.inv_ny) - my_row;
+        dc = dc > T(1.5) ? dc - cols : (dc < -T(1.5) ? dc + cols : dc);
+        dr = dr > T(1.5) ? dr - rows : (dr < -T(1.5) ? dr + rows : dr);
+        if (r_abs(dc) <= T(1.5) && r_abs(dr) <= T(1.5)) {
           const int d9 = ((int)dr + 1) * 3 + ((int)dc + 1);
           // A mover whose destination is its own tile is neither kept nor
           // counted, as in the TPU kernel (the split never makes one).
@@ -311,17 +342,19 @@ __global__ void segment_kernel(SegmentArgs a) {
 // ---------------------------------------------------------------------------
 // Append (kAppendThreads threads), in place.
 
+template <typename T>
 struct AppendArgs {
   int cap, b_seg;
   const int* wm;
   const int* nbr;
   const bool* active;
-  Channels p, seg;
+  ChannelsT<T> p, seg;
   int* dropped;
   int* taken;
 };
 
-__global__ void append_kernel(AppendArgs a) {
+template <typename T>
+__global__ void append_kernel(AppendArgs<T> a) {
   if (!*a.active) return;
   __shared__ int n_r[8], off[9];
   const int t = blockIdx.x;
@@ -330,10 +363,10 @@ __global__ void append_kernel(AppendArgs a) {
   // Warp d counts the live slots of run d of tile nbr[t, d].
   {
     const int src = a.nbr[t * 8 + warp];
-    const float* sw =
+    const T* sw =
         a.seg.c[5] + ((size_t)src * 8 + warp) * (size_t)a.b_seg;
     int c = 0;
-    for (int i = lane; i < a.b_seg; i += 32) c += sw[i] > 0.0f;
+    for (int i = lane; i < a.b_seg; i += 32) c += sw[i] > T(0);
     for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
     if (lane == 0) n_r[warp] = c;
   }
@@ -365,6 +398,7 @@ __global__ void append_kernel(AppendArgs a) {
 // ---------------------------------------------------------------------------
 // Defrag (kDefragThreads threads), in place.
 
+template <typename T>
 struct DefragArgs {
   // b_seg 0: no arrivals to merge.  nbr set: the eight runs seg[nbr[t, d],
   // d] of b_seg slots; nbr null: one dense row of b_seg slots per tile,
@@ -372,13 +406,14 @@ struct DefragArgs {
   int cap, b_seg;
   const int* nbr;
   const bool* active;
-  Channels p, seg;
+  ChannelsT<T> p, seg;
   int* counts;
   int* dropped;
   int* taken;
 };
 
-__global__ void defrag_kernel(DefragArgs a) {
+template <typename T>
+__global__ void defrag_kernel(DefragArgs<T> a) {
   if (!*a.active) return;
   __shared__ int sh[1][33];
   const int t = blockIdx.x;
@@ -390,9 +425,9 @@ __global__ void defrag_kernel(DefragArgs a) {
   // writes, so compaction in place is safe.
   for (int base = 0; base < a.cap; base += blockDim.x) {
     const int s = base + threadIdx.x;
-    float v[6] = {0, 0, 0, 0, 0, 0};
+    T v[6] = {0, 0, 0, 0, 0, 0};
     if (s < a.cap) load6(a.p, row + s, v);
-    const bool f[1] = {v[5] > 0.0f};
+    const bool f[1] = {v[5] > T(0)};
     int ex[1], tot[1];
     block_scan<1>(f, ex, tot, sh);
     if (f[0]) store6(a.p, row + cursor + ex[0], v);
@@ -406,9 +441,9 @@ __global__ void defrag_kernel(DefragArgs a) {
                          : (size_t)t * a.b_seg;
     for (int base = 0; base < a.b_seg; base += blockDim.x) {
       const int i = base + threadIdx.x;
-      float v[6] = {0, 0, 0, 0, 0, 0};
+      T v[6] = {0, 0, 0, 0, 0, 0};
       if (i < a.b_seg) load6(a.seg, src + i, v);
-      const bool f[1] = {v[5] > 0.0f};
+      const bool f[1] = {v[5] > T(0)};
       int ex[1], tot[1];
       block_scan<1>(f, ex, tot, sh);
       if (f[0] && cursor + ex[0] < a.cap) store6(a.p, row + cursor + ex[0], v);
@@ -453,17 +488,19 @@ __global__ void defrag_kernel(DefragArgs a) {
 constexpr int kAppendRowsThreads = 256;
 constexpr int kMaxRuns = 64;
 
+template <typename T>
 struct AppendRowsArgs {
   int cap, runs, b_run;
   const int* wm;
   const bool* active;
-  Channels p, inc;
+  ChannelsT<T> p, inc;
   int* dropped;
   int* taken;
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kAppendRowsThreads)
-    append_rows_kernel(AppendRowsArgs a) {
+    append_rows_kernel(AppendRowsArgs<T> a) {
   // Live counts: of run r at [r] (runs > 1), of warp w's share at [w] (one
   // run).
   __shared__ int cnt[kMaxRuns];
@@ -473,19 +510,19 @@ __global__ void __launch_bounds__(kAppendRowsThreads)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const size_t src = (size_t)t * a.runs * a.b_run;
-  const float* iw = a.inc.c[5] + src;
+  const T* iw = a.inc.c[5] + src;
   if (a.runs == 1) {
     int c = 0;
 #pragma unroll 4
-    for (int i = threadIdx.x; i < a.b_run; i += blockDim.x) c += iw[i] > 0.0f;
+    for (int i = threadIdx.x; i < a.b_run; i += blockDim.x) c += iw[i] > T(0);
     c = warp_sum(c);
     if (lane == 0) cnt[warp] = c;
   } else {
     for (int r = warp; r < a.runs; r += nwarps) {
-      const float* rw = iw + (size_t)r * a.b_run;
+      const T* rw = iw + (size_t)r * a.b_run;
       int c = 0;
 #pragma unroll 8
-      for (int i = lane; i < a.b_run; i += 32) c += rw[i] > 0.0f;
+      for (int i = lane; i < a.b_run; i += 32) c += rw[i] > T(0);
       c = warp_sum(c);
       if (lane == 0) cnt[r] = c;
     }
@@ -511,7 +548,7 @@ __global__ void __launch_bounds__(kAppendRowsThreads)
       off = end;
       end += cnt[++r];
     }
-    float v[6];
+    T v[6];
     load6(a.inc, src + (size_t)r * a.b_run + (i - off), v);
     store6(a.p, dst + i, v);
   }
@@ -562,19 +599,21 @@ constexpr int kExtractWords = 8;  // pass 1: words a warp loads per step
 constexpr int kCopyWords = 4;     // pass 3: words whose movers copy together
 constexpr int kExtractRed = 96;   // per-warp totals and maxima: [3][32]
 
+template <typename T>
 struct ExtractArgs {
   int cap, b_cap, fit_cap, tile_cols;
-  float inv_nx, inv_ny;
-  Channels in;
+  T inv_nx, inv_ny;
+  ChannelsT<T> in;
   const bool* force;
-  float* w_out;
-  Channels mov;
+  T* w_out;
+  ChannelsT<T> mov;
   int* wm;
   int* pending;
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kExtractThreads)
-    extract_kernel(ExtractArgs a) {
+    extract_kernel(ExtractArgs<T> a) {
   // [nw] ballot words of the mover predicate, then [3][32] per warp: its
   // movers, 1 + its last live stayer, 1 + its last live slot.
   extern __shared__ unsigned ext_sh[];
@@ -587,35 +626,35 @@ __global__ void __launch_bounds__(kExtractThreads)
   const int nwarps = blockDim.x >> 5;
   const int per = (nw + nwarps - 1) / nwarps;
   const int j0 = min(warp * per, nw), j1 = min(j0 + per, nw);
-  const float my_row = (float)(t / a.tile_cols);
-  const float my_col = (float)(t % a.tile_cols);
+  const T my_row = (T)(t / a.tile_cols);
+  const T my_col = (T)(t % a.tile_cols);
   const size_t row = (size_t)t * a.cap;
-  const float* x = a.in.c[0] + row;
-  const float* y = a.in.c[1] + row;
-  const float* w = a.in.c[5] + row;
-  float* wo = a.w_out + row;
+  const T* x = a.in.c[0] + row;
+  const T* y = a.in.c[1] + row;
+  const T* w = a.in.c[5] + row;
+  T* wo = a.w_out + row;
 
   // 1. One pass over x, y and w.
   int n_mov = 0, last_stay = 0, last_live = 0;
   for (int j = j0; j < j1; j += kExtractWords) {
-    float xv[kExtractWords], yv[kExtractWords], wv[kExtractWords];
+    T xv[kExtractWords], yv[kExtractWords], wv[kExtractWords];
 #pragma unroll
     for (int u = 0; u < kExtractWords; ++u) {
       const int s = ((j + u) << 5) + lane;
       const bool in = j + u < j1 && s < a.cap;
-      xv[u] = in ? x[s] : 0.0f;
-      yv[u] = in ? y[s] : 0.0f;
-      wv[u] = in ? w[s] : 0.0f;
+      xv[u] = in ? x[s] : T(0);
+      yv[u] = in ? y[s] : T(0);
+      wv[u] = in ? w[s] : T(0);
     }
 #pragma unroll
     for (int u = 0; u < kExtractWords; ++u) {
       const int s = ((j + u) << 5) + lane;
-      const bool live = wv[u] > 0.0f;
-      const bool mv = live && ((floorf(xv[u] * a.inv_nx) != my_col) ||
-                               (floorf(yv[u] * a.inv_ny) != my_row));
+      const bool live = wv[u] > T(0);
+      const bool mv = live && ((r_floor(xv[u] * a.inv_nx) != my_col) ||
+                               (r_floor(yv[u] * a.inv_ny) != my_row));
       const unsigned b = __ballot_sync(0xffffffffu, mv);
       if (j + u < j1) {
-        if (s < a.cap) wo[s] = mv ? 0.0f : wv[u];
+        if (s < a.cap) wo[s] = mv ? T(0) : wv[u];
         if (lane == 0) bits[j + u] = b;
       }
       n_mov += __popc(b);
@@ -659,7 +698,7 @@ __global__ void __launch_bounds__(kExtractThreads)
         rank[u] = (word >> lane) & 1u ? run + __popc(word & below) : a.b_cap;
         run += __popc(word);
       }
-      float v[kCopyWords][6];
+      T v[kCopyWords][6];
 #pragma unroll
       for (int u = 0; u < kCopyWords; ++u)
         if (rank[u] < a.b_cap) load6(a.in, row + ((j + u) << 5) + lane, v[u]);
@@ -690,80 +729,145 @@ size_t extract_smem_bytes(int cap) {
 
 int finish() { return (int)cudaGetLastError(); }
 
+// The launches, on the channels' element type T.
+template <typename T>
+int split(int num_tiles, int cap, int b_cap, int kc, int tile_cols,
+          int row0, int col0, const int* tile_ids, double inv_nx,
+          double inv_ny, const Channels& in, const bool* force,
+          const Channels& out, const Channels& mov, int* stay, int* pending,
+          cudaStream_t stream) {
+  SplitArgs<T> a{cap,         b_cap,       tile_cols,   row0,
+                 col0,        tile_ids,    (T)inv_nx,   (T)inv_ny,
+                 typed<T>(in), typed<T>(out), typed<T>(mov), force,
+                 stay,        pending};
+  split_kernel<T><<<num_tiles, kc, 0, stream>>>(a);
+  return finish();
+}
+
+template <typename T>
+int segment(int num_tiles, int mc, int b_seg, int tile_cols, int row0,
+            int col0, int grid_rows, int grid_cols, double inv_nx,
+            double inv_ny, const Channels& mov, const Channels& seg,
+            int* dropped, cudaStream_t stream) {
+  SegmentArgs<T> a{mc,        b_seg,        tile_cols,   row0,
+                   col0,      grid_rows,    grid_cols,   (T)inv_nx,
+                   (T)inv_ny, typed<T>(mov), typed<T>(seg), dropped};
+  segment_kernel<T><<<num_tiles, kSegThreads, 0, stream>>>(a);
+  return finish();
+}
+
+template <typename T>
+int append(int num_tiles, int cap, int b_seg, const int* wm, const int* nbr,
+           const bool* active, const Channels& p, const Channels& seg,
+           int* dropped, int* taken, cudaStream_t stream) {
+  AppendArgs<T> a{cap,         b_seg,         wm,      nbr,  active,
+                  typed<T>(p), typed<T>(seg), dropped, taken};
+  append_kernel<T><<<num_tiles, kAppendThreads, 0, stream>>>(a);
+  return finish();
+}
+
+template <typename T>
+int defrag(int num_tiles, int cap, int b_seg, const int* nbr,
+           const bool* active, const Channels& p, const Channels& seg,
+           int* counts, int* dropped, int* taken, cudaStream_t stream) {
+  DefragArgs<T> a{cap,     b_seg,   nbr,  active, typed<T>(p), typed<T>(seg),
+                  counts,  dropped, taken};
+  defrag_kernel<T><<<num_tiles, kDefragThreads, 0, stream>>>(a);
+  return finish();
+}
+
+template <typename T>
+int append_rows(int num_tiles, int cap, int runs, int b_run, const int* wm,
+                const bool* active, const Channels& p, const Channels& inc,
+                int* dropped, int* taken, cudaStream_t stream) {
+  AppendRowsArgs<T> a{cap,         runs,          b_run,   wm,   active,
+                      typed<T>(p), typed<T>(inc), dropped, taken};
+  append_rows_kernel<T><<<num_tiles, kAppendRowsThreads, 0, stream>>>(a);
+  return finish();
+}
+
+template <typename T>
+int extract(int num_tiles, int cap, int b_cap, int fit_cap, int tile_cols,
+            double inv_nx, double inv_ny, const Channels& in,
+            const bool* force, void* w_out, const Channels& mov, int* wm,
+            int* pending, cudaStream_t stream) {
+  const size_t smem = extract_smem_bytes(cap);  // the wrapper bounds it
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        extract_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ExtractArgs<T> a{cap,          b_cap,     fit_cap,
+                   tile_cols,    (T)inv_nx, (T)inv_ny,
+                   typed<T>(in), force,     static_cast<T*>(w_out),
+                   typed<T>(mov), wm,       pending};
+  extract_kernel<T><<<num_tiles, kExtractThreads, smem, stream>>>(a);
+  return finish();
+}
+
 }  // namespace
 
-extern "C" int minipic_split(int num_tiles, int cap, int b_cap, int kc,
-                             int tile_cols, int row0, int col0,
-                             const int* tile_ids, float inv_nx, float inv_ny,
-                             Channels in, const bool* force, Channels out,
-                             Channels mov, int* stay, int* pending,
-                             void* stream) {
+// Plain C entry points (bound with ctypes).  Each takes `f64` (0: float32
+// channels, 1: float64) first, launches on `stream`, allocates nothing and
+// returns the CUDA error code of the launch (0 on success).
+#define MINIPIC_DISPATCH(fn, ...)                                   \
+  return f64 ? fn<double>(__VA_ARGS__, static_cast<cudaStream_t>(stream)) \
+             : fn<float>(__VA_ARGS__, static_cast<cudaStream_t>(stream))
+
+extern "C" int minipic_split(int f64, int num_tiles, int cap, int b_cap,
+                             int kc, int tile_cols, int row0, int col0,
+                             const int* tile_ids, double inv_nx,
+                             double inv_ny, Channels in, const bool* force,
+                             Channels out, Channels mov, int* stay,
+                             int* pending, void* stream) {
   if (kc <= 0 || kc > 1024 || kc % 32) return (int)cudaErrorInvalidValue;
-  SplitArgs a{cap,    b_cap,  tile_cols, row0, col0, tile_ids, inv_nx,
-              inv_ny, in,     out,       mov,  force, stay,    pending};
-  split_kernel<<<num_tiles, kc, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return finish();
+  MINIPIC_DISPATCH(split, num_tiles, cap, b_cap, kc, tile_cols, row0, col0,
+                   tile_ids, inv_nx, inv_ny, in, force, out, mov, stay,
+                   pending);
 }
 
-extern "C" int minipic_segment(int num_tiles, int mc, int b_seg,
+extern "C" int minipic_segment(int f64, int num_tiles, int mc, int b_seg,
                                int tile_cols, int row0, int col0,
-                               int grid_rows, int grid_cols, float inv_nx,
-                               float inv_ny, Channels mov, Channels seg,
+                               int grid_rows, int grid_cols, double inv_nx,
+                               double inv_ny, Channels mov, Channels seg,
                                int* dropped, void* stream) {
-  SegmentArgs a{mc,        b_seg,  tile_cols, row0, col0, grid_rows,
-                grid_cols, inv_nx, inv_ny,    mov,  seg,  dropped};
-  segment_kernel<<<num_tiles, kSegThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a);
-  return finish();
+  MINIPIC_DISPATCH(segment, num_tiles, mc, b_seg, tile_cols, row0, col0,
+                   grid_rows, grid_cols, inv_nx, inv_ny, mov, seg, dropped);
 }
 
-extern "C" int minipic_append(int num_tiles, int cap, int b_seg,
+extern "C" int minipic_append(int f64, int num_tiles, int cap, int b_seg,
                               const int* wm, const int* nbr,
                               const bool* active, Channels p, Channels seg,
                               int* dropped, int* taken, void* stream) {
-  AppendArgs a{cap, b_seg, wm, nbr, active, p, seg, dropped, taken};
-  append_kernel<<<num_tiles, kAppendThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a);
-  return finish();
+  MINIPIC_DISPATCH(append, num_tiles, cap, b_seg, wm, nbr, active, p, seg,
+                   dropped, taken);
 }
 
-extern "C" int minipic_defrag(int num_tiles, int cap, int b_seg,
+extern "C" int minipic_defrag(int f64, int num_tiles, int cap, int b_seg,
                               const int* nbr, const bool* active, Channels p,
                               Channels seg, int* counts, int* dropped,
                               int* taken, void* stream) {
-  DefragArgs a{cap, b_seg, nbr, active, p, seg, counts, dropped, taken};
-  defrag_kernel<<<num_tiles, kDefragThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a);
-  return finish();
+  MINIPIC_DISPATCH(defrag, num_tiles, cap, b_seg, nbr, active, p, seg,
+                   counts, dropped, taken);
 }
 
-extern "C" int minipic_append_rows(int num_tiles, int cap, int runs,
-                                   int b_run, const int* wm,
+extern "C" int minipic_append_rows(int f64, int num_tiles, int cap,
+                                   int runs, int b_run, const int* wm,
                                    const bool* active, Channels p,
                                    Channels inc, int* dropped, int* taken,
                                    void* stream) {
   if (runs < 1 || runs > kMaxRuns) return (int)cudaErrorInvalidValue;
-  AppendRowsArgs a{cap, runs, b_run, wm, active, p, inc, dropped, taken};
-  append_rows_kernel<<<num_tiles, kAppendRowsThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return finish();
+  MINIPIC_DISPATCH(append_rows, num_tiles, cap, runs, b_run, wm, active, p,
+                   inc, dropped, taken);
 }
 
-extern "C" int minipic_extract(int num_tiles, int cap, int b_cap,
-                               int fit_cap, int tile_cols, float inv_nx,
-                               float inv_ny, Channels in, const bool* force,
-                               float* w_out, Channels mov, int* wm,
+extern "C" int minipic_extract(int f64, int num_tiles, int cap, int b_cap,
+                               int fit_cap, int tile_cols, double inv_nx,
+                               double inv_ny, Channels in, const bool* force,
+                               void* w_out, Channels mov, int* wm,
                                int* pending, void* stream) {
-  const size_t smem = extract_smem_bytes(cap);  // the wrapper bounds it
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        extract_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  ExtractArgs a{cap, b_cap, fit_cap, tile_cols, inv_nx, inv_ny, in, force,
-                w_out, mov, wm, pending};
-  extract_kernel<<<num_tiles, kExtractThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(a);
-  return finish();
+  MINIPIC_DISPATCH(extract, num_tiles, cap, b_cap, fit_cap, tile_cols,
+                   inv_nx, inv_ny, in, force, w_out, mov, wm, pending);
 }
+#undef MINIPIC_DISPATCH

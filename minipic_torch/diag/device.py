@@ -78,9 +78,17 @@ def energy_spectrum(
     emax: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted kinetic-energy spectrum dN/dE over m(gamma - 1) in
-    [0, emax] (the live particles' largest energy by default)."""
+    [0, emax] (the live particles' largest energy by default).
+
+    gamma is the square root taken in float64 and rounded back to the
+    particles' type, which is the correctly rounded root (double rounding
+    is innocuous for a square root), so that every device puts a particle
+    in the same bin: PyTorch's float32 sqrt on the CPU is not correctly
+    rounded (an ulp off numpy's for some inputs), and its CUDA sqrt
+    differs from it there."""
     u2 = p.px ** 2 + p.py ** 2 + p.pz ** 2
-    ke = (mass * (torch.sqrt(1.0 + u2) - 1.0)).reshape(-1)
+    gamma = torch.sqrt((1.0 + u2).double()).to(u2.dtype)
+    ke = (mass * (gamma - 1.0)).reshape(-1)
     w = p.w.reshape(-1)
     live = w > 0
     if emax is None:

@@ -23,8 +23,8 @@ block or its striped tiles under the multi-device simulations):
 1. tile-local coordinates: with the nearest-image fold on a periodic box
    (reciprocal multiply, as ``simulation.tile_local_coords``), the raw
    offset x - ox in the open mode;
-2. shape values on the 3-cell support of both stagger classes — f32 mode
-   evaluates the B-spline at each cell; int8 mode takes the quantized
+2. shape values on the 3-cell support of both stagger classes — f32 and
+   f64 modes evaluate the B-spline at each cell; int8 mode takes the quantized
    values round(S*s) with the partition fold into the centre cell and the
    window-edge fold (``_qsparse_vals``/``_edge_fold`` of the JAX kernel);
 3. the six-component gather (in int8 mode 1/S^2 is folded into the push's
@@ -45,6 +45,11 @@ absolute at the headline deck), int8 jx/jy cell for cell (integer sums,
 exact in any order), int8 jz to its f32 summation order (the kernel's runs
 on the tensor cores with each row factor in three bf16 words), and f32-mode
 J to its atomic order.
+
+Modes (``resolve_mode``): "int8" and "f32" take float32 particles and
+fields; "f64", every deck of precision "f64", takes float64 ones and is the
+f32 mode's arithmetic in double: the exact Esirkepov deposit that the JAX
+package's f64 runs take (its XLA branch), whatever the deck's deposit.
 
 ``fused_push_deposit`` then applies, in torch, what the JAX wrapper applies
 after its ``pallas_call``: the uniform q*max(w) scale of int8 jx/jy and the
@@ -68,12 +73,13 @@ _SMEM_LIMIT = 232448
 
 
 def kernel_smem_bytes(nyg: int, nxg: int, mode: str) -> int:
-    """Dynamic shared memory of one block of csrc/advance.cu: nine f32
-    windows, and in int8 mode each of its 8 warps' operand staging (9 KB
-    of rows, 3 KB per pair of 8-column tiles: 1, 2 or 4 pairs)."""
+    """Dynamic shared memory of one block of csrc/advance.cu: nine windows
+    of 4 bytes a cell (8 in f64 mode), and in int8 mode each of its 8
+    warps' operand staging (9 KB of rows, 3 KB per pair of 8-column tiles:
+    1, 2 or 4 pairs)."""
     pairs = 1 if nxg <= 16 else (2 if nxg <= 32 else 4)
     stage = 8 * (9216 + 3072 * pairs) if mode == "int8" else 0
-    return 36 * nyg * nxg + stage
+    return (72 if mode == "f64" else 36) * nyg * nxg + stage
 
 
 def qshape_scale(order: int) -> float:
@@ -83,12 +89,20 @@ def qshape_scale(order: int) -> float:
 
 
 def resolve_mode(deposit: str, qw0: float, tile_ny: int, tile_nx: int,
-                 g: int) -> str:
-    """Deposit mode as the JAX kernel resolves it (ppd_kernel.py:1016-1038),
-    from the deck only: "int8" needs a uniform-weight species (qw0 != 0)
-    and the window the JAX package's fused gather admits; else "f32"."""
+                 g: int, dtype: torch.dtype = torch.float32) -> str:
+    """Deposit mode from the deck.  A float64 deck is "f64", whatever
+    `deposit` asks: the JAX package runs every deck that is not f32 on its
+    XLA branch (``minipic_tpu/simulation.py:297-305``), whose deposit is
+    exact.  A float32 deck resolves as the JAX kernel does
+    (ppd_kernel.py:1016-1038): "int8" needs a uniform-weight species (qw0
+    != 0) and the window the JAX package's fused gather admits; else
+    "f32"."""
     if deposit not in ("", "highest", "int8"):
         raise NotImplementedError(f"deposit mode {deposit!r}")
+    if dtype == torch.float64:
+        return "f64"
+    if dtype != torch.float32:
+        raise NotImplementedError(f"particles of {dtype}")
     nyg, nxg = tile_ny + 2 * g, tile_nx + 2 * g
     window_ok = 6 * nyg <= 128 and 2 * nxg <= 128 and nyg % 8 == 0
     if deposit == "int8" and qw0 != 0.0 and window_ok:
@@ -96,25 +110,35 @@ def resolve_mode(deposit: str, qw0: float, tile_ny: int, tile_nx: int,
     return "f32"
 
 
-class AdvanceParams(ctypes.Structure):
-    """Mirror of ``struct AdvanceParams`` in csrc/advance.cu (passed by
-    value).  Float constants are folded in double on the host and rounded
-    once, as the JAX kernel's Python-float constants are."""
+_INT_PARAMS = ("num_tiles", "capacity", "tile_nx", "tile_ny", "guard",
+               "periodic")
+_REAL_PARAMS = ("h", "dtdx", "dtdy", "q", "grid_nx", "grid_ny", "inv_nx",
+                "inv_ny", "half_x", "half_y", "cjx", "cjy", "cz", "czq",
+                "S")
 
-    _fields_ = [
-        ("num_tiles", ctypes.c_int), ("capacity", ctypes.c_int),
-        ("tile_nx", ctypes.c_int),
-        ("tile_ny", ctypes.c_int), ("guard", ctypes.c_int),
-        ("periodic", ctypes.c_int),
-        ("h", ctypes.c_float), ("dtdx", ctypes.c_float),
-        ("dtdy", ctypes.c_float), ("q", ctypes.c_float),
-        ("grid_nx", ctypes.c_float), ("grid_ny", ctypes.c_float),
-        ("inv_nx", ctypes.c_float), ("inv_ny", ctypes.c_float),
-        ("half_x", ctypes.c_float), ("half_y", ctypes.c_float),
-        ("cjx", ctypes.c_float), ("cjy", ctypes.c_float),
-        ("cz", ctypes.c_float), ("czq", ctypes.c_float),
-        ("S", ctypes.c_float),
-    ]
+
+class AdvanceParams(ctypes.Structure):
+    """Mirror of ``AdvanceParams`` (``AdvanceParamsT<float>``) in
+    csrc/advance.cu (passed by value).  Float constants are folded in
+    double on the host and rounded once, as the JAX kernel's Python-float
+    constants are."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in _INT_PARAMS]
+                + [(n, ctypes.c_float) for n in _REAL_PARAMS])
+
+
+class AdvanceParams64(ctypes.Structure):
+    """Mirror of ``AdvanceParams64`` (``AdvanceParamsT<double>``): the f64
+    mode's constants, in double."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in _INT_PARAMS]
+                + [(n, ctypes.c_double) for n in _REAL_PARAMS])
+
+
+# Each mode's real type, and its code in minipic_advance_blocks_per_sm.
+MODE_DTYPES = {"f32": torch.float32, "int8": torch.float32,
+               "f64": torch.float64}
+_MODE_CODES = {"f32": 0, "int8": 1, "f64": 2}
 
 
 def _constants(*, qm, q, order, tile_ny, tile_nx, dt, dx, dy, grid, mode):
@@ -418,6 +442,10 @@ class AdvanceKernel:
             fn.argtypes = ([ctypes.c_int, ctypes.c_int, AdvanceParams]
                            + [ctypes.c_void_p] * 25)
             fn.restype = ctypes.c_int
+            fn = lib.minipic_advance_f64
+            fn.argtypes = ([ctypes.c_int, AdvanceParams64]
+                           + [ctypes.c_void_p] * 25)
+            fn.restype = ctypes.c_int
             occ = lib.minipic_advance_blocks_per_sm
             occ.argtypes = [ctypes.c_int] * 4
             occ.restype = ctypes.c_int
@@ -430,7 +458,7 @@ class AdvanceKernel:
         window (the CUDA occupancy calculator's answer, from registers and
         shared memory)."""
         n = self._load().minipic_advance_blocks_per_sm(
-            order, int(mode == "int8"), nyg, nxg)
+            order, _MODE_CODES[mode], nyg, nxg)
         if n < 0:
             raise RuntimeError("advance kernel: occupancy query failed")
         return n
@@ -441,16 +469,17 @@ class AdvanceKernel:
         T, cap = p.x.shape
         nyg, nxg = tile_ny + 2 * g, tile_nx + 2 * g
         dev = p.x.device
+        if order not in (1, 2) or mode not in MODE_DTYPES:
+            raise ValueError(f"order {order} / mode {mode!r} not built")
+        real = MODE_DTYPES[mode]
         for name, a in zip(ParticleState._fields, p):
-            _check(a, name, torch.float32, (T, cap), dev)
+            _check(a, name, real, (T, cap), dev)
         for name, a in zip(FieldState._fields, ftiles):
-            _check(a, name, torch.float32, (T, nyg, nxg), dev)
+            _check(a, name, real, (T, nyg, nxg), dev)
         _check(counts, "counts", torch.int32, (T,), dev)
         ox, oy = origins
         _check(ox, "ox", torch.int32, (T,), dev)
         _check(oy, "oy", torch.int32, (T,), dev)
-        if order not in (1, 2) or mode not in ("f32", "int8"):
-            raise ValueError(f"order {order} / mode {mode!r} not built")
         if mode == "int8" and (nyg not in (8, 16) or nxg > 64):
             raise ValueError(f"int8 window {nyg}x{nxg}: the tensor-core "
                              "deposit takes nyg 8 or 16 and nxg <= 64")
@@ -462,20 +491,23 @@ class AdvanceKernel:
         k = _constants(qm=qm, q=q, order=order, tile_ny=tile_ny,
                        tile_nx=tile_nx, dt=dt, dx=dx, dy=dy, grid=grid,
                        mode=mode)
-        params = AdvanceParams(num_tiles=T, capacity=cap, tile_nx=tile_nx,
-                               tile_ny=tile_ny, guard=g,
-                               periodic=int(grid is not None), **k)
+        params = (AdvanceParams64 if mode == "f64" else AdvanceParams)(
+            num_tiles=T, capacity=cap, tile_nx=tile_nx, tile_ny=tile_ny,
+            guard=g, periodic=int(grid is not None), **k)
         outs = tuple(torch.empty_like(a) for a in p[:5])
-        js = tuple(torch.empty((T, nyg, nxg), dtype=torch.float32, device=dev)
+        js = tuple(torch.empty((T, nyg, nxg), dtype=real, device=dev)
                    for _ in range(3))
-        dmax = torch.empty(T, dtype=torch.float32, device=dev)
+        dmax = torch.empty(T, dtype=real, device=dev)
         ptrs = ([a.data_ptr() for a in p]
                 + [counts.data_ptr(), ox.data_ptr(), oy.data_ptr()]
                 + [a.data_ptr() for a in ftiles]
                 + [a.data_ptr() for a in outs + js] + [dmax.data_ptr()])
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.minipic_advance(order, int(mode == "int8"), params, *ptrs,
-                                  stream)
+        if mode == "f64":
+            err = lib.minipic_advance_f64(order, params, *ptrs, stream)
+        else:
+            err = lib.minipic_advance(order, int(mode == "int8"), params,
+                                      *ptrs, stream)
         if err != 0:
             raise RuntimeError(f"advance kernel launch failed: CUDA error "
                                f"{err}")

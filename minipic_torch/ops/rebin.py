@@ -23,8 +23,9 @@ then counts the global grid's columns: a shard's striped tiles under
 ``parallel.balanced``).
 
 * **split** — a live slot whose ``floor(x * (1/tile_nx))`` or
-  ``floor(y * (1/tile_ny))`` is not the tile's column or row (f32, as the
-  JAX kernel) is a mover.  If the tile's movers fit the ``b_cap`` buffer, or
+  ``floor(y * (1/tile_ny))`` is not the tile's column or row (in the
+  channels' type: f32 as the JAX kernel, f64 on a float64 state) is a
+  mover.  If the tile's movers fit the ``b_cap`` buffer, or
   ``force`` is set, they go to it and the stayers are compacted in slot
   order; otherwise the tile defers (all its live slots stay, compacted, and
   its movers count as pending).  Buffer order is the JAX kernel's: ``kc``
@@ -101,21 +102,24 @@ def split_chunk(cap: int, b_cap: int) -> int:
     return cap
 
 
-def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant rounded once to `like`'s dtype, as the kernels'
+    constant is."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
 def _tile_rc(num_tiles: int, tile_cols: int, device, row0: int = 0,
-            col0: int = 0, tile_ids: Optional[torch.Tensor] = None):
-    """([T, 1], [T, 1]) float32 global row and column of each tile (see the
-    module docstring)."""
+            col0: int = 0, tile_ids: Optional[torch.Tensor] = None,
+            dtype: torch.dtype = torch.float32):
+    """([T, 1], [T, 1]) global row and column of each tile in `dtype` (see
+    the module docstring)."""
     if tile_ids is not None:
         t = tile_ids.to(device=device, dtype=torch.int64)
         rows, cols = t // tile_cols, t % tile_cols
     else:
         t = torch.arange(num_tiles, device=device)
         rows, cols = row0 + t // tile_cols, col0 + t % tile_cols
-    return (rows.to(torch.float32)[:, None], cols.to(torch.float32)[:, None])
+    return rows.to(dtype)[:, None], cols.to(dtype)[:, None]
 
 
 def _scatter_rows(src: ParticleState, mask: torch.Tensor, dest: torch.Tensor,
@@ -148,9 +152,9 @@ def _away(p: ParticleState, tile_cols: int, tile_ny: int, tile_nx: int,
           row0: int = 0, col0: int = 0, tile_ids=None):
     """Live slots whose floor(pos * (1/tile)) is not their tile's cell."""
     rows, cols = _tile_rc(p.x.shape[0], tile_cols, p.x.device, row0, col0,
-                          tile_ids)
-    col = torch.floor(p.x * _f32(1.0 / tile_nx, p.x))
-    row = torch.floor(p.y * _f32(1.0 / tile_ny, p.y))
+                          tile_ids, p.x.dtype)
+    col = torch.floor(p.x * _const(1.0 / tile_nx, p.x))
+    row = torch.floor(p.y * _const(1.0 / tile_ny, p.y))
     return (p.w > 0) & ((col != cols) | (row != rows))
 
 
@@ -194,9 +198,10 @@ def segment_movers_plain(movers: ParticleState, *, tile_rows: int,
     i32 = torch.int32
     gr = tile_rows if grid_rows is None else grid_rows
     gc = tile_cols if grid_cols is None else grid_cols
-    rows, cols = _tile_rc(T, tile_cols, movers.x.device, row0, col0)
-    dc = torch.floor(movers.x * _f32(1.0 / tile_nx, movers.x)) - cols
-    dr = torch.floor(movers.y * _f32(1.0 / tile_ny, movers.y)) - rows
+    rows, cols = _tile_rc(T, tile_cols, movers.x.device, row0, col0,
+                          dtype=movers.x.dtype)
+    dc = torch.floor(movers.x * _const(1.0 / tile_nx, movers.x)) - cols
+    dr = torch.floor(movers.y * _const(1.0 / tile_ny, movers.y)) - rows
     dc = torch.where(dc > 1.5, dc - gc, torch.where(dc < -1.5, dc + gc, dc))
     dr = torch.where(dr > 1.5, dr - gr, torch.where(dr < -1.5, dr + gr, dr))
     hop1 = (dc.abs() <= 1.5) & (dr.abs() <= 1.5)
@@ -345,7 +350,8 @@ def extract_movers_plain(p: ParticleState, *, tile_cols: int, tile_ny: int,
 
 class Channels(ctypes.Structure):
     """Mirror of ``struct Channels`` in csrc/rebin.cu: six channel pointers
-    (x, y, px, py, pz, w), passed by value."""
+    (x, y, px, py, pz, w), passed by value; the entry point's first
+    argument says whether they are float32 or float64."""
 
     _fields_ = [("c", ctypes.c_void_p * 6)]
 
@@ -363,20 +369,22 @@ def _lib():
         from ._build import build
 
         lib = ctypes.CDLL(str(build("rebin.cu").path))
-        ci, cf, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        lib.minipic_split.argtypes = ([ci] * 7 + [vp, cf, cf, Channels, vp,
+        # Each entry point takes `f64` (int) first; inverse tile sizes are
+        # doubles, rounded to the channels' type in the kernel.
+        ci, cd, vp = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
+        lib.minipic_split.argtypes = ([ci] * 8 + [vp, cd, cd, Channels, vp,
                                                   Channels, Channels]
                                       + [vp] * 3)
-        lib.minipic_segment.argtypes = ([ci] * 8 + [cf, cf, Channels,
+        lib.minipic_segment.argtypes = ([ci] * 9 + [cd, cd, Channels,
                                                     Channels] + [vp] * 2)
-        lib.minipic_append.argtypes = ([ci] * 3 + [vp] * 3
+        lib.minipic_append.argtypes = ([ci] * 4 + [vp] * 3
                                        + [Channels, Channels] + [vp] * 3)
-        lib.minipic_defrag.argtypes = ([ci] * 3 + [vp] * 2
+        lib.minipic_defrag.argtypes = ([ci] * 4 + [vp] * 2
                                        + [Channels, Channels] + [vp] * 4)
-        lib.minipic_append_rows.argtypes = ([ci] * 4 + [vp] * 2
+        lib.minipic_append_rows.argtypes = ([ci] * 5 + [vp] * 2
                                             + [Channels, Channels]
                                             + [vp] * 3)
-        lib.minipic_extract.argtypes = ([ci] * 5 + [cf, cf, Channels]
+        lib.minipic_extract.argtypes = ([ci] * 6 + [cd, cd, Channels]
                                         + [vp] * 2 + [Channels] + [vp] * 3)
         for fn in (lib.minipic_split, lib.minipic_segment,
                    lib.minipic_append, lib.minipic_defrag,
@@ -399,9 +407,22 @@ def _flag(v, dev) -> torch.Tensor:
     return torch.full((), bool(v), dtype=torch.bool, device=dev)
 
 
-def _check_p(p: ParticleState, what: str, shape, dev) -> None:
+# The channel types the kernels are built for, and each one's `f64` flag.
+_F64 = {torch.float32: 0, torch.float64: 1}
+
+
+def _check_p(p: ParticleState, what: str, shape, dev,
+             dtype: torch.dtype) -> None:
     for name, a in zip(ParticleState._fields, p):
-        _check(a, f"{what}.{name}", torch.float32, shape, dev)
+        _check(a, f"{what}.{name}", dtype, shape, dev)
+
+
+def _real(p: ParticleState) -> torch.dtype:
+    """The channels' type, which every other state of the call shares."""
+    if p.x.dtype not in _F64:
+        raise ValueError(f"particles of {p.x.dtype}: the re-bin kernels take "
+                         "float32 or float64")
+    return p.x.dtype
 
 
 def _launched(err: int, name: str) -> None:
@@ -437,8 +458,8 @@ class SplitKernel(_Kernel):
                  tile_nx: int, b_cap: int, force=False, row0: int = 0,
                  col0: int = 0, tile_ids: Optional[torch.Tensor] = None):
         T, cap = p.x.shape
-        dev = p.x.device
-        _check_p(p, "p", (T, cap), dev)
+        dev, real = p.x.device, _real(p)
+        _check_p(p, "p", (T, cap), dev, real)
         kc = split_chunk(cap, b_cap)
         if kc > 1024 or kc % 32:
             raise ValueError(f"split chunk {kc} (bucket {cap}, buffer "
@@ -451,14 +472,14 @@ class SplitKernel(_Kernel):
         lib = _lib()
         # The buckets are six allocations: the next advance replaces all
         # channels but w, which must not pin the other five.
-        out = ParticleState(*(torch.empty((T, cap), dtype=torch.float32,
-                                          device=dev) for _ in range(6)))
-        mbuf = torch.empty((6, T, b_cap), dtype=torch.float32, device=dev)
+        out = ParticleState(*(torch.empty((T, cap), dtype=real, device=dev)
+                              for _ in range(6)))
+        mbuf = torch.empty((6, T, b_cap), dtype=real, device=dev)
         movers = ParticleState(*mbuf)
         stay = torch.empty(T, dtype=torch.int32, device=dev)
         pending = torch.empty(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_split(
-            T, cap, b_cap, kc, tile_cols, row0, col0,
+            _F64[real], T, cap, b_cap, kc, tile_cols, row0, col0,
             None if tile_ids is None else tile_ids.data_ptr(),
             1.0 / tile_nx, 1.0 / tile_ny, _channels(p), force.data_ptr(),
             _channels(out),
@@ -475,16 +496,16 @@ class SegmentKernel(_Kernel):
                  grid_rows: Optional[int] = None,
                  grid_cols: Optional[int] = None):
         T, mc = movers.x.shape
-        dev = movers.x.device
-        _check_p(movers, "movers", (T, mc), dev)
+        dev, real = movers.x.device, _real(movers)
+        _check_p(movers, "movers", (T, mc), dev, real)
         if T != tile_rows * tile_cols:
             raise ValueError(f"{T} tiles, grid {tile_rows}x{tile_cols}")
         lib = _lib()
-        buf = torch.empty((6, T, 8 * b_seg), dtype=torch.float32, device=dev)
+        buf = torch.empty((6, T, 8 * b_seg), dtype=real, device=dev)
         seg = ParticleState(*buf)
         dropped = torch.empty(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_segment(
-            T, mc, b_seg, tile_cols, row0, col0,
+            _F64[real], T, mc, b_seg, tile_cols, row0, col0,
             tile_rows if grid_rows is None else grid_rows,
             tile_cols if grid_cols is None else grid_cols, 1.0 / tile_nx,
             1.0 / tile_ny, _channels(movers), _channels(seg),
@@ -494,8 +515,8 @@ class SegmentKernel(_Kernel):
 
 
 def _check_runs(seg: ParticleState, nbr: torch.Tensor, T: int, b_seg: int,
-                dev) -> None:
-    _check_p(seg, "seg", (T, 8 * b_seg), dev)
+                dev, real) -> None:
+    _check_p(seg, "seg", (T, 8 * b_seg), dev, real)
     _check(nbr, "nbr", torch.int32, (T, 8), dev)
 
 
@@ -504,16 +525,17 @@ class AppendKernel(_Kernel):
                  wm: torch.Tensor, nbr: torch.Tensor, *, b_seg: int,
                  active=True) -> torch.Tensor:
         T, cap = p.x.shape
-        dev = p.x.device
-        _check_p(p, "p", (T, cap), dev)
-        _check_runs(seg, nbr, T, b_seg, dev)
+        dev, real = p.x.device, _real(p)
+        _check_p(p, "p", (T, cap), dev, real)
+        _check_runs(seg, nbr, T, b_seg, dev, real)
         _check(wm, "wm", torch.int32, (T,), dev)
         active = _flag(active, dev)
         lib = _lib()
         dropped = torch.zeros(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_append(
-            T, cap, b_seg, wm.data_ptr(), nbr.data_ptr(), active.data_ptr(),
-            _channels(p), _channels(seg), dropped.data_ptr(),
+            _F64[real], T, cap, b_seg, wm.data_ptr(), nbr.data_ptr(),
+            active.data_ptr(), _channels(p), _channels(seg),
+            dropped.data_ptr(),
             self._taken(dev).data_ptr(), _stream(dev)), "append")
         self.launches += 1
         return dropped
@@ -528,24 +550,24 @@ class DefragKernel(_Kernel):
                  nbr: Optional[torch.Tensor] = None, *, b_seg: int = 0,
                  active=True) -> Tuple[torch.Tensor, torch.Tensor]:
         T, cap = p.x.shape
-        dev = p.x.device
-        _check_p(p, "p", (T, cap), dev)
+        dev, real = p.x.device, _real(p)
+        _check_p(p, "p", (T, cap), dev, real)
         if seg is None:
             b_seg, seg_ch, nbr_ptr = 0, Channels(), None
         elif nbr is None:
             b_seg = seg.x.shape[1]
-            _check_p(seg, "incoming", (T, b_seg), dev)
+            _check_p(seg, "incoming", (T, b_seg), dev, real)
             seg_ch, nbr_ptr = _channels(seg), None
         else:
-            _check_runs(seg, nbr, T, b_seg, dev)
+            _check_runs(seg, nbr, T, b_seg, dev, real)
             seg_ch, nbr_ptr = _channels(seg), nbr.data_ptr()
         active = _flag(active, dev)
         lib = _lib()
         counts = torch.zeros(T, dtype=torch.int32, device=dev)
         dropped = torch.zeros(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_defrag(
-            T, cap, b_seg, nbr_ptr, active.data_ptr(), _channels(p), seg_ch,
-            counts.data_ptr(), dropped.data_ptr(),
+            _F64[real], T, cap, b_seg, nbr_ptr, active.data_ptr(),
+            _channels(p), seg_ch, counts.data_ptr(), dropped.data_ptr(),
             self._taken(dev).data_ptr(), _stream(dev)), "defrag")
         self.launches += 1
         return counts, dropped
@@ -561,8 +583,8 @@ class _AppendRowsKernel(_Kernel):
     def _launch(self, p: ParticleState, inc: ParticleState,
                 wm: torch.Tensor, b_run: int, active) -> torch.Tensor:
         T, cap = p.x.shape
-        dev = p.x.device
-        _check_p(p, "p", (T, cap), dev)
+        dev, real = p.x.device, _real(p)
+        _check_p(p, "p", (T, cap), dev, real)
         width = inc.x.shape[-1]
         if b_run <= 0 or width % b_run:
             raise ValueError(f"incoming width {width} is not a whole number "
@@ -570,14 +592,15 @@ class _AppendRowsKernel(_Kernel):
         if width // b_run > MAX_RUNS:
             raise ValueError(f"{width // b_run} runs; the kernel takes at "
                              f"most {MAX_RUNS}")
-        _check_p(inc, "incoming", (T, width), dev)
+        _check_p(inc, "incoming", (T, width), dev, real)
         _check(wm, "wm", torch.int32, (T,), dev)
         active = _flag(active, dev)
         lib = _lib()
         dropped = torch.zeros(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_append_rows(
-            T, cap, width // b_run, b_run, wm.data_ptr(), active.data_ptr(),
-            _channels(p), _channels(inc), dropped.data_ptr(),
+            _F64[real], T, cap, width // b_run, b_run, wm.data_ptr(),
+            active.data_ptr(), _channels(p), _channels(inc),
+            dropped.data_ptr(),
             self._taken(dev).data_ptr(), _stream(dev)), self.name)
         self.launches += 1
         return dropped
@@ -604,8 +627,8 @@ class ExtractKernel(_Kernel):
     def __call__(self, p: ParticleState, *, tile_cols: int, tile_ny: int,
                  tile_nx: int, b_cap: int, force=False):
         T, cap = p.x.shape
-        dev = p.x.device
-        _check_p(p, "p", (T, cap), dev)
+        dev, real = p.x.device, _real(p)
+        _check_p(p, "p", (T, cap), dev, real)
         if T % tile_cols:
             raise ValueError(f"{T} tiles not a multiple of {tile_cols} cols")
         smem = extract_smem_bytes(cap)
@@ -615,14 +638,15 @@ class ExtractKernel(_Kernel):
         kc = extract_chunk(cap, b_cap)
         force = _flag(force, dev)
         lib = _lib()
-        w = torch.empty((T, cap), dtype=torch.float32, device=dev)
-        mbuf = torch.empty((6, T, b_cap), dtype=torch.float32, device=dev)
+        w = torch.empty((T, cap), dtype=real, device=dev)
+        mbuf = torch.empty((6, T, b_cap), dtype=real, device=dev)
         movers = ParticleState(*mbuf)
         wm = torch.empty(T, dtype=torch.int32, device=dev)
         pending = torch.empty(T, dtype=torch.int32, device=dev)
         _launched(lib.minipic_extract(
-            T, cap, b_cap, (b_cap // kc) * kc, tile_cols, 1.0 / tile_nx,
-            1.0 / tile_ny, _channels(p), force.data_ptr(), w.data_ptr(),
+            _F64[real], T, cap, b_cap, (b_cap // kc) * kc, tile_cols,
+            1.0 / tile_nx, 1.0 / tile_ny, _channels(p), force.data_ptr(),
+            w.data_ptr(),
             _channels(movers), wm.data_ptr(), pending.data_ptr(),
             _stream(dev)), "extract")
         self.launches += 1

@@ -96,7 +96,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
     are a 1-D deal).  Shards on one device share its field tensors."""
     deck.validate()
     for d in mesh.distinct():
-        resolve_backend(deck, d)
+        resolve_backend(d)
     S = mesh.size
     tiling = deck.tiling
     T = tiling.num_tiles

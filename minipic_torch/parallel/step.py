@@ -256,7 +256,7 @@ def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
     reads it."""
     deck.validate()
     for d in mesh.distinct():
-        resolve_backend(deck, d)
+        resolve_backend(d)
     fused = os.environ.get("MINIPIC_APPEND_FUSED", "1") == "1"
     rows, cols = mesh.shape
     S = mesh.size
@@ -536,7 +536,7 @@ class MeshSimulation:
         self.deck = deck
         self.device = self.mesh.devices[0]
         for d in self.mesh.distinct():
-            self.backend = resolve_backend(deck, d)
+            self.backend = resolve_backend(d)
         cap = bucket_capacity(deck)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)

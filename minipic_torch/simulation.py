@@ -272,15 +272,15 @@ class _HostClock:
         self._last = (state.step, state.window_x0, step, w0)
 
 
-def resolve_backend(deck: Deck, device: torch.device) -> str:
-    """"cuda" (the advance kernel) for a CUDA device, "plain" on the CPU."""
+def resolve_backend(device: torch.device) -> str:
+    """"cuda" (the kernels) for a CUDA device, "plain" on the CPU, whatever
+    the deck's precision (``deposit_modes``: an f64 deck takes the
+    advance's f64 mode)."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but CUDA is not "
                                "available")
-        if deck.dtype != torch.float32:
-            raise NotImplementedError("the CUDA advance kernel is float32-only")
         return "cuda"
     if device.type == "cpu":
         return "plain"
@@ -304,17 +304,18 @@ def advance_species_tiles(p: ParticleState, ftiles: FieldState, *, qm: float,
 
 
 def deposit_modes(deck: Deck) -> list:
-    """Each species' deposit mode ("int8" or "f32", ``resolve_mode``)."""
+    """Each species' deposit mode ("int8", "f32" or, for a float64 deck,
+    "f64": ``resolve_mode``)."""
     modes = []
     for spec in deck.species:
         qw0 = (spec.charge * deck.dx * deck.dy / spec.ppc
                if spec.uniform_weights() else 0.0)
         modes.append(resolve_mode(deck.deposit, qw0, deck.tile_ny,
-                                  deck.tile_nx, deck.guard))
-        if modes[-1] == "f32" and deck.gather_precision != "exact":
+                                  deck.tile_nx, deck.guard, deck.dtype))
+        if modes[-1] != "int8" and deck.gather_precision != "exact":
             raise NotImplementedError(
-                f"gather_precision={deck.gather_precision!r} with the f32 "
-                "deposit (the port gathers exactly)")
+                f"gather_precision={deck.gather_precision!r} with the "
+                f"{modes[-1]} deposit (the port gathers exactly)")
     return modes
 
 
@@ -325,7 +326,7 @@ def build_step(deck: Deck, device: torch.device):
     route's arrivals with append_runs after a roll, anything else (the
     default "1") with the fused append."""
     deck.validate()
-    resolve_backend(deck, device)
+    resolve_backend(device)
     fused = os.environ.get("MINIPIC_APPEND_FUSED", "1") == "1"
     tiling = deck.tiling
     g = deck.guard
@@ -487,7 +488,7 @@ class Simulation:
                  seed: int = 0, *, device="cuda"):
         deck.validate()
         self.device = torch.device(device)
-        self.backend = resolve_backend(deck, self.device)
+        self.backend = resolve_backend(self.device)
         self.deck = deck
         tiling = deck.tiling
         cap = bucket_capacity(deck)

@@ -115,6 +115,39 @@ def test_cli_reference_pulse_f64_equals_jax_cli(tmp_path):
     assert ht["live_skew"] == hj["live_skew"]
 
 
+def test_cli_two_stream_f64_equals_jax_cli(tmp_path):
+    """two_stream (it asks for the int8 deposit) at 32^2 through both CLIs
+    in f64 on the CPU: JAX's f64 run takes its exact deposit, and so does
+    the port's (its f64 mode).  The same files; the snapshots' fields
+    within 1e-11 of the largest component's peak (2e-13 measured) and
+    the energies within 1e-9 relative: the seeders agree to 2 ulp
+    (test_torch_decks.py), not bit for bit, and the port re-bins by
+    rebin_auto where JAX sorts."""
+    args = ["--deck", "two_stream", "--nx", "32", "--ny", "32", "--steps",
+            "20", "--save-every", "10", "--precision", "f64"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_cli(args + ["--out", jout]) == 0
+    _run(args + ["--out", tout, "--device", "cpu"])
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    kw = dict(nx_global=32, ny_global=32, guard=4, interior_nx=8,
+              interior_ny=8)
+    comps = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
+    for step in (10, 20):
+        want = {q: th5.load_field(step, jout, q, **kw) for q in comps}
+        # The beams drive Ex; the other components are round-off, held to
+        # the same absolute bar.
+        peak = max(np.abs(a).max() for a in want.values())
+        for q in comps:
+            d = np.abs(th5.load_field(step, tout, q, **kw) - want[q]).max()
+            assert d <= 1e-11 * peak, f"{q} at step {step}: {d / peak}"
+    ht, hj = _history(tout), _history(jout)
+    assert ht["steps"] == hj["steps"] == list(range(1, 21))
+    for key in ("field_energy", "kinetic_energy"):
+        np.testing.assert_allclose(ht[key], hj[key], rtol=1e-9,
+                                   err_msg=key)
+    assert ht["overflow"] == hj["overflow"]
+
+
 def test_cli_two_stream_energy(two_stream_20):
     hist = _history(two_stream_20)
     tot = [f + sum(k) for f, k in zip(hist["field_energy"],
@@ -276,12 +309,33 @@ def test_cli_needs_the_card_unless_told_cpu(tmp_path, monkeypatch):
     assert "CUDA" in str(e.value.code)
 
 
-def test_cli_f64_on_the_card_is_refused(tmp_path, monkeypatch):
-    """--precision f64 sets the deck's precision; the card's advance is
-    float32-only, so a card run of it fails before any step."""
+def test_cli_f64_on_the_card_resolves_to_the_kernels(tmp_path, monkeypatch):
+    """--precision f64 on the card (here a monkeypatched one) builds the
+    deck in f64 and its simulation on the card, whose step takes the
+    kernels: the advance in its f64 mode for every species (the deck asks
+    for int8), and the re-bin kernels on float64 channels."""
+    from minipic_torch.decks.standard import Case
+    from minipic_torch.simulation import deposit_modes, resolve_backend
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="float32-only"):
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def simulation(case, seed=0, device="cuda", **kw):
+        seen.update(deck=case.deck, device=torch.device(device))
+        raise Built
+
+    monkeypatch.setattr(Case, "simulation", simulation)
+    with pytest.raises(Built):
         cli.main(TWO_STREAM[:-2] + ["--out", str(tmp_path)])
+    deck = seen["deck"]
+    assert deck.precision == "f64" and deck.dtype == torch.float64
+    assert deck.deposit == "int8" and len(deck.species) == 3
+    assert seen["device"].type == "cuda"
+    assert resolve_backend(seen["device"]) == "cuda"
+    assert deposit_modes(deck) == ["f64"] * 3
 
 
 def test_cli_without_a_writer_exits_non_zero(tmp_path, monkeypatch):

@@ -108,6 +108,34 @@ def test_energy_spectrum(emax):
         np.asarray(jdev.energy_spectrum(uj, 1.0, 16, emax)[0]))
 
 
+def test_energy_spectrum_bins_by_the_correctly_rounded_gamma():
+    """PyTorch's float32 sqrt on the CPU is an ulp off the correctly
+    rounded root for some inputs, where its CUDA sqrt differs from it, so
+    a particle at a bin edge fell into other bins on the card and on the
+    CPU.  The spectrum takes gamma as the correctly rounded root (numpy's
+    float32 sqrt, JAX's): one particle whose two roots differ, with a bin
+    edge between its two energies, lands in the bin of the correct one."""
+    rng = np.random.default_rng(5)
+    u = torch.from_numpy(rng.uniform(0.0, 3.0, (3, 4096)).astype(np.float32))
+    s1 = (1.0 + (u[0] ** 2 + u[1] ** 2 + u[2] ** 2)).numpy()
+    ieee = np.sqrt(s1)
+    off = np.flatnonzero(torch.sqrt(torch.from_numpy(s1)).numpy() != ieee)
+    assert off.size > 0
+    i = int(off[0])
+    ke = ieee[i] - np.float32(1.0)
+    ke_off = torch.sqrt(torch.from_numpy(s1[i:i + 1])).numpy()[0] - 1.0
+    # Two bins whose edge is the larger energy: that one lands in bin 1.
+    emax = float(2 * max(ke, ke_off))
+    w = np.zeros(4096, np.float32)
+    w[i] = 1.0
+    p = ParticleState(*(torch.zeros(1, 4096) for _ in range(2)),
+                      *(c[None, :] for c in u), torch.from_numpy(w)[None, :])
+    hist = tdev.energy_spectrum(p, 1.0, bins=2, emax=emax)[0].numpy()
+    want = np.zeros(2, np.float32)
+    want[int(ke >= ke_off)] = 1.0
+    np.testing.assert_array_equal(hist, want)
+
+
 def test_field_spectrum_2d():
     a = np.random.default_rng(1).standard_normal((24, 32)).astype(np.float32)
     got = tdev.field_spectrum_2d(torch.from_numpy(a))

@@ -843,3 +843,129 @@ def test_sharded_twin_on_the_card(cuda):
     torch.testing.assert_close(dsh.kinetic_energy, dref.kinetic_energy,
                                rtol=1e-6, atol=0)
     assert int(dsh.shard_live.sum()) == int(dref.shard_live[0])
+
+
+# ----------------------------------------------------------------------
+# Decks of precision "f64": the advance's f64 mode and the re-bin kernels
+# over float64 channels against their plain versions.
+
+def _double(t):
+    return type(t)(*(a.double() for a in t))
+
+
+def _ulps(a, b):
+    """max |a - b| in ulps of the channel's scale (the spacing of f64 at
+    max |b|): sums that cancel near zero carry their operands' error."""
+    return float((a - b).abs().max() / torch.finfo(torch.float64).eps
+                 / b.abs().max().clamp(min=1e-300))
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "open"])
+@pytest.mark.parametrize("order", [1, 2])
+def test_f64_kernel_matches_plain_on_the_card(cuda, order, boundary):
+    """B1's f64 mode (double particles, windows and constants) against its
+    plain version: positions and momenta within 2 ulp of each channel's
+    scale, dead slots untouched, J within 1e-12 of its peak (double
+    atomics in another order), the displacements to 1e-12."""
+    if boundary == "periodic":
+        tile, g, grid = 8, 4, (32, 32)
+        p, ft = _inputs(cuda)
+    else:
+        tile, g, cap = (16, 2, 1536) if order == 1 else (8, 4, 512)
+        grid = None
+        p, ft = _open_inputs(cuda, tile, g, cap)
+    p, ft = _double(p), _double(ft)
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=tile, tile_nx=tile,
+              origins=_origins(cuda, 32 // tile, 32 // tile, tile, tile),
+              g=g, dt=0.035, dx=0.1, dy=0.1, grid=grid, mode="f64")
+    n0 = advance_kernel.launches
+    pk, jk, dk = advance_tiles(p, ft, counts, **kw)
+    assert advance_kernel.launches == n0 + 1
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    live = p.w > 0
+    for name, a, b, old in zip("x y px py pz".split(), pk, pp, p):
+        assert a.dtype == torch.float64
+        assert _ulps(a[live], b[live]) <= 2, name
+        assert torch.equal(a[~live], old[~live]), name
+    for name, a, b in zip(("jx", "jy", "jz"), jk, jp):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-12 * float(b.abs().max()))
+    torch.testing.assert_close(dk, dp, rtol=1e-12, atol=0)
+
+
+def _rebin_pair(name, p, dev):
+    """(kernel call, plain call) of one re-bin kernel on the stale buckets
+    `p` (4x4 tiles of 3072 slots); the in-place kernels work on copies."""
+    from minipic_torch.core.geometry import Tiling
+    from minipic_torch.ops import rebin as rb
+    from minipic_torch.particles.binning import route_movers
+
+    def copy(q):
+        return rb.ParticleState(*(a.clone() for a in q))
+
+    p1, movers, wm, _ = rb.split_buckets_plain(p, **_GRID, b_cap=1536)
+    seg, _ = rb.segment_movers_plain(movers, tile_rows=4, **_GRID,
+                                     b_seg=256)
+    nbr = rb.seg_neighbor_table(4, 4, dev)
+    inc = rb.roll_segments(seg, nbr, 256)
+    row, _ = route_movers(movers, Tiling(**_TILING), 1536)
+
+    def in_place(kernel, plain):
+        def run():
+            q = copy(p1)
+            return (q, kernel(q))
+        return run, plain
+
+    pairs = {
+        "split": (lambda: rb.split_kernel(p, **_GRID, b_cap=1536),
+                  lambda: rb.split_buckets_plain(p, **_GRID, b_cap=1536)),
+        "segment": (
+            lambda: rb.segment_kernel(movers, tile_rows=4, **_GRID,
+                                      b_seg=256),
+            lambda: rb.segment_movers_plain(movers, tile_rows=4, **_GRID,
+                                            b_seg=256)),
+        "append": in_place(
+            lambda q: rb.append_kernel(q, seg, wm, nbr, b_seg=256),
+            lambda: rb.append_segments_plain(p1, seg, wm, nbr, b_seg=256)),
+        "defrag": in_place(
+            lambda q: rb.defrag_kernel(q, seg, nbr, b_seg=256),
+            lambda: rb.defrag_buckets_plain(p1, inc)),
+        "append_runs": in_place(
+            lambda q: rb.append_runs_kernel(q, inc, wm, b_seg=256),
+            lambda: rb.append_runs_plain(p1, inc, wm, b_seg=256)),
+        "append_incoming": in_place(
+            lambda q: rb.append_incoming_kernel(q, row, wm),
+            lambda: rb.append_incoming_plain(p1, row, wm)),
+        "extract": (lambda: rb.extract_kernel(p, **_GRID, b_cap=1536),
+                    lambda: rb.extract_movers_plain(p, **_GRID, b_cap=1536)),
+    }
+    return pairs[name]
+
+
+def _tensors(out):
+    for o in out:
+        if isinstance(o, tuple):
+            yield from o
+        else:
+            yield o
+
+
+@pytest.mark.parametrize("name", ["split", "segment", "append", "defrag",
+                                  "append_runs", "append_incoming",
+                                  "extract"])
+def test_f64_rebin_kernel_matches_plain(cuda, name):
+    """B2-B8 over float64 channels against their plain versions, slot for
+    slot: every channel (float64) and every count equal."""
+    p = _double(_stale(cuda))
+    kernel, plain = _rebin_pair(name, p, cuda)
+    got, want = list(_tensors(kernel())), list(_tensors(plain()))
+    torch.cuda.synchronize()
+    assert len(got) == len(want), (len(got), len(want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype, (i, a.dtype, b.dtype)
+        assert torch.equal(a, b), f"{name} output {i}"
+    assert any(a.dtype == torch.float64 and bool((a != 0).any())
+               for a in got)

@@ -7,10 +7,12 @@ Phases, each printing what it found; any failure exits non-zero:
 
 1. build: compiles the advance kernel (csrc/advance.cu) and the re-bin
    kernels (csrc/rebin.cu) from this checkout, one nvcc each, at once,
-   and prints each kernel's registers, shared memory and spills (ptxas)
-   and the atomic instructions in each advance kernel's SASS (whether the
-   f64 deposit's shared double atomicAdd is one instruction or a
-   compare-and-swap loop);
+   and prints each kernel's registers, shared memory and spills (ptxas),
+   the atomic instructions in each advance kernel's SASS and, per
+   instantiation, how many shared compare-and-swap loops
+   (``ATOMS.CAST.SPIN``) remain: none where each warp owns its J windows
+   (the f32 and f64 deposits' private sets), and how many warps share a
+   set of J windows at each deck's window;
 2. kernel: the advance kernel against its plain torch version on the card,
    on 64 tiles of the headline tile shape (8x8, guard 4, 27136 slots,
    thermal particles, non-zero fields) in int8, f32 and f64 modes, TSC and
@@ -18,7 +20,11 @@ Phases, each printing what it found; any failure exits non-zero:
    J within 1e-12 of its peak, continuity under 1e-10 of scale), in three
    layouts: lattice order as loaded (a warp's lanes share few
    bases), displaced particles in shuffled slots, and lattice order with a
-   few particles in the window-edge fold (int8 operands past 127); then
+   few particles in the window-edge fold (int8 operands past 127), the f32
+   and f64 J equal bit for bit across two launches (private J window
+   sets, no atomics); the f32 and f64 modes at windows too wide for a set
+   of J windows per warp (2, 4 and 8 warps to a set), against their plain
+   versions; then
    each re-bin kernel against its plain version on 64-tile subsets with
    stale buckets, equal in every channel of every slot: the split
    (normal, pending, forced), the segment (overflow, a >1-hop mover), the
@@ -100,7 +106,8 @@ Phases, each printing what it found; any failure exits non-zero:
    ``Simulation.step`` calls on the card; then each kernel against its plain
    version on the run's final state, at the main path's shapes, and each
    one's time (the advance also on a copy with each bucket's live slots
-   shuffled), with the whole deal-route re-bin (fused and through
+   shuffled, and in its f32 mode on that state, lattice and shuffled),
+   with the whole deal-route re-bin (fused and through
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
    that state; then all of it again for the headline deck in f64 (99.9 M
    particles in double, the advance's f64 mode, the re-bin over float64
@@ -142,7 +149,8 @@ at load_balance_stress's shard, under "sharded"; every kernel's launches in
 each load_balance run, under "load_balance"; each kernel's numbers on the
 f64 path, under "f64": the f64 headline's launches, error, times and bound
 (bytes at 8-byte channels, operations at the card's f64 peak), and
-append_incoming's at the f64 energy deck); the last line is
+append_incoming's at the f64 energy deck; the advance's f32 mode at the
+headline's final state, under "f32"); the last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without a card it fails
 before printing any result.
 """
@@ -181,8 +189,8 @@ PULSE_SAMPLES = 260
 OPEN_ENERGY_EVERY = 25
 OPEN_WINDOW_EVERY = 50
 OPEN_WINDOW_STEPS = 0
-# f32 J of the open mode against its plain version: atomics in another
-# order, 2e-5 of the window's peak (ROADMAP C).
+# f32 J of the open mode against its plain version: sums in another order,
+# 2e-5 of the window's peak (ROADMAP C).
 OPEN_J_TOL = 2e-5
 ADVANCE_SOURCE = "minipic_torch/csrc/advance.cu"
 REBIN_SOURCE = "minipic_torch/csrc/rebin.cu"
@@ -333,9 +341,10 @@ def _live(p) -> int:
 
 
 def _sass_shared_atomics(lib) -> dict:
-    """{kernel (mangled): the set of atomic opcodes in its SASS (ATOMS.*
-    shared memory, ATOM.* / RED.* generic or global)}, from ``cuobjdump
-    -sass`` of the built library."""
+    """{kernel (mangled): how many of each atomic opcode its SASS holds
+    (ATOMS.* shared memory, ATOM.* / RED.* generic or global)}, from
+    ``cuobjdump -sass`` of the built library."""
+    import collections
     import re
 
     from minipic_torch.ops._build import _nvcc
@@ -348,11 +357,30 @@ def _sass_shared_atomics(lib) -> dict:
     for line in r.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            out[name] = set()
+            out[name] = collections.Counter()
         elif name is not None:
             out[name].update(re.findall(r"\b(?:ATOMS|ATOM|RED)\.[A-Z0-9_.]+",
                                         line))
     return out
+
+
+def _advance_instantiation(kernel: str) -> str:
+    """A readable name of an advance_kernel instantiation from its mangled
+    name (template arguments ORDER, QUANT, NP, PERIODIC, SHARED, R)."""
+    import re
+
+    m = re.search(r"advance_kernelILi(\d)ELb([01])ELi(\d)ELb([01])ELb([01])E"
+                  r"([df])E", kernel)
+    if m is None:
+        return kernel[:90]
+    order, quant, np_, periodic, shared, real = m.groups()
+    mode = "int8" if quant == "1" else ("f64" if real == "d" else "f32")
+    return (f"order {order} {mode}"
+            + (f" {np_} column pair{'s' if np_ != '1' else ''}"
+               if quant == "1" else "")
+            + (" periodic" if periodic == "1" else " open")
+            + ("" if quant == "1" else
+               (" shared J sets" if shared == "1" else " private J sets")))
 
 
 def phase_build() -> None:
@@ -372,16 +400,33 @@ def phase_build() -> None:
                 print(f"build: ptxas: {line.strip()}")
     print(f"build: {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s")
-    # Shared-memory atomics as compiled: does the f64 deposit's atomicAdd
-    # on a shared double run as one instruction or as a compare-and-swap
-    # loop on this target?
-    import re
-
+    # Shared-memory atomics as compiled: a shared float or double atomicAdd
+    # is a compare-and-swap loop (ATOMS.CAST.SPIN) on this target.  The
+    # f32 and f64 deposits into private J sets add without atomics; the
+    # shared sets of wide windows keep them.
     for kernel, ops in _sass_shared_atomics(built["advance.cu"].path).items():
-        # The real type is the last template argument: d(ouble) or f(loat).
-        m = re.search(r"advance_kernelI.*?E([df])EEv", kernel)
-        kind = "f64" if m and m.group(1) == "d" else "f32/int8"
-        print(f"build: SASS {kind} {kernel[:90]}: atomics {sorted(ops)}")
+        name = _advance_instantiation(kernel)
+        cas = sum(n for op, n in ops.items()
+                  if op.startswith("ATOMS.CAST.SPIN"))
+        print(f"build: SASS advance {name}: atomics {dict(sorted(ops.items()))}"
+              f"; shared compare-and-swap loops: {cas or 'none'}")
+        if "private J sets" in name:
+            check(cas == 0, f"{name}: {cas} ATOMS.CAST.SPIN in the deposit "
+                  "into private J windows")
+    from minipic_torch.decks import standard
+    from minipic_torch.headline import headline_deck
+    from minipic_torch.ops.advance import kernel_smem_bytes, window_warps
+
+    for name in ["headline", *standard.CASES]:
+        deck = headline_deck() if name == "headline" else \
+            standard.make(name).deck
+        nyg, nxg = deck.tile_ny + 2 * deck.guard, deck.tile_nx + 2 * deck.guard
+        sets = ", ".join(
+            f"{mode} {window_warps(nyg, nxg, mode)} "
+            f"({kernel_smem_bytes(nyg, nxg, mode)} bytes a block)"
+            for mode in ("f32", "f64"))
+        print(f"build: {name} window {nyg}x{nxg}: warps to a set of J "
+              f"windows {sets}")
     from minipic_torch.ops.rebin import extract_smem_bytes
 
     print("build: extract_kernel: dynamic shared memory "
@@ -543,7 +588,7 @@ def _ulps(a, b) -> float:
 # f64 mode against its plain version: positions and momenta within this
 # many ulps of each channel's scale (the same ops in the same order but the
 # gather's, no contraction), J within F64_J_TOL of its window's peak
-# (double atomics in another order).
+# (sums in another order).
 F64_ULPS = 2
 F64_J_TOL = 1e-12
 
@@ -587,8 +632,8 @@ def _compare(p, ft, counts, kw, label: str) -> float:
             check(n_diff <= MAX_INT8_CELLS_DIFFERENT,
                   f"{label} {name}: {n_diff} cells differ")
         else:
-            # f32 sums of ~3.5e3 terms per cell in two atomic orders,
-            # before the prefix sums: 1e-5 of the window's peak.
+            # f32 sums of ~3.5e3 terms per cell in two orders, before the
+            # prefix sums: 1e-5 of the window's peak.
             tol = F64_J_TOL if f64 else 1e-5
             check(float(d.max()) <= tol * scale,
                   f"{label} {name}: {float(d.max())} > {tol} * {scale}")
@@ -604,9 +649,8 @@ def phase_kernel(dev) -> None:
     both orders and both modes, with the int8 continuity residual."""
     import itertools
 
-    from minipic_torch.ops.advance import live_watermark
-
-    from minipic_torch.ops.advance import MODE_DTYPES
+    from minipic_torch.ops.advance import (MODE_DTYPES, kernel_smem_bytes,
+                                           live_watermark, window_warps)
 
     for layout, (order, mode) in itertools.product(
             SUBSET_LAYOUTS, ((2, "int8"), (2, "f32"), (1, "int8"),
@@ -622,7 +666,84 @@ def phase_kernel(dev) -> None:
             bar = 3e-6 if mode == "int8" else F64_CONTINUITY
             msg += f", continuity residual {cont:.3e} of scale (bar {bar})"
             check(cont < bar, f"{label} continuity {cont}")
+        if mode != "int8":
+            _repeatable(p, ft, _kw(deck, mode, dev), label)
+            msg += ", J bit for bit across two launches"
         print(msg)
+    for mode, n in WIDE_WINDOWS:
+        p, ft, kw = _wide_subset(n, mode, dev)
+        w = window_warps(n, n, mode)
+        err = _compare(p, ft, live_watermark(p.w), kw,
+                       f"wide {n}^2 window {mode}")
+        print(f"kernel: {mode} at a {n}x{n} window ({w} warps to a set of J "
+              f"windows, {kernel_smem_bytes(n, n, mode)} bytes a block): "
+              f"{_live(p)} particles, max abs err {err:.3e}")
+
+
+# The f32 and f64 modes at windows too wide for a set of J windows per
+# warp: (mode, window), taking 2, 4 and 8 warps to a set.
+WIDE_WINDOWS = (("f32", 48), ("f32", 60), ("f32", 72), ("f64", 36),
+                ("f64", 48), ("f64", 52))
+
+
+def _wide_subset(n: int, mode: str, dev, g: int = 2, cap: int = 4096,
+                 n_live: int = 3000):
+    """2x2 tiles of (n - 2g)^2 cells (windows n^2), TSC: n_live thermal
+    particles a bucket in lattice order over the tile's cells, displaced
+    up to half a cell, and smooth fields, in `mode`'s dtype; with the
+    advance's keywords."""
+    import torch
+
+    from minipic_torch.core.state import FieldState, ParticleState
+    from minipic_torch.ops.advance import MODE_DTYPES
+    from minipic_torch.simulation import tile_origins
+    from minipic_torch.core.geometry import Tiling
+
+    tile, T = n - 2 * g, 4
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rnd = lambda: torch.rand((T, cap), generator=gen, device=dev)  # noqa
+    s = torch.arange(cap, device=dev)[None, :]
+    t = torch.arange(T, device=dev)[:, None]
+    cell = (s * tile * tile) // n_live
+    x = (t % 2) * tile + cell % tile + rnd() - 0.25
+    y = (t // 2) * tile + cell // tile % tile + rnd() - 0.25
+    x, y = (torch.remainder(a, 2 * tile) for a in (x, y))
+    mom = [torch.randn((T, cap), generator=gen, device=dev) * 0.05
+           for _ in range(3)]
+    w = (s < n_live).float().expand(T, cap) * 0.004
+    p = ParticleState(x, y, *mom, w.contiguous())
+    j = torch.arange(2 * tile + 2 * g, device=dev, dtype=torch.float32)
+    win = torch.stack([torch.stack([
+        0.05 * torch.sin(0.2 * (c + 1) * j[:, None] + 0.1 * (2 - c) * j[None, :]
+                         + c + k)
+        for k in range(T)]) for c in range(6)])
+    ft = FieldState(*(f[:, :n, :n].contiguous() for f in win))
+    real = MODE_DTYPES[mode]
+    p = type(p)(*(a.to(real) for a in p))
+    ft = type(ft)(*(a.to(real) for a in ft))
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=tile, tile_nx=tile,
+              origins=tile_origins(Tiling(tile_rows=2, tile_cols=2,
+                                          tile_ny=tile, tile_nx=tile), dev),
+              g=g, dt=0.035, dx=0.1, dy=0.1, grid=(2 * tile, 2 * tile),
+              mode=mode)
+    return p, ft, kw
+
+
+def _repeatable(p, ft, kw, label: str) -> None:
+    """Two launches of the f32 / f64 kernel give the same particles and J
+    bit for bit: each warp adds to its own J windows without atomics."""
+    import torch
+
+    from minipic_torch.ops.advance import advance_kernel, live_watermark
+
+    counts = live_watermark(p.w)
+    a = advance_kernel(p, ft, counts, **kw)
+    b = advance_kernel(p, ft, counts, **kw)
+    for name, u, v in zip(("x", "y", "px", "py", "pz", "jx", "jy", "jz",
+                           "dmax"), a[0] + a[1] + (a[2],),
+                          b[0] + b[1] + (b[2],)):
+        check(torch.equal(u, v), f"{label}: {name} differs between two "
+              "launches")
 
 
 def _rebin_subset(dev, ppc=None, sigma=0.35, seed=21, dtype=None):
@@ -2166,7 +2287,7 @@ def phase_main(dev, card: str, precision: str = "f32") -> dict:
     err_s = _compare(ps, ft, counts, kw,
                      f"{tag}-path shape, shuffled slots")
     shuffled_ms = cuda_ms(lambda: advance_kernel(ps, ft, counts, **kw), 5)
-    del ps
+    numbers["advance"]["shuffled_ms"] = shuffled_ms
     nyg, nxg = t.tile_ny + 2 * deck.guard, t.tile_nx + 2 * deck.guard
     print(f"{tag}: advance at the main path's final state "
           f"{numbers['advance']['ms']:.3f} ms, with its slots shuffled "
@@ -2175,6 +2296,31 @@ def phase_main(dev, card: str, precision: str = "f32") -> dict:
           f"({numbers['advance']['bound_by']}); "
           f"{advance_kernel.blocks_per_sm(2, mode, nyg, nxg)} blocks of "
           f"256 threads per SM [{card}]")
+    if not f64:
+        # B1's f32 mode on the same state (the f32 decks' deposit): its
+        # time in lattice order and with the slots shuffled, beside its
+        # bound (the int8 mode's bytes and operations).
+        k32 = dict(kw, mode="f32")
+        v32 = dict(max_abs_err=max(
+            _compare(p, ft, counts, k32, f"{tag}-path shape o2 f32"),
+            _compare(ps, ft, counts, k32, f"{tag}-path shape o2 f32, "
+                     "shuffled slots")))
+        v32.update(
+            ms=cuda_ms(lambda: advance_kernel(p, ft, counts, **k32), 5),
+            shuffled_ms=cuda_ms(lambda: advance_kernel(ps, ft, counts, **k32),
+                                5),
+            plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **k32), 1),
+            **bound(e * (11 * n_wm + 9 * win + T),
+                    ADVANCE_OPS_PER_PARTICLE * _live(p)))
+        numbers["advance"]["f32"] = v32
+        print(f"{tag}: advance in its f32 mode at the main path's final "
+              f"state {v32['ms']:.3f} ms, with its slots shuffled "
+              f"{v32['shuffled_ms']:.3f} ms, plain {v32['plain_ms']:.3f} ms, "
+              f"bound {v32['bound_ms']:.3f} ms ({v32['bound_by']}), max abs "
+              f"err {v32['max_abs_err']:.3e}; "
+              f"{advance_kernel.blocks_per_sm(2, 'f32', nyg, nxg)} blocks of "
+              f"256 threads per SM [{card}]")
+    del ps
     if f64:
         # B1's f64 mode on a 64-tile subset of this state (the first row
         # of tiles, with their origins), and its continuity residual.
@@ -2899,9 +3045,8 @@ CLI_PULSE_SAVE_EVERY = 25  # the reference's own cadence
 # turn so that neither always runs first on a host that drifts.
 CLI_PULSE_ORDER = ("cli", "run", "run", "cli", "cli", "run")
 CLI_CHANNELS = ("x", "y", "px", "py", "pz", "w")
-# What --resume is held to where uninterrupted card runs differ (the f32
-# deposit's shared atomics add in any order, and the plasma amplifies the
-# last bits): the resumed run may differ from the first by no more than
+# What --resume is held to where uninterrupted card runs differ (int8's jz
+# adds with atomics in any order, and the plasma amplifies the last bits): the resumed run may differ from the first by no more than
 # CLI_SPREAD times the largest difference among three uninterrupted runs,
 # field by field and channel by channel.  Between pairs of uninterrupted
 # laser_plasma runs these differences vary up to 3x; a resume that lost

@@ -8,7 +8,9 @@
 //
 // Layout.  One thread block per tile (grid = num_tiles), 8 warps.  The
 // block loads the tile's six field windows [nyg, nxg] into shared memory and
-// zeroes three J windows there.  Each warp walks the bucket in slabs of 32
+// zeroes its J windows there: in the f32 and f64 modes one set of three
+// (jx, jy, jz) for each group of P.win_warps warps (below), in int8 mode one
+// set for the block.  Each warp walks the bucket in slabs of 32
 // consecutive slots, one per lane (loads stay coalesced), up to the live
 // watermark counts[t] rounded up to 32, so all 32 lanes run the same trip
 // count; the next slab's six values are loaded before the current slab's
@@ -66,7 +68,31 @@
 // f32 mode (off the headline) keeps f32 products: the warp groups its lanes
 // by their 4x4 base (__match_any_sync); when it holds at most kMaxGroups
 // bases it sums each group's 48 values by shuffle trees and one lane per
-// cell adds each sum with one atomic; otherwise each lane adds its own.
+// cell adds each sum; otherwise each lane adds its own (warp_deposit).  On
+// sm_90 a shared float or double atomicAdd is a compare-and-swap loop
+// (ATOMS.CAST.SPIN), and in lattice order all 8 warps of a block work on
+// the same few cells, so the deposit does not add into one set of windows
+// for the block: each warp owns a set (P.win_warps 1, SHARED false), and
+// adds to it with plain loads and stores, no atomic.  Nor does it sum by
+// shuffle trees there: a tree costs the same for a group of 2 lanes as for
+// 32, and after a few steps a lattice-order slab spans 5-9 bases.  Where
+// no base holds more than kMaxPasses lanes (scattered slots), the lanes
+// add their own terms in passes by their rank within their base, term by
+// term: two lanes meet on a cell in the same term only when they share a
+// base.  Otherwise each lane writes its 48 terms to the warp's staging
+// area (kStage values a term, one per lane and a pad: conflict-free both
+// ways); then, base by base, lane l sums term l (and lane l < 16 term 32 +
+// l) over the base's lanes in lane order, and adds the sums to 16
+// distinct cells of each window, the bases one after another: 64 shared
+// loads a slab for any number of bases.  The block then sums the sets in
+// a fixed order (0, 1, ...) into the output, so J comes out the same from
+// run to run.  Wider
+// windows, whose private sets and staging do not fit a block's shared
+// memory, are taken by 2, 4 or 8 warps to a set (SHARED, chosen at launch
+// from P.win_warps, which the wrapper sets: ops/advance.window_warps), and
+// those warps deposit as every warp did before the sets were private:
+// shuffle trees and atomics; 8 to a set is the one-set layout, so the
+// widest window admitted is unchanged.
 //
 // f64 mode (decks with precision "f64"; the JAX package's exact f64
 // Esirkepov deposit, whatever the deck's deposit asks): the f32 mode's code
@@ -74,8 +100,10 @@
 // fold, the Boris push (1.0 / sqrt), the move, the displacement and the
 // warp's shuffle trees are all double; its own entry point
 // (minipic_advance_f64) takes double constants.  One block per SM is asked
-// of the compiler (the double registers), and the nine double windows take
-// 72 bytes a cell of shared memory.
+// of the compiler (the double registers); the six double field windows and
+// the warps' eight private J sets take 240 bytes a cell of shared memory
+// and the staging 99 KB (160 KB a block at the headline's 16^2 window; 72
+// bytes a cell, one set and no staging, at the widest windows).
 //
 // What bounds it on this card.  Per particle it moves about 44 bytes of HBM
 // (read x, y, px, py, pz, w; write x, y, px, py, pz), about 4.4 GB per step
@@ -113,6 +141,7 @@ template <typename R>
 struct AdvanceParamsT {
   int num_tiles, capacity, tile_nx, tile_ny, guard;
   int periodic;         // 1: periodic box (fold and wrap); 0: open walls
+  int win_warps;        // f32, f64: warps to a set of J windows (1, 2, 4, 8)
   R h;                  // push half-kick q/m dt/2 (int8: times 1/S^2)
   R dtdx, dtdy;         // dt/dx, dt/dy
   R q;                  // species charge
@@ -147,26 +176,6 @@ __device__ __forceinline__ double r_min(double a, double b) {
 __device__ __forceinline__ float r_sqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double r_sqrt(double v) { return sqrt(v); }
 
-// The block's max displacement in shared memory: non-negative floats (and
-// doubles) order as their bits read as integers.
-__device__ __forceinline__ void max_bits(int* m, float v) {
-  atomicMax(m, __float_as_int(v));
-}
-__device__ __forceinline__ void max_bits(unsigned long long* m, double v) {
-  atomicMax(m, (unsigned long long)__double_as_longlong(v));
-}
-__device__ __forceinline__ float from_bits(int b) { return __int_as_float(b); }
-__device__ __forceinline__ double from_bits(unsigned long long b) {
-  return __longlong_as_double((long long)b);
-}
-template <typename R>
-struct MaxBits {
-  using type = int;
-};
-template <>
-struct MaxBits<double> {
-  using type = unsigned long long;
-};
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -174,6 +183,15 @@ constexpr unsigned kFull = 0xffffffffu;
 // f32 mode: bases a warp pre-reduces (one shuffle tree each) before it
 // falls back to per-lane atomics.
 constexpr int kMaxGroups = 4;
+// f32 and f64 modes with private J windows: a warp's staging holds its 48
+// terms a lane, kStage values each (32 lanes and a pad).
+constexpr int kStage = 33;
+constexpr int kTerms = 48;
+// ... unless no base of the slab holds more than kMaxPasses lanes: then
+// the lanes add their own terms, one pass per rank within a base.
+constexpr int kMaxPasses = 3;
+// Staged sums: a base's lanes' terms loaded kUnroll at a time.
+constexpr int kUnroll = 4;
 constexpr bool kDeposit = !MINIPIC_NO_DEPOSIT;
 constexpr float kSixth = (float)(1.0 / 6.0);
 
@@ -546,11 +564,22 @@ __device__ __forceinline__ R reduce16(R v[16], int lane) {
 
 // f32 and f64 modes: adds the jx, jy and jz terms v[3][16] (cell (row0 +
 // k/4, col0 + k%4) for k = 0..15) of every depositing lane to the windows
-// win[3]: per 4x4 base, summed in the warp by shuffle trees, when the warp
-// holds at most kMaxGroups bases; else lane by lane.
-template <typename R>
+// win[3], the lanes grouped by their 4x4 base.  OWN (win is this warp's
+// alone), plain load-add-stores: where no base holds more than kMaxPasses
+// lanes, in passes by each lane's rank within its base and term by term
+// (the lanes of one round hit distinct cells); else through the warp's
+// staging `stage` (kTerms x kStage), base by base in the order of each
+// base's first lane, each base's 48 sums (its lanes' terms in lane order)
+// to 16 distinct cells of each window.  __syncwarp() after each round or
+// base orders its stores before the next one's loads of the same cells
+// (two bases a cell apart share 12), and the staging loads before the
+// next slab's stores.
+// Not OWN (windows shared with other warps): per base by shuffle trees
+// when the warp holds at most kMaxGroups bases, else lane by lane, with
+// atomics.
+template <bool OWN, typename R>
 __device__ __forceinline__ void warp_deposit(R* const win[3], R v[3][16],
-                                             bool dep,
+                                             R* stage, bool dep,
                                              int row0, int col0, int lane,
                                              int nyg, int nxg) {
   // A base off the window by 4 or more adds nothing: clamp it to make a key.
@@ -560,7 +589,80 @@ __device__ __forceinline__ void warp_deposit(R* const win[3], R v[3][16],
   const unsigned grp = __match_any_sync(kFull, key);
   const unsigned leaders =
       __ballot_sync(kFull, dep && (__ffs(grp) - 1) == lane);
-  if (__popc(leaders) <= kMaxGroups) {
+  if constexpr (OWN) {
+    const int rank = __popc(grp & ((1u << lane) - 1u));
+    const int passes = (int)__reduce_max_sync(kFull, dep ? rank + 1 : 0);
+    if (passes <= kMaxPasses) {
+      for (int pass = 0; pass < passes; ++pass) {
+        const bool go = dep && rank == pass;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = row0 + j, c = col0 + i;
+            if (go && r >= 0 && r < nyg && c >= 0 && c < nxg) {
+#pragma unroll
+              for (int n = 0; n < 3; ++n) {
+                R* const cell = &win[n][r * nxg + c];
+                *cell = *cell + v[n][j * 4 + i];
+              }
+            }
+            __syncwarp();
+          }
+        }
+      }
+      return;
+    }
+    if (dep) {
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          stage[(16 * n + k) * kStage + lane] = v[n][k];
+    }
+    __syncwarp();
+    const int k = lane & 15;
+    for (unsigned todo = leaders; todo; todo &= todo - 1) {
+      const int first = __ffs(todo) - 1;
+      const unsigned members = __shfl_sync(kFull, grp, first);
+      const unsigned lkey = __shfl_sync(kFull, key, first);
+      // Lane l: term l (jx, jy) and, below 16, term 32 + l (jz), into the
+      // cell's window values, which are loaded first.
+      const int r = (int)(lkey >> 16) - 4 + (k >> 2);
+      const int c = (int)(lkey & 0xffffu) - 4 + (k & 3);
+      const bool in = r >= 0 && r < nyg && c >= 0 && c < nxg;
+      R* const a = (lane < 16 ? win[0] : win[1]) + r * nxg + c;
+      R* const z = win[2] + r * nxg + c;
+      const R a0 = in ? *a : R(0);
+      const R z0 = in && lane < 16 ? *z : R(0);
+      // The base's lanes' terms in lane order, kUnroll loads in flight (a
+      // missing one adds an exact zero).
+      R s = R(0), sz = R(0);
+      for (unsigned m = members; m;) {
+        R t[kUnroll], tz[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          t[u] = tz[u] = R(0);
+          if (m) {
+            const int src = __ffs(m) - 1;
+            m &= m - 1;
+            t[u] = stage[lane * kStage + src];
+            if (lane < 16) tz[u] = stage[(32 + lane) * kStage + src];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          s = s + t[u];
+          sz = sz + tz[u];
+        }
+      }
+      if (in) {
+        *a = a0 + s;
+        if (lane < 16) *z = z0 + sz;
+      }
+      __syncwarp();
+    }
+  } else if (__popc(leaders) <= kMaxGroups) {
     const int idx = (lane >> 1) & 15;
     for (unsigned todo = leaders; todo; todo &= todo - 1) {
       const unsigned lkey = __shfl_sync(kFull, key, __ffs(todo) - 1);
@@ -600,7 +702,8 @@ __device__ __forceinline__ void warp_deposit(R* const win[3], R v[3][16],
 template <typename R>
 constexpr int kMinBlocks = sizeof(R) == 4 ? 2 : 1;
 
-template <int ORDER, bool QUANT, int NP, bool PERIODIC, typename R>
+template <int ORDER, bool QUANT, int NP, bool PERIODIC, bool SHARED,
+          typename R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<R>)
 advance_kernel(AdvanceParamsT<R> P,
                const R* __restrict__ x, const R* __restrict__ y,
@@ -617,9 +720,15 @@ advance_kernel(AdvanceParamsT<R> P,
                R* __restrict__ jxo, R* __restrict__ jyo,
                R* __restrict__ jzo, R* __restrict__ dmax) {
   static_assert(!QUANT || sizeof(R) == 4, "the int8 mode is float only");
+  static_assert(!(QUANT && SHARED), "the int8 mode has its own one set");
   constexpr int NT = 2 * NP;  // column tiles of 8
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ typename MaxBits<R>::type s_dmax;
+  // The block's max displacement: float's as its bits (non-negative floats
+  // order as their bits read as integers) by a shared atomicMax; double's
+  // by the warps' maxima, one slot a warp (a 64-bit shared atomicMax is a
+  // compare-and-swap loop on sm_90).
+  __shared__ int s_dmax;
+  __shared__ R s_wmax[kWarps];
   const int g = P.guard;
   const int nxg = P.tile_nx + 2 * g;
   const int nyg = P.tile_ny + 2 * g;
@@ -630,8 +739,12 @@ advance_kernel(AdvanceParamsT<R> P,
   R* f_bx = f_ez + nwin;
   R* f_by = f_bx + nwin;
   R* f_bz = f_by + nwin;
-  R* s_jx = f_bz + nwin;  // int32 in QUANT mode
-  R* s_jy = s_jx + nwin;  // int32 in QUANT mode
+  // J: nsets sets of (jx, jy, jz) windows, warps w * win_warps .. (w + 1) *
+  // win_warps - 1 adding to set w (SHARED; else a set per warp); QUANT: one
+  // set, jx and jy int32.
+  const int nsets = QUANT ? 1 : (SHARED ? kWarps / P.win_warps : kWarps);
+  R* s_jx = f_bz + nwin;  // set 0
+  R* s_jy = s_jx + nwin;
   R* s_jz = s_jy + nwin;
   int* i_jx = reinterpret_cast<int*>(s_jx);
   int* i_jy = reinterpret_cast<int*>(s_jy);
@@ -667,6 +780,8 @@ advance_kernel(AdvanceParamsT<R> P,
     s_jy[i] = R(0);
     s_jz[i] = R(0);
   }
+  for (int i = 3 * nwin + threadIdx.x; i < 3 * nsets * nwin; i += blockDim.x)
+    s_jx[i] = R(0);  // the other sets
   if (QUANT) {
     unsigned* words = reinterpret_cast<unsigned*>(s_jz + nwin);
     for (int i = threadIdx.x; i < kWarps * Stage<NP>::kBytes / 4;
@@ -684,26 +799,32 @@ advance_kernel(AdvanceParamsT<R> P,
   const R S = P.S;
   const R third = R(1.0 / 3.0);
   constexpr bool periodic = PERIODIC;
-  R* const wins[3] = {s_jx, s_jy, s_jz};
+  R* const set =
+      s_jx + (QUANT ? 0 : (SHARED ? warp / P.win_warps : warp)) * 3 * nwin;
+  R* const wins[3] = {set, set + nwin, set + 2 * nwin};
+  // Private sets: this warp's staging, after the sets.
+  R* const stage = s_jx + 3 * nsets * nwin + warp * kTerms * kStage;
   R local_max = R(0);
 
   // The slab loop: trip count uniform across the warp; six values of the
-  // next slab in flight while this one computes.
+  // next slab in flight while this one computes.  The warp's walk: slabs
+  // warp, warp + kWarps, ... of the bucket.
+  const int s_first = warp * 32, s_step = kThreads, s_end = count32;
   R nx0 = R(0), ny0 = R(0), nux = R(0), nuy = R(0), nuz = R(0), nwv = R(0);
   {
-    const int s = warp * 32 + lane;
-    if (s < count32) {
+    const int s = s_first + lane;
+    if (s < s_end) {
       const size_t k = pbase + s;
       nx0 = x[k]; ny0 = y[k]; nux = px[k]; nuy = py[k]; nuz = pz[k];
       nwv = w[k];
     }
   }
-  for (int sbase = warp * 32; sbase < count32; sbase += kThreads) {
+  for (int sbase = s_first; sbase < s_end; sbase += s_step) {
     const int s = sbase + lane;
     const size_t k = pbase + s;
     const R x0 = nx0, y0 = ny0, ux = nux, uy = nuy, uz = nuz, wv = nwv;
-    if (s + kThreads < count32) {
-      const size_t kn = k + kThreads;
+    if (s + s_step < s_end) {
+      const size_t kn = k + s_step;
       nx0 = x[kn]; ny0 = y[kn]; nux = px[kn]; nuy = py[kn]; nuz = pz[kn];
       nwv = w[kn];
     }
@@ -879,7 +1000,8 @@ advance_kernel(AdvanceParamsT<R> P,
       st.jz_products(lane, accz);
       __syncwarp();
     } else {
-      warp_deposit(wins, v, live, row0, col0, lane, nyg, nxg);
+      warp_deposit<!SHARED>(wins, v, stage, live, row0, col0, lane, nyg,
+                            nxg);
     }
   }
 
@@ -908,30 +1030,62 @@ advance_kernel(AdvanceParamsT<R> P,
     pzo[k] = pz[k];
   }
 
-  // Displacements are >= 0, so their bits order as integers.
-  max_bits(&s_dmax, local_max);
+  if constexpr (sizeof(R) == 8) {
+    R m = local_max;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) m = r_max(m, __shfl_xor_sync(kFull, m, o));
+    if (lane == 0) s_wmax[warp] = m;
+  } else {
+    atomicMax(&s_dmax, __float_as_int(local_max));
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
     if (QUANT) {
       jxo[fbase + i] = (float)i_jx[i] * P.cjx;
       jyo[fbase + i] = (float)i_jy[i] * P.cjy;
+      jzo[fbase + i] = s_jz[i];
     } else {
-      jxo[fbase + i] = s_jx[i];
-      jyo[fbase + i] = s_jy[i];
+      // The sets summed in a fixed order: set 0, then 1, ...
+      R sx = s_jx[i], sy = s_jy[i], sz = s_jz[i];
+      for (int w = 1; w < nsets; ++w) {
+        const R* const o = s_jx + 3 * w * nwin;
+        sx = sx + o[i];
+        sy = sy + o[nwin + i];
+        sz = sz + o[2 * nwin + i];
+      }
+      jxo[fbase + i] = sx;
+      jyo[fbase + i] = sy;
+      jzo[fbase + i] = sz;
     }
-    jzo[fbase + i] = s_jz[i];
   }
-  if (threadIdx.x == 0) dmax[t] = from_bits(s_dmax);
+  if (threadIdx.x == 0) {
+    if constexpr (sizeof(R) == 8) {
+      R m = s_wmax[0];
+      for (int w = 1; w < kWarps; ++w) m = r_max(m, s_wmax[w]);
+      dmax[t] = m;
+    } else {
+      dmax[t] = __int_as_float(s_dmax);
+    }
+  }
 }
 
-// Dynamic shared memory of one block: nine windows of `real` bytes a cell,
-// and the int8 staging.
-size_t smem_bytes(bool quant, int np, int nwin, size_t real = sizeof(float)) {
-  return (size_t)9 * nwin * real +
-         (quant ? (size_t)kWarps * stage_bytes(np) : 0);
+// Dynamic shared memory of one block: six field windows and three J
+// windows for each set (kWarps / win_warps sets; int8 one) of `real` bytes
+// a cell, and the staging: int8's operands, or with private sets (f32,
+// f64 at win_warps 1) each warp's terms.
+size_t smem_bytes(bool quant, int np, int nwin, size_t real, int win_warps) {
+  const int nsets = quant ? 1 : kWarps / win_warps;
+  const size_t stage = quant ? (size_t)kWarps * stage_bytes(np)
+                             : (win_warps == 1 ? (size_t)kWarps * kTerms *
+                                                     kStage * real
+                                               : 0);
+  return (size_t)(6 + 3 * nsets) * nwin * real + stage;
 }
 
-template <int ORDER, bool QUANT, int NP, bool PERIODIC, typename R>
+bool win_warps_ok(int w) { return w == 1 || w == 2 || w == 4 || w == 8; }
+
+template <int ORDER, bool QUANT, int NP, bool PERIODIC, bool SHARED,
+          typename R>
 cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
                    const R* px, const R* py, const R* pz, const R* w,
                    const int* counts, const int* ox, const int* oy,
@@ -940,8 +1094,8 @@ cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
                    R* pzo, R* jx, R* jy, R* jz, R* dmax,
                    cudaStream_t stream) {
   const int nwin = (P.tile_nx + 2 * P.guard) * (P.tile_ny + 2 * P.guard);
-  const size_t smem = smem_bytes(QUANT, NP, nwin, sizeof(R));
-  auto* kernel = advance_kernel<ORDER, QUANT, NP, PERIODIC, R>;
+  const size_t smem = smem_bytes(QUANT, NP, nwin, sizeof(R), P.win_warps);
+  auto* kernel = advance_kernel<ORDER, QUANT, NP, PERIODIC, SHARED, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -953,20 +1107,24 @@ cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
 
 }  // namespace
 
-// Both boundaries of one instantiation, chosen by P.periodic.
-#define MINIPIC_LAUNCH(O, Q, N)                                                \
-  return (int)(P.periodic                                                      \
-                   ? launch<O, Q, N, true>(P, x, y, px, py, pz, w, counts, ox, \
-                                           oy, ex, ey, ez, bx, by, bz, xo, yo, \
-                                           pxo, pyo, pzo, jx, jy, jz, dmax, s) \
-                   : launch<O, Q, N, false>(P, x, y, px, py, pz, w, counts,    \
-                                            ox, oy, ex, ey, ez, bx, by, bz,    \
-                                            xo, yo, pxo, pyo, pzo, jx, jy, jz, \
-                                            dmax, s))
+// Both boundaries of one instantiation, chosen by P.periodic, and off the
+// int8 mode both J window layouts, chosen by P.win_warps (1: private).
+#define MINIPIC_ARGS                                                        \
+  P, x, y, px, py, pz, w, counts, ox, oy, ex, ey, ez, bx, by, bz, xo, yo, \
+      pxo, pyo, pzo, jx, jy, jz, dmax, s
+#define MINIPIC_LAUNCH(O, Q, N)                                             \
+  return (int)(P.periodic                                                   \
+                   ? (!Q && P.win_warps > 1                                 \
+                          ? launch<O, Q, N, true, !Q>(MINIPIC_ARGS)         \
+                          : launch<O, Q, N, true, false>(MINIPIC_ARGS))     \
+                   : (!Q && P.win_warps > 1                                 \
+                          ? launch<O, Q, N, false, !Q>(MINIPIC_ARGS)        \
+                          : launch<O, Q, N, false, false>(MINIPIC_ARGS)))
 
 // Plain C entry point (bound with ctypes).  Returns the CUDA error code of
 // the launch (0 on success); launches on `stream`, allocates nothing.  The
-// int8 mode needs nyg 8 or 16 and nxg <= 64 (the wrapper checks).
+// int8 mode needs nyg 8 or 16 and nxg <= 64 (the wrapper checks); the f32
+// mode P.win_warps 1, 2, 4 or 8 (int8 does not read it).
 extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
                                const float* x, const float* y,
                                const float* px, const float* py,
@@ -983,6 +1141,7 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
   const int nxg = P.tile_nx + 2 * P.guard;
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
   if (!quant) {
+    if (!win_warps_ok(P.win_warps)) return (int)cudaErrorInvalidValue;
     if (order == 1) MINIPIC_LAUNCH(1, false, 1);
     if (order == 2) MINIPIC_LAUNCH(2, false, 1);
   } else if (nxg <= 64) {
@@ -1010,26 +1169,32 @@ extern "C" int minipic_advance_f64(int order, AdvanceParams64 P,
                                    double* jx, double* jy, double* jz,
                                    double* dmax, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!win_warps_ok(P.win_warps)) return (int)cudaErrorInvalidValue;
   if (order == 1) MINIPIC_LAUNCH(1, false, 1);
   if (order == 2) MINIPIC_LAUNCH(2, false, 1);
   return (int)cudaErrorInvalidValue;
 }
 #undef MINIPIC_LAUNCH
+#undef MINIPIC_ARGS
 
 // Resident blocks per SM of the periodic kernel that minipic_advance (mode
 // 0 f32, 1 int8) or minipic_advance_f64 (mode 2) would launch for this
-// window (the occupancy calculator's answer), or -1 on error.
+// window at win_warps warps to a set of J windows (the occupancy
+// calculator's answer), or -1 on error.
 extern "C" int minipic_advance_blocks_per_sm(int order, int mode, int nyg,
-                                             int nxg) {
+                                             int nxg, int win_warps) {
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
   const bool quant = mode == 1;
+  if (!quant && !win_warps_ok(win_warps)) return -1;
   const size_t smem = smem_bytes(quant, np, nyg * nxg,
-                                 mode == 2 ? sizeof(double) : sizeof(float));
+                                 mode == 2 ? sizeof(double) : sizeof(float),
+                                 win_warps);
   int blocks = -1;
   cudaError_t err = cudaErrorInvalidValue;
 #define MINIPIC_OCC(O, Q, N, R)                                               \
   do {                                                                        \
-    auto* k = advance_kernel<O, Q, N, true, R>;                               \
+    auto* k = !Q && win_warps > 1 ? &advance_kernel<O, Q, N, true, !Q, R>     \
+                                  : &advance_kernel<O, Q, N, true, false, R>; \
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, \
                                (int)smem);                                    \
     if (err == cudaSuccess)                                                   \

@@ -9,7 +9,8 @@ implementations of one function, ``advance_tiles``:
 
 * ``csrc/advance.cu`` — the hand-written CUDA kernel, launched for CUDA
   tensors (one thread block per tile; the int8 deposit as products on the
-  tensor cores, see the note in that file);
+  tensor cores, the f32 and f64 deposits into per-warp J windows, see the
+  note in that file);
 * ``advance_plain`` — the same arithmetic as plain torch ops, over each
   particle's 3-point support.  ``advance_tiles`` takes it only for CPU
   tensors; ``chip_smoke.py`` holds the kernel against it on the card.
@@ -43,8 +44,9 @@ CUDA build contracts no multiply-add.  On an H100 the kernel's particles
 agree with the plain version's to 1-2 ulp of the momenta (<= 2e-8
 absolute at the headline deck), int8 jx/jy cell for cell (integer sums,
 exact in any order), int8 jz to its f32 summation order (the kernel's runs
-on the tensor cores with each row factor in three bf16 words), and f32-mode
-J to its atomic order.
+on the tensor cores with each row factor in three bf16 words), and f32- and
+f64-mode J to their summation order (shuffle trees, per-warp windows and a
+fixed-order sum of them; atomics lane by lane and in shared windows).
 
 Modes (``resolve_mode``): "int8" and "f32" take float32 particles and
 fields; "f64", every deck of precision "f64", takes float64 ones and is the
@@ -72,14 +74,49 @@ _PLAIN_BLOCK_SLOTS = 1 << 22
 _SMEM_LIMIT = 232448
 
 
-def kernel_smem_bytes(nyg: int, nxg: int, mode: str) -> int:
-    """Dynamic shared memory of one block of csrc/advance.cu: nine windows
-    of 4 bytes a cell (8 in f64 mode), and in int8 mode each of its 8
-    warps' operand staging (9 KB of rows, 3 KB per pair of 8-column tiles:
-    1, 2 or 4 pairs)."""
-    pairs = 1 if nxg <= 16 else (2 if nxg <= 32 else 4)
-    stage = 8 * (9216 + 3072 * pairs) if mode == "int8" else 0
-    return (72 if mode == "f64" else 36) * nyg * nxg + stage
+# Warps of a block of csrc/advance.cu, and the warps that may share one
+# set of J windows in its f32 and f64 modes, fewest first; the staging of
+# one warp's terms with private sets (48 terms x 33 values: kTerms x
+# kStage).
+_WARPS = 8
+_WIN_WARPS = (1, 2, 4, 8)
+_STAGE_VALUES = 48 * 33
+
+
+def kernel_smem_bytes(nyg: int, nxg: int, mode: str,
+                      win_warps: Optional[int] = None) -> int:
+    """Dynamic shared memory of one block of csrc/advance.cu: six field
+    windows and, for each set of J windows, three more, of 4 bytes a cell
+    (8 in f64 mode).  f32 and f64: one set for each `win_warps` warps
+    (default: ``window_warps``'s choice), so 8 // win_warps sets, and at 1
+    each warp's staging of its lanes' terms (6,336 bytes a warp in f32,
+    12,672 in f64); int8: one set, and each of its 8 warps' operand
+    staging (9 KB of rows, 3 KB per pair of 8-column tiles: 1, 2 or 4
+    pairs)."""
+    cells = nyg * nxg
+    if mode == "int8":
+        pairs = 1 if nxg <= 16 else (2 if nxg <= 32 else 4)
+        return 36 * cells + _WARPS * (9216 + 3072 * pairs)
+    if win_warps is None:
+        win_warps = window_warps(nyg, nxg, mode)
+    real = 8 if mode == "f64" else 4
+    stage = _WARPS * _STAGE_VALUES if win_warps == 1 else 0
+    return real * (cells * (6 + 3 * (_WARPS // win_warps)) + stage)
+
+
+def window_warps(nyg: int, nxg: int, mode: str) -> int:
+    """How many warps of a block share one set of J windows in the f32 and
+    f64 modes: the fewest of 1, 2, 4, 8 whose layout fits a block's shared
+    memory (8 where none does: the wrapper then refuses the window).  With
+    1 each warp adds to its own windows without atomics (f32 up to 1,514
+    cells, f64 up to 546: every deck's window with particles, 16^2 and
+    20^2); shared sets add with atomics.  int8 keeps its one set (8)."""
+    if mode == "int8":
+        return _WARPS
+    for w in _WIN_WARPS:
+        if kernel_smem_bytes(nyg, nxg, mode, w) <= _SMEM_LIMIT:
+            return w
+    return _WARPS
 
 
 def qshape_scale(order: int) -> float:
@@ -111,7 +148,7 @@ def resolve_mode(deposit: str, qw0: float, tile_ny: int, tile_nx: int,
 
 
 _INT_PARAMS = ("num_tiles", "capacity", "tile_nx", "tile_ny", "guard",
-               "periodic")
+               "periodic", "win_warps")
 _REAL_PARAMS = ("h", "dtdx", "dtdy", "q", "grid_nx", "grid_ny", "inv_nx",
                 "inv_ny", "half_x", "half_y", "cjx", "cjy", "cz", "czq",
                 "S")
@@ -447,7 +484,7 @@ class AdvanceKernel:
                            + [ctypes.c_void_p] * 25)
             fn.restype = ctypes.c_int
             occ = lib.minipic_advance_blocks_per_sm
-            occ.argtypes = [ctypes.c_int] * 4
+            occ.argtypes = [ctypes.c_int] * 5
             occ.restype = ctypes.c_int
             self._lib = lib
         return self._lib
@@ -455,10 +492,10 @@ class AdvanceKernel:
     def blocks_per_sm(self, order: int, mode: str, nyg: int,
                       nxg: int) -> int:
         """Resident blocks per SM of the periodic kernel launched for this
-        window (the CUDA occupancy calculator's answer, from registers and
-        shared memory)."""
+        window, at the J window sets it takes (``window_warps``): the CUDA
+        occupancy calculator's answer, from registers and shared memory."""
         n = self._load().minipic_advance_blocks_per_sm(
-            order, _MODE_CODES[mode], nyg, nxg)
+            order, _MODE_CODES[mode], nyg, nxg, window_warps(nyg, nxg, mode))
         if n < 0:
             raise RuntimeError("advance kernel: occupancy query failed")
         return n
@@ -493,7 +530,8 @@ class AdvanceKernel:
                        mode=mode)
         params = (AdvanceParams64 if mode == "f64" else AdvanceParams)(
             num_tiles=T, capacity=cap, tile_nx=tile_nx, tile_ny=tile_ny,
-            guard=g, periodic=int(grid is not None), **k)
+            guard=g, periodic=int(grid is not None),
+            win_warps=window_warps(nyg, nxg, mode), **k)
         outs = tuple(torch.empty_like(a) for a in p[:5])
         js = tuple(torch.empty((T, nyg, nxg), dtype=real, device=dev)
                    for _ in range(3))

@@ -247,17 +247,22 @@ def test_kernel_wrapper_checks_inputs_before_building():
 
 
 @pytest.mark.parametrize("name", ["no-staging", "no-jz-products",
-                                  "no-int8-products", "checked-gather"])
+                                  "no-int8-products", "checked-gather",
+                                  "contiguous", "trees", "all-groups",
+                                  "carry", "staged", "passes",
+                                  "passes-nostage", "stage-only"])
 def test_probe_variants_edit_the_source_once(name):
-    """Each of the probe's part-removing copies matches the kernel source
-    once and changes only that text."""
+    """Each edit of the probe's copies (part-removing, or another form of
+    the f32 / f64 deposit) matches the kernel source once, and the copy
+    changes only those texts."""
     from minipic_torch.ops._build import CSRC
     from minipic_torch.probe_atomics import VARIANTS, variant_source
 
-    src = (CSRC / "advance.cu").read_text()
-    old, new = VARIANTS[name]
-    assert src.count(old) == 1
-    assert variant_source(name) == src.replace(old, new) != src
+    src = want = (CSRC / "advance.cu").read_text()
+    for old, new in VARIANTS[name]:
+        assert src.count(old) == 1
+        want = want.replace(old, new)
+    assert variant_source(name) == want != src
 
 
 def test_no_atomics_probe_source_differs_only_by_its_define():
@@ -734,3 +739,214 @@ def test_open_and_periodic_modes_differ_only_at_the_walls():
     out = ~inside
     np.testing.assert_allclose(torch.remainder(po[0][out], 32.0).numpy(),
                                pp[0][out].numpy(), atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# The kernel's f32 and f64 deposit as csrc/advance.cu decomposes it,
+# emulated in numpy (minipic_torch.testing): warps walking 32-slot slabs
+# at a stride of 8, lanes grouped by their 4x4 base, reduce16 shuffle trees
+# with one add per cell into the warp's set of J windows (else 48 adds
+# lane by lane), 1, 2, 4 or 8 warps to a set, and the sets summed in a
+# fixed order.
+
+def _edge(p, every=13):
+    """`p` with every `every`-th live particle moved 3.6-3.9 cells below
+    and left of its tile (every 2nd of those 3.1-3.4 above and right of
+    it): supports at the window's edge rows and columns, bases partly off
+    the window."""
+    x, y, w = (np.array(a) for a in (p.x, p.y, p.w))
+    T, cap = x.shape
+    t = np.arange(T)[:, None]
+    ox, oy = (t % 4 * 8).astype(np.float32), (t // 4 * 8).astype(np.float32)
+    s = np.arange(cap)[None, :]
+    low = (w > 0) & (s % every == 0)
+    high = low & (s % (2 * every) == 0)
+    fx, fy = np.float32(0.3) * (x % 1), np.float32(0.3) * (y % 1)
+    x = np.where(low, ox - 3.9 + fx, x)
+    y = np.where(low, oy - 3.9 + fy, y)
+    x = np.where(high, ox + 8 + 3.1 + fx, x)
+    y = np.where(high, oy + 8 + 3.1 + fy, y)
+    x, y = (np.mod(a, 32.0).astype(np.float32) for a in (x, y))
+    return p._replace(x=jnp.asarray(x), y=jnp.asarray(y))
+
+
+def _float_case(layout):
+    """(particles, field tiles, advance keywords) of one layout: the
+    32^2 fixture at ppc 32 (as loaded, a cell to a slab: its TSC bases are
+    the four halves of the cell), shuffled, or with window-edge supports;
+    or the open fixture (CIC, 20^2 windows, leavers through every wall)."""
+    if layout == "open":
+        deck, tiling, p, ftiles = _open_fixture(1, 16, 2)
+        grid = None
+    else:
+        deck, tiling, p, ftiles = _fixture(order=2, ppc=32, kchunk=0,
+                                           guard=4)
+        grid = (deck.nx, deck.ny)
+        p = {"lattice": p, "shuffled": _shuffled(p) if layout == "shuffled"
+             else p, "edge": _edge(p) if layout == "edge" else p}[layout]
+    kw = dict(qm=-1.0, q=-1.0, order=deck.species[0].shape_order,
+              tile_ny=tiling.tile_ny, tile_nx=tiling.tile_nx,
+              origins=tile_origins(tiling, "cpu"), g=deck.guard, dt=deck.dt,
+              dx=deck.dx, dy=deck.dy, grid=grid)
+    return _torch(p, ParticleState), _torch(ftiles, FieldState), kw
+
+
+# J bars of the kernel against its plain version (ROADMAP C, chip_smoke):
+# sums in another order.
+FLOAT_J_TOL = {"f32": 2e-5, "f64": 1e-12}
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+@pytest.mark.parametrize("layout", ["lattice", "shuffled", "edge", "open"])
+def test_float_warp_window_decomposition_matches_plain(layout, mode):
+    """The emulated f32 / f64 deposit equals advance_plain's raw J windows
+    within the kernel's bars (1e-12 of the peak in f64, 2e-5 in f32) at
+    every window sharing: a set per warp (the staged sums per base) and
+    2, 4 or 8 warps to a set (shuffle trees where a slab holds at most four
+    bases, as in lattice order; lane by lane past them, as with shuffled
+    slots); the edge and open layouts take cells off the window."""
+    from minipic_torch.testing import (float_deposit_terms, sum_warp_windows,
+                                       warp_adds)
+
+    pt, ft, kw = _float_case(layout)
+    if mode == "f64":
+        pt = ParticleState(*(a.double() for a in pt))
+        ft = FieldState(*(a.double() for a in ft))
+    counts = live_watermark(pt.w)
+    out, jp, _ = advance_plain(pt, ft, counts, mode=mode, **kw)
+    live, row0, col0, v = float_deposit_terms(pt, counts, out, mode=mode,
+                                              **kw)
+    assert v.dtype == (np.float64 if mode == "f64" else np.float32)
+    g = kw["g"]
+    nyg, nxg = kw["tile_ny"] + 2 * g, kw["tile_nx"] + 2 * g
+    tiles = {private: [warp_adds(live[t], row0[t], col0[t], v[t],
+                                 int(counts[t]), nyg, nxg, private)
+                       for t in range(live.shape[0])]
+             for private in (True, False)}
+    n_few = sum(a[1] for a in tiles[False])
+    n_many = sum(a[2] for a in tiles[False])
+    if layout == "lattice":
+        assert n_few > 3 * n_many, (n_few, n_many)
+    else:
+        assert n_many > 0, n_few
+    if layout == "edge":
+        off = np.concatenate([row0[live], col0[live]])
+        assert (off < 0).any() and (off + 3 >= min(nyg, nxg)).any()
+    if layout == "open":
+        x1 = out[0].numpy()[live]
+        assert (x1 < 0).any() and (x1 >= 32).any()
+    for win_warps in (1, 2, 4, 8):
+        got = np.stack([sum_warp_windows(a[0], nyg, nxg, win_warps, v.dtype)
+                        for a in tiles[win_warps == 1]])
+        for n, name in enumerate(("jx", "jy", "jz")):
+            want = jp[n].numpy()
+            np.testing.assert_allclose(
+                got[:, n], want, rtol=0,
+                atol=FLOAT_J_TOL[mode] * np.abs(want).max(),
+                err_msg=f"{name}, {win_warps} warps to a set")
+
+
+# ----------------------------------------------------------------------
+# Shared memory of the f32 and f64 modes: the J window sets a block takes.
+
+@pytest.mark.parametrize("name", ["headline"] + sorted(
+    __import__("minipic_torch.decks.standard", fromlist=["CASES"]).CASES))
+def test_every_deck_window_takes_private_j_windows(name):
+    """Every deck with particles has a window (16^2 or 20^2) that fits a
+    set of J windows and a staging area for each warp, in f32 and in f64:
+    no atomic in its deposit.  (reference_pulse, 29^2, has no particles.)"""
+    from minipic_torch.decks import standard
+    from minipic_torch.headline import headline_deck
+    from minipic_torch.ops.advance import kernel_smem_bytes, window_warps
+
+    deck = headline_deck() if name == "headline" else standard.make(name).deck
+    nyg, nxg = deck.tile_ny + 2 * deck.guard, deck.tile_nx + 2 * deck.guard
+    if not deck.species:
+        assert name == "reference_pulse"
+        return
+    assert (nyg, nxg) in ((16, 16), (20, 20))
+    for mode, real in (("f32", 4), ("f64", 8)):
+        assert window_warps(nyg, nxg, mode) == 1, (mode, nyg, nxg)
+        assert kernel_smem_bytes(nyg, nxg, mode) == real * (
+            nyg * nxg * 30 + 8 * 48 * 33)
+
+
+@pytest.mark.parametrize("n,mode,want", [
+    (16, "f64", 1), (23, "f64", 1), (24, "f64", 2), (40, "f64", 2),
+    (48, "f64", 4), (52, "f64", 8), (38, "f32", 1), (39, "f32", 2),
+    (60, "f32", 4), (72, "f32", 8), (16, "int8", 8)])
+def test_wide_windows_share_j_windows(n, mode, want):
+    """Past what a block's shared memory holds with a set and a staging
+    area per warp, 2, 4 and then 8 warps share a set (no staging): the
+    fewest that fit (f64: (48 + 24 * 8 / w) bytes a cell; f32 half of
+    it).  int8 keeps its one set."""
+    from minipic_torch.ops.advance import (_SMEM_LIMIT, kernel_smem_bytes,
+                                           window_warps)
+
+    assert window_warps(n, n, mode) == want
+    assert kernel_smem_bytes(n, n, mode) <= _SMEM_LIMIT
+    if want > 1 and mode != "int8":
+        assert kernel_smem_bytes(n, n, mode, want // 2) > _SMEM_LIMIT
+    if mode == "f64" and want > 1:
+        assert kernel_smem_bytes(n, n, mode, want) == (48 + 192 // want) * n * n
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+def test_window_limit_is_the_one_set_layouts(mode):
+    """8 warps to a set is the layout of one set for the block (nine
+    windows: 36 bytes a cell in f32, 72 in f64), so a window is admitted
+    exactly when it was before the sets became per warp."""
+    from minipic_torch.ops.advance import (_SMEM_LIMIT, kernel_smem_bytes,
+                                           window_warps)
+
+    one_set = 72 if mode == "f64" else 36
+    for nyg in range(8, 100, 3):
+        for nxg in range(8, 100, 5):
+            assert kernel_smem_bytes(nyg, nxg, mode, 8) == \
+                one_set * nyg * nxg
+            fits = one_set * nyg * nxg <= _SMEM_LIMIT
+            assert (kernel_smem_bytes(nyg, nxg, mode) <= _SMEM_LIMIT) == fits
+            w = window_warps(nyg, nxg, mode)
+            assert w in (1, 2, 4, 8)
+            assert w == 8 or kernel_smem_bytes(nyg, nxg, mode, w) \
+                <= _SMEM_LIMIT
+
+
+def test_wrapper_refuses_a_window_past_shared_memory_before_building():
+    """A window whose one-set layout does not fit (f32 81^2) is refused
+    with ValueError before anything is built or launched."""
+    from minipic_torch.ops.advance import advance_kernel
+
+    T, cap, n = 1, 32, 81
+    p = ParticleState(*(torch.zeros(T, cap) for _ in range(6)))
+    ft = FieldState(*(torch.zeros(T, n, n) for _ in range(6)))
+    o = torch.zeros(T, dtype=torch.int32)
+    n0 = advance_kernel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        advance_kernel(p, ft, torch.zeros(T, dtype=torch.int32), qm=-1.0,
+                       q=-1.0, order=2, tile_ny=n - 8, tile_nx=n - 8,
+                       origins=(o, o), g=4, dt=0.035, dx=0.1, dy=0.1,
+                       grid=(n - 8, n - 8), mode="f32")
+    assert advance_kernel.launches == n0
+
+
+def test_params_mirror_the_kernel_struct():
+    """ops/advance.py's ctypes parameter structs list AdvanceParamsT's
+    fields of csrc/advance.cu in its order (win_warps after periodic), as
+    int and as the mode's real type."""
+    import ctypes
+    import re
+
+    from minipic_torch.ops._build import CSRC
+    from minipic_torch.ops.advance import AdvanceParams, AdvanceParams64
+
+    src = (CSRC / "advance.cu").read_text()
+    body = src.split("struct AdvanceParamsT {", 1)[1].split("};", 1)[0]
+    fields = []
+    for decl in re.findall(r"^\s*(int|R)\s+([^;]+);", body, re.M):
+        fields += [(n.strip(), decl[0]) for n in decl[1].split(",")]
+    assert [n for n, _ in fields][5:7] == ["periodic", "win_warps"]
+    for cls, real in ((AdvanceParams, ctypes.c_float),
+                      (AdvanceParams64, ctypes.c_double)):
+        assert [(n, t) for n, t in cls._fields_] == [
+            (n, ctypes.c_int if k == "int" else real) for n, k in fields]

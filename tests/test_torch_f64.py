@@ -350,3 +350,49 @@ def test_rebin_plain_versions_on_f64_channels(kernel):
         else:
             assert torch.equal(a, b), f"{kernel} output {i}"
     assert moved > 0
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "open"])
+@pytest.mark.parametrize("order", [1, 2])
+def test_f64_warp_window_deposit_matches_plain(order, boundary):
+    """The f64 mode's deposit as csrc/advance.cu decomposes it (emulated by
+    ``minipic_torch.testing``: 32-slot slabs, lanes grouped by base, the
+    staged sums per base into a J window set per warp, or shuffle trees
+    and lane-by-lane adds into shared sets, the sets summed in a fixed
+    order) on this file's f64 fixtures (stale
+    buckets across the box edge; leavers through every wall), within
+    1e-12 of the plain version's peak at 1, 2, 4 and 8 warps to a set."""
+    from minipic_torch.ops.advance import advance_plain
+    from minipic_torch.testing import (float_deposit_terms, sum_warp_windows,
+                                       warp_adds)
+
+    fixture = _periodic_fixture if boundary == "periodic" else _open_fixture
+    deck, tiling, p, grid = fixture(order)
+    f = finit.oblique_wave(deck.domain, amplitude=0.3, dtype=jnp.float64)
+    ftiles = extract_field_tiles(
+        pad_fields_periodic(f, deck.guard), tiling.tile_rows,
+        tiling.tile_cols, tiling.tile_ny, tiling.tile_nx, deck.guard)
+    pt = ParticleState(*(torch.from_numpy(np.array(a)) for a in p))
+    ft = FieldState(*(torch.from_numpy(np.array(a)) for a in ftiles))
+    counts = live_watermark(pt.w)
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=tiling.tile_ny,
+              tile_nx=tiling.tile_nx, origins=tile_origins(tiling, CPU),
+              g=deck.guard, dt=deck.dt, dx=deck.dx, dy=deck.dy, grid=grid,
+              mode="f64")
+    out, jp, _ = advance_plain(pt, ft, counts, **kw)
+    live, row0, col0, v = float_deposit_terms(pt, counts, out, **kw)
+    assert v.dtype == np.float64
+    nyg = tiling.tile_ny + 2 * deck.guard
+    nxg = tiling.tile_nx + 2 * deck.guard
+    tiles = {private: [warp_adds(live[t], row0[t], col0[t], v[t],
+                                 int(counts[t]), nyg, nxg, private)[0]
+                       for t in range(live.shape[0])]
+             for private in (True, False)}
+    for win_warps in (1, 2, 4, 8):
+        got = np.stack([sum_warp_windows(a, nyg, nxg, win_warps, np.float64)
+                        for a in tiles[win_warps == 1]])
+        for n, name in enumerate(("jx", "jy", "jz")):
+            want = jp[n].numpy()
+            np.testing.assert_allclose(got[:, n], want, rtol=0,
+                                       atol=1e-12 * np.abs(want).max(),
+                                       err_msg=f"{name}, {win_warps}")

@@ -969,3 +969,166 @@ def test_f64_rebin_kernel_matches_plain(cuda, name):
         assert torch.equal(a, b), f"{name} output {i}"
     assert any(a.dtype == torch.float64 and bool((a != 0).any())
                for a in got)
+
+
+# ----------------------------------------------------------------------
+# The f32 and f64 deposits' J window sets: private to each warp at every
+# deck's window, shared by 2, 4 or 8 warps past what shared memory holds.
+
+def _wide_inputs(dev, n, g=2, T=4, cap=2048, n_live=1500, seed=6):
+    """2x2 tiles of (n - 2g)^2 cells, windows n^2: n_live particles a
+    bucket up to a cell off their tile, random fields."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tile = n - 2 * g
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    t = torch.arange(T, device=dev)[:, None]
+    x = torch.remainder((t % 2) * tile + rnd(T, cap) * (tile + 2) - 1,
+                        2 * tile)
+    y = torch.remainder((t // 2) * tile + rnd(T, cap) * (tile + 2) - 1,
+                        2 * tile)
+    mom = [(rnd(T, cap) - 0.5) * 0.4 for _ in range(3)]
+    w = ((torch.arange(cap, device=dev)[None, :] < n_live).float()
+         * 0.004).expand(T, cap).contiguous()
+    p = ParticleState(x, y, *mom, w)
+    ft = FieldState(*((rnd(T, n, n) - 0.5) * 0.2 for _ in range(6)))
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=tile, tile_nx=tile,
+              origins=_origins(dev, 2, 2, tile, tile), g=g, dt=0.035,
+              dx=0.1, dy=0.1, grid=(2 * tile, 2 * tile))
+    return p, ft, kw
+
+
+@pytest.mark.parametrize("mode,n,win_warps", [
+    ("f32", 48, 2), ("f32", 60, 4), ("f32", 72, 8), ("f64", 36, 2),
+    ("f64", 48, 4), ("f64", 52, 8)])
+def test_float_kernel_with_shared_j_windows_matches_plain(cuda, mode, n,
+                                                          win_warps):
+    """Windows too wide for a set of J windows per warp: 2, 4 or 8 warps
+    share a set (adding with atomics) and the kernel still equals its
+    plain version: positions and momenta bit for bit (f32) or within 2
+    ulp of each channel's scale (f64), J within 1e-5 (f32) or 1e-12 (f64)
+    of its peak."""
+    from minipic_torch.ops.advance import window_warps
+
+    assert window_warps(n, n, mode) == win_warps
+    p, ft, kw = _wide_inputs(cuda, n)
+    if mode == "f64":
+        p, ft = _double(p), _double(ft)
+    counts = live_watermark(p.w)
+    pk, jk, dk = advance_tiles(p, ft, counts, mode=mode, **kw)
+    pp, jp, dp = advance_plain(p, ft, counts, mode=mode, **kw)
+    torch.cuda.synchronize()
+    live = p.w > 0
+    for name, a, b in zip("x y px py pz".split(), pk, pp):
+        if mode == "f64":
+            assert _ulps(a[live], b[live]) <= 2, name
+        else:
+            assert torch.equal(a[live], b[live]), name
+    tol = 1e-12 if mode == "f64" else 1e-5
+    for name, a, b in zip(("jx", "jy", "jz"), jk, jp):
+        assert bool(b.abs().max() > 0), name
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * float(b.abs().max()))
+    torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0)
+
+
+def _one_base(p):
+    """`p`'s live particles in slab order: the 32 slots of slab k all in
+    cell k mod 64 of their tile, a quarter to 0.45 of a cell into it, so
+    that each slab's lanes share one 4x4 base (the shuffle trees, plain
+    adds into the warp's own windows)."""
+    dev = p.x.device
+    T, cap = p.x.shape
+    s = torch.arange(cap, device=dev)[None, :]
+    t = torch.arange(T, device=dev)[:, None]
+    cell = (s // 32) % 64
+    gen = torch.Generator(device=dev).manual_seed(9)
+    fx, fy = (0.25 + 0.2 * torch.rand((T, cap), generator=gen, device=dev)
+              for _ in range(2))
+    x = (t % 4) * 8 + cell % 8 + fx
+    y = (t // 4) * 8 + cell // 8 + fy
+    live = p.w > 0
+    return p._replace(x=torch.where(live, x.float(), p.x),
+                      y=torch.where(live, y.float(), p.y),
+                      px=p.px * 0.25, py=p.py * 0.25)
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+@pytest.mark.parametrize("order", [1, 2])
+def test_float_kernel_is_deterministic_in_lattice_order(cuda, order, mode):
+    """With a set of J windows per warp and every slab on one base, two
+    launches give the same J bit for bit, and the same positions and
+    momenta, which equal the plain version's (f32 bit for bit, f64 within
+    2 ulp of each channel's scale); J within the bars of its plain
+    version."""
+    from minipic_torch.ops.advance import window_warps
+
+    assert window_warps(16, 16, mode) == 1
+    p, ft = _inputs(cuda)
+    p = _one_base(p)
+    if mode == "f64":
+        p, ft = _double(p), _double(ft)
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32), mode=mode)
+    a = advance_tiles(p, ft, counts, **kw)
+    b = advance_tiles(p, ft, counts, **kw)
+    pp, jp, _ = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    for u, v in zip(a[0] + a[1] + (a[2],), b[0] + b[1] + (b[2],)):
+        assert torch.equal(u, v)
+    live = p.w > 0
+    for name, u, v in zip("x y px py pz".split(), a[0], pp):
+        if mode == "f64":
+            assert _ulps(u[live], v[live]) <= 2, name
+        else:
+            assert torch.equal(u[live], v[live]), name
+    tol = 1e-12 if mode == "f64" else 1e-5
+    for u, v in zip(a[1], jp):
+        torch.testing.assert_close(u, v, rtol=0,
+                                   atol=tol * float(v.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+@pytest.mark.parametrize("layout", ["one-base", "lattice", "shuffled",
+                                    "edge"])
+def test_float_kernel_j_equals_the_warp_window_emulation(cuda, layout,
+                                                         mode):
+    """With a set of J windows per warp the kernel adds without atomics in
+    an order that ``minipic_torch.testing`` transcribes (each base's terms
+    summed in lane order, the bases in order, the sets summed in order), so
+    its J equals that emulation bit for bit, on lanes' terms computed on
+    the card from the
+    plain version's particles (which equal the kernel's): one base a slab,
+    lattice order at 11 a cell (slabs over three cells, 5-12 bases), random
+    slots and window-edge supports."""
+    from minipic_torch.testing import (float_deposit_terms, sum_warp_windows,
+                                       warp_adds)
+
+    p, ft = _inputs(cuda)
+    if layout == "one-base":
+        p = _one_base(p)
+    elif layout != "shuffled":
+        p = _lattice(p, 16 if layout == "edge" else 0)
+    if mode == "f64":
+        p, ft = _double(p), _double(ft)
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32), mode=mode)
+    pk, jk, _ = advance_tiles(p, ft, counts, **kw)
+    pp, _, _ = advance_plain(p, ft, counts, **kw)
+    live, row0, col0, v = float_deposit_terms(p, counts, pp, **kw)
+    torch.cuda.synchronize()
+    n_few = n_many = 0
+    for t in range(live.shape[0]):
+        adds, a, b = warp_adds(live[t], row0[t], col0[t], v[t],
+                               int(counts[t]), 16, 16)
+        n_few, n_many = n_few + a, n_many + b
+        want = sum_warp_windows(adds, 16, 16, 1, v.dtype)
+        for n in range(3):
+            assert (jk[n][t].cpu().numpy() == want[n]).all(), (t, n)
+    assert (n_few if layout == "one-base" else n_many) > 0

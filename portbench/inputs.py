@@ -1,0 +1,150 @@
+"""The inputs of a cell, made from its seed: each species' particles in the
+tile-bucket layout the program takes, and the initial fields.
+
+A frozen copy of the port's quiet-start loader (``_load_buckets`` of
+``minipic_torch/particles/species.py``, its weight mode) and of the laser
+init (``gaussian_laser_x`` of ``minipic_torch/fields/init.py``), with the
+density profiles that configuration files name.  It imports nothing of the
+program: the program and the reference are handed the same tensors.
+
+* Positions: ``ppc`` particles a cell on the lattice (i + (m+1/2)/ppc_x,
+  j + (n+1/2)/ppc_y), in global cell units, tile by tile.
+* Weights: w = n dx dy / ppc, n the species' density profile (1 without).
+* Momenta: drift + per-axis Gaussian spread, drawn on the device from one
+  ``torch.Generator`` seeded with the run's seed, one call an axis.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+FIELD_NAMES = ("ex", "ey", "ez", "bx", "by", "bz")
+CHANNELS = ("x", "y", "px", "py", "pz", "w")
+# Yee stagger (x, y) of each field component in cells.
+STAGGER = {"ex": (0.5, 0.0), "ey": (0.0, 0.5), "ez": (0.0, 0.0),
+           "bx": (0.0, 0.5), "by": (0.5, 0.0), "bz": (0.5, 0.5)}
+
+
+def _tanh_ramp(n0: float, x0: float, width: float) -> Callable:
+    """n0 (1 + tanh((x - x0) / width)) / 2, x in physical units."""
+    def density(x, y):
+        return n0 * 0.5 * (1.0 + torch.tanh((x - x0) / width))
+    return density
+
+
+PROFILES: Dict[str, Callable[..., Callable]] = {"tanh_ramp": _tanh_ramp}
+
+
+def density_profile(spec: Optional[dict]) -> Optional[Callable]:
+    """The density callable n(x, y) a species entry names, or None for a
+    uniform density 1."""
+    if spec is None:
+        return None
+    args = {k: v for k, v in spec.items() if k != "profile"}
+    return PROFILES[spec["profile"]](**args)
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) % (1 << 64))
+    return gen
+
+
+def _lattice_factors(ppc: int) -> Tuple[int, int]:
+    a = int(math.isqrt(ppc))
+    while ppc % a != 0:
+        a -= 1
+    return a, ppc // a  # (per-x, per-y)
+
+
+def load_species(sp: dict, deck: dict, capacity: int,
+                 gen: torch.Generator, dtype, device) -> Tuple[torch.Tensor,
+                                                               ...]:
+    """(x, y, px, py, pz, w), each [tiles, capacity], for species entry
+    `sp` of configuration deck `deck`; slots past ppc * tile cells are
+    empty (all zero)."""
+    nx, ny = deck["nx"], deck["ny"]
+    nxt, nyt = deck["tile_nx"], deck["tile_ny"]
+    tile_cols, tiles = nx // nxt, (nx // nxt) * (ny // nyt)
+    dx, dy = deck["box_x"] / nx, deck["box_y"] / ny
+    ppc = sp["ppc"]
+    ppc_x, ppc_y = _lattice_factors(ppc)
+    per_tile = ppc * nxt * nyt
+    if per_tile > capacity:
+        raise ValueError(f"capacity {capacity} < ppc * tile cells "
+                         f"{per_tile}")
+    t = torch.arange(tiles, device=device)
+    tcol = (t % tile_cols).to(dtype)[:, None]
+    trow = (t // tile_cols).to(dtype)[:, None]
+    slots = torch.arange(per_tile, device=device)
+    l = slots % ppc_x
+    m = (slots // ppc_x) % ppc_y
+    cell = slots // (ppc_x * ppc_y)
+    xi = (cell % nxt).to(dtype) + (l.to(dtype) + 0.5) / ppc_x
+    eta = (cell // nxt).to(dtype) + (m.to(dtype) + 0.5) / ppc_y
+    x = tcol * nxt + xi[None, :]
+    y = trow * nyt + eta[None, :]
+    density = density_profile(sp.get("density"))
+    if density is None:
+        n = torch.ones_like(x)
+    else:
+        n = torch.as_tensor(density(x * dx, y * dy), dtype=dtype,
+                            device=device)
+    w = n * (dx * dy / ppc)
+    shape = (tiles, per_tile)
+    spread = [sp.get("uth", 0.0) if sp.get(k) is None else sp[k]
+              for k in ("uth_x", "uth_y", "uth_z")]
+    moms = []
+    for uth, drift in zip(spread, (sp.get("ux", 0.0), sp.get("uy", 0.0),
+                                   sp.get("uz", 0.0))):
+        if uth <= 0:
+            moms.append(torch.full(shape, drift, dtype=dtype, device=device))
+        else:
+            moms.append(torch.randn(shape, generator=gen, dtype=dtype,
+                                    device=device) * uth + drift)
+    pad = capacity - per_tile
+    return tuple(torch.nn.functional.pad(a.to(dtype), (0, pad))
+                 for a in (x, y, *moms, w))
+
+
+def _gaussian_laser_x(deck: dict, a0: float, k0: float, x_center: float,
+                      length: float, waist: float) -> Dict[str, Callable]:
+    yc = deck["box_y"] / 2.0
+
+    def prof(x, y):
+        env = torch.exp(-(((x - x_center) / length) ** 2)
+                        - (((y - yc) / waist) ** 2))
+        return a0 * torch.sin(k0 * x) * env
+
+    return {"ey": prof, "bz": prof}
+
+
+FIELD_INITS: Dict[str, Callable[..., Dict[str, Callable]]] = {
+    "zeros": lambda deck: {},
+    "gaussian_laser_x": _gaussian_laser_x,
+}
+
+
+def init_fields(spec: dict, deck: dict, dtype, device) -> Tuple[torch.Tensor,
+                                                               ...]:
+    """The six (ny, nx) field components of field init `spec` ({"init":
+    name, ...its parameters}), each at its Yee stagger."""
+    args = {k: v for k, v in spec.items() if k != "init"}
+    exprs = FIELD_INITS[spec["init"]](deck, **args)
+    nx, ny = deck["nx"], deck["ny"]
+    dx, dy = deck["box_x"] / nx, deck["box_y"] / ny
+    out = []
+    for name in FIELD_NAMES:
+        fn = exprs.get(name)
+        if fn is None:
+            out.append(torch.zeros((ny, nx), dtype=dtype, device=device))
+            continue
+        ox, oy = STAGGER[name]
+        x = (torch.arange(nx, dtype=dtype, device=device) + ox) * dx
+        y = (torch.arange(ny, dtype=dtype, device=device) + oy) * dy
+        v = torch.as_tensor(fn(x[None, :], y[:, None]), dtype=dtype,
+                            device=device)
+        out.append(v.expand(ny, nx).contiguous())
+    return tuple(out)

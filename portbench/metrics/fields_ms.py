@@ -1,0 +1,12 @@
+"""Device milliseconds a traced step of the operations launched inside
+``minipic.fields``, amortised over every traced step."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or not t.steps:
+        return None
+    us = t.range_us("minipic.fields")
+    if us <= 0:
+        return None
+    return us / 1e3 / t.steps

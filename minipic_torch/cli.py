@@ -122,8 +122,10 @@ def _parser() -> argparse.ArgumentParser:
                     "plain versions)")
     ap.add_argument(
         "--profile", metavar="DIR", default=None,
-        help=f"write a torch.profiler Chrome trace of the first "
-        f"{PROFILE_STEPS} steps to DIR/trace.json")
+        help=f"profile the first {PROFILE_STEPS} steps: a torch.profiler "
+        "Chrome trace in DIR/trace.json, the step's spans (on the trace's "
+        "clock) and host-read counters in DIR/spans.json, and one line a "
+        "span name (calls and self host ms a step)")
     return ap
 
 
@@ -151,6 +153,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from . import trace
     from .decks.standard import make
     from .diag.history import RunHistory
     from .io.checkpoint import load_checkpoint, save_checkpoint
@@ -243,13 +246,27 @@ def main(argv=None) -> int:
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
         prof.start()
+        trace.enable()
 
     def stop_profile(i):
+        trace.disable()
+        spans, counters = trace.drain()
         prof.stop()
         os.makedirs(args.profile, exist_ok=True)
         path = os.path.join(args.profile, "trace.json")
         prof.export_chrome_trace(path)
         print(f"profiler trace (steps ..{i}) written to {path}", flush=True)
+        steps = i - start_step
+        with open(os.path.join(args.profile, "spans.json"), "w") as f:
+            json.dump({"clock": "unix_ns", "steps": steps,
+                       "spans": [dict(zip(("name", "parent", "start_ns",
+                                           "end_ns"), s)) for s in spans],
+                       "counters": counters}, f)
+        for name, (calls, _, own) in trace.by_name(spans, steps).items():
+            print(f"span {name}: {calls:.3f} calls a step, self "
+                  f"{own:.4f} host ms a step", flush=True)
+        for name, n in sorted(counters.items()):
+            print(f"counter {name}: {n / steps:.3f} a step", flush=True)
 
     t_run = time.perf_counter()
     try:

@@ -597,7 +597,10 @@ def fused_push_deposit(p: ParticleState, ftiles: FieldState,
         tile_nx=tile_nx, origins=origins, g=g, dt=dt, dx=dx, dy=dy,
         grid=grid, mode=mode)
     if mode == "int8":
-        qws = _f(q, p.w) * p.w.max()
+        # q stays a Python number: the product rounds it once to the
+        # channels' type, as a tensor of it would, without the host-to-device
+        # copy that making such a tensor costs (it drains the queue).
+        qws = p.w.max() * q
         jx = jx * qws
         jy = jy * qws
     jx = torch.cumsum(jx, dim=-1)

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.state import ParticleState
+from ..trace import read
 
 
 class LoadStats(NamedTuple):
@@ -35,7 +36,8 @@ def census(p: ParticleState) -> LoadStats:
 def census_of_counts(counts: torch.Tensor, capacity: int) -> LoadStats:
     """``census`` from the live count of every tile (int32 [T]; the
     multi-device simulations gather their shards' counts)."""
-    total, mx = (int(v) for v in torch.stack([counts.sum(), counts.max()]))
+    total, mx = (read(v, "census")
+                 for v in torch.stack([counts.sum(), counts.max()]))
     mean = total / max(1, counts.numel())
     return LoadStats(total=total, max_tile=mx, mean_tile=mean,
                      capacity=capacity, occupancy=mx / capacity,
@@ -75,7 +77,7 @@ def with_capacity(p: ParticleState, new_cap: int,
                          "new capacity)")
     from ..particles.binning import rebin_flat
 
-    max_live = int(positional_tile_counts(p, tiling).max())
+    max_live = read(positional_tile_counts(p, tiling).max(), "shrink")
     if max_live > new_cap:
         raise ValueError(f"cannot shrink to {new_cap}: a tile holds "
                          f"{max_live} live particles")
@@ -84,7 +86,7 @@ def with_capacity(p: ParticleState, new_cap: int,
                           tile_cols=tiling.tile_cols,
                           tile_nx=tiling.tile_nx, tile_ny=tiling.tile_ny,
                           capacity=new_cap)
-    if int(ovf) != 0:
+    if read(ovf, "shrink") != 0:
         raise RuntimeError("shrink overflow despite positional census check")
     return out
 

@@ -36,7 +36,6 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.config import Deck
 from ..core.state import CurrentState, FieldState, ParticleState, field_energy
@@ -49,6 +48,7 @@ from ..particles import species as species_mod
 from ..particles.binning import rebin_by_tid
 from ..simulation import (StepDiag, deposit_modes, resolve_backend,
                           window_injection_key, window_shift_now)
+from ..trace import span
 from .mesh import (PARALLEL_RANGE, Mesh, all_gather, default_devices, move,
                    on, pall, pmax, psum)
 from .step import (MeshSimulation, Schedule, ShardedState, advance_shards,
@@ -173,7 +173,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
         ovf = None
         for d in devs:
             with on(d):
-                with record_function(PARALLEL_RANGE):
+                with span(PARALLEL_RANGE):
                     pool = ParticleState(*(
                         torch.cat([move(m[ci].reshape(-1), d)
                                    for _, m, _, _ in splits])
@@ -236,7 +236,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
                 bufs.append(buf[:, :cap_b])
                 stays.append(ParticleState(*(torch.where(
                     moving, torch.zeros_like(a), a) for a in flat)))
-        with record_function(PARALLEL_RANGE):
+        with span(PARALLEL_RANGE):
             gathered = all_gather(bufs, mesh, dim=1)
         out, ovs = [], []
         for s, (sh, stay, gat, dr) in enumerate(zip(shards, stays, gathered,
@@ -273,7 +273,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
                 canvases.append(torch.stack([
                     fold_tiles(c.reshape(tr, tc, nyt + 2 * g, nxt + 2 * g),
                                nyt, nxt, g) for c in full]))
-        with record_function(PARALLEL_RANGE):
+        with span(PARALLEL_RANGE):
             total = psum(canvases, Mesh(devs, 1, len(devs)))
         j = {}
         for d, c in zip(devs, total):
@@ -296,7 +296,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
         fields = {}
         for sh, f in zip(shards, st.fields):
             fields.setdefault(sh["dev"], f)
-        with record_function("minipic.advance"):
+        with span("minipic.advance"):
             # Each shard's windows from its device's padded fields.
             wins, ftiles = {}, []
             for sh, (gid, _) in zip(shards, tabs if deck.species else ()):
@@ -311,7 +311,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
             pushed, jwin, kes, moms, disps = advance_shards(
                 deck, mesh, modes, st.species, ftiles,
                 [origins for _, origins in tabs], grid)
-        with record_function("minipic.fields"):
+        with span("minipic.fields"):
             j = current(tabs, jwin) if deck.species else {}
             for d in devs:
                 with on(d):
@@ -324,20 +324,20 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
         disp = pmax(disps, mesh)[0] if deck.species else None
         do_rebin, force, drift_now = sched.decide(st.step, st.drift, disp,
                                                   shift_now)
-        with record_function("minipic.rebin"):
+        with span("minipic.rebin"):
             binned, overflow, pending_total = rebin_species(
                 deck, mesh, pushed, do_rebin, lambda ps, mc, sc: (
                     rebin_incremental(ps, force, mc, k) if mc > 0
                     else rebin_sort(ps, mc, k)))
         drift_now = sched.after(do_rebin, drift_now, pending_total)
-        with record_function("minipic.diag"):
+        with span("minipic.diag"):
             diag = mesh_diag(deck, mesh, field_energy(fields[dev0], dx, dy),
                              kes, moms, overflow, binned, do_rebin)
         w0 = st.window_x0
         species = [tuple(sp) for sp in binned]
         if shift_now:
             w0 = w0 + nxt
-            with record_function("minipic.rebin"):
+            with span("minipic.rebin"):
                 for d in devs:
                     with on(d):
                         keep = (torch.arange(deck.nx, device=d)

@@ -24,13 +24,13 @@ import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..core.config import Deck
+from ..trace import span
 
 AXES = ("ry", "rx")
-# Profiler range of the collectives (the halo exchange and fold, particle
-# routing, the gathers and the J sum), read by ``headline.py``.
+# Layer span (a profiler range while a profiler runs) of the collectives:
+# the halo exchange and fold, particle routing, the gathers and the J sum.
 PARALLEL_RANGE = "minipic.parallel"
 # Shards of a mesh on the CPU when the deck names no mesh_shape: the JAX
 # package's test harness runs 8 virtual CPU devices.
@@ -63,10 +63,10 @@ class Mesh:
 
 
 def collective(fn: Callable) -> Callable:
-    """Run `fn` inside the PARALLEL_RANGE profiler range."""
+    """Run `fn` inside the PARALLEL_RANGE span."""
     @functools.wraps(fn)
     def wrapped(*args, **kw):
-        with record_function(PARALLEL_RANGE):
+        with span(PARALLEL_RANGE):
             return fn(*args, **kw)
     return wrapped
 

@@ -40,7 +40,6 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.config import Deck
 from ..core.state import (CurrentState, FieldState, ParticleState, SimState,
@@ -59,6 +58,7 @@ from ..simulation import (CAPACITY_CHECK_EVERY, StepDiag,
                           bucket_capacity, deposit_modes, rebin_caps,
                           resolve_backend, tile_origins, uses_rebin_auto,
                           window_injection_key, window_shift_now)
+from ..trace import span
 from .exchange import exchange_particles, roll_segments_sharded
 from .halo import exchange_halo, fold_halo
 from .mesh import (Mesh, local_tile_grid, make_mesh, move, on, pall, pmax,
@@ -472,10 +472,10 @@ def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
                                  "is unset (ShardedSimulation sets it)")
             shift_now = bool(window_shift_now(st.step, st.window_x0, dt,
                                               nxt, dx))
-        with record_function("minipic.fields"):
+        with span("minipic.fields"):
             fpads = [FieldState(*p.unbind(0)) for p in
                      exchange([torch.stack(tuple(f)) for f in st.fields])]
-        with record_function("minipic.advance"):
+        with span("minipic.advance"):
             ftiles = []
             for sh, f in zip(shards, fpads if deck.species else ()):
                 with on(sh["dev"]):
@@ -484,25 +484,25 @@ def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
             pushed, jwin, kes, moms, disps = advance_shards(
                 deck, mesh, modes, st.species, ftiles,
                 [sh["origins"] for sh in shards], grid)
-        with record_function("minipic.fields"):
+        with span("minipic.fields"):
             fnew, fes = fields_update(fpads, jwin)
         disp = pmax(disps, mesh)[0] if deck.species else None
         do_rebin, force, drift_now = sched.decide(st.step, st.drift, disp,
                                                   shift_now)
-        with record_function("minipic.rebin"):
+        with span("minipic.rebin"):
             binned, overflow, pending_total = rebin_species(
                 deck, mesh, pushed, do_rebin, lambda ps, mc, sc: (
                     rebin_incremental(ps, force, mc, sc) if mc > 0
                     else rebin_sort(ps)))
         drift_now = sched.after(do_rebin, drift_now, pending_total)
-        with record_function("minipic.diag"):
+        with span("minipic.diag"):
             diag = mesh_diag(deck, mesh, psum(fes, mesh)[0], kes, moms,
                              overflow, binned, do_rebin)
         species = [tuple(sp) for sp in binned]
         w0 = st.window_x0
         if shift_now:
             w0 = w0 + nxt
-            with record_function("minipic.rebin"):
+            with span("minipic.rebin"):
                 fnew, species = shift_window(fnew, species, w0)
         return ShardedState(fields=fnew, species=species, step=st.step + 1,
                             drift=drift_now, window_x0=w0), diag

@@ -29,6 +29,7 @@ import torch
 
 from ..core.geometry import Tiling
 from ..core.state import ParticleState
+from ..trace import span
 
 
 def wrap_positions(p: ParticleState, nx: int, ny: int,
@@ -156,31 +157,42 @@ def rebin_auto(p: ParticleState, tiling: Tiling, mover_cap: int, *,
 
     cap = p.capacity
     t = tiling
-    p1, movers, wm, pending = split_buckets(
-        p, tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
-        b_cap=mover_cap, force=force)
+    with span("rebin.split"):
+        p1, movers, wm, pending = split_buckets(
+            p, tile_cols=t.tile_cols, tile_ny=t.tile_ny, tile_nx=t.tile_nx,
+            b_cap=mover_cap, force=force)
     if seg_cap > 0 and cap >= 8 * seg_cap + 256:
-        seg, seg_dropped = segment_movers(
-            movers, tile_rows=t.tile_rows, tile_cols=t.tile_cols,
-            tile_ny=t.tile_ny, tile_nx=t.tile_nx, b_seg=seg_cap)
-        nbr = seg_neighbor_table(t.tile_rows, t.tile_cols, p.x.device)
-        n_in = seg_arrival_counts(seg, nbr, seg_cap)
-        headroom_ok = (wm + n_in <= cap - 256).all()
-        if fused:
-            app_dropped = append_segments_(p1, seg, wm, nbr, b_seg=seg_cap,
-                                           active=headroom_ok)
-        else:
-            app_dropped = append_runs_(p1, roll_segments(seg, nbr, seg_cap),
-                                       wm, b_seg=seg_cap, active=headroom_ok)
-        _, def_dropped = defrag_buckets_(p1, seg, nbr, b_seg=seg_cap,
-                                         active=~headroom_ok)
+        with span("rebin.segment"):
+            seg, seg_dropped = segment_movers(
+                movers, tile_rows=t.tile_rows, tile_cols=t.tile_cols,
+                tile_ny=t.tile_ny, tile_nx=t.tile_nx, b_seg=seg_cap)
+            nbr = seg_neighbor_table(t.tile_rows, t.tile_cols, p.x.device)
+            n_in = seg_arrival_counts(seg, nbr, seg_cap)
+            headroom_ok = (wm + n_in <= cap - 256).all()
+        with span("rebin.append"):
+            if fused:
+                app_dropped = append_segments_(p1, seg, wm, nbr,
+                                               b_seg=seg_cap,
+                                               active=headroom_ok)
+            else:
+                app_dropped = append_runs_(
+                    p1, roll_segments(seg, nbr, seg_cap), wm, b_seg=seg_cap,
+                    active=headroom_ok)
+        with span("rebin.defrag"):
+            _, def_dropped = defrag_buckets_(p1, seg, nbr, b_seg=seg_cap,
+                                             active=~headroom_ok)
         route_dropped = seg_dropped.sum()
     else:
-        incoming, route_dropped = route_movers(movers, t, mover_cap)
-        n_in = (incoming.w > 0).sum(1, dtype=torch.int32)
-        headroom_ok = (wm + n_in <= cap - 256).all()
-        app_dropped = append_incoming_(p1, incoming, wm, active=headroom_ok)
-        _, def_dropped = defrag_buckets_(p1, incoming, active=~headroom_ok)
+        with span("rebin.route"):
+            incoming, route_dropped = route_movers(movers, t, mover_cap)
+            n_in = (incoming.w > 0).sum(1, dtype=torch.int32)
+            headroom_ok = (wm + n_in <= cap - 256).all()
+        with span("rebin.append"):
+            app_dropped = append_incoming_(p1, incoming, wm,
+                                           active=headroom_ok)
+        with span("rebin.defrag"):
+            _, def_dropped = defrag_buckets_(p1, incoming,
+                                             active=~headroom_ok)
     dropped = (route_dropped + app_dropped.sum()
                + def_dropped.sum()).to(torch.int32)
     pend = pending.sum().to(torch.int32)

@@ -39,12 +39,17 @@ flag, its append-or-defrag choice and the drift reset stay on the device.
 zero on every other step) and the census every ``CAPACITY_CHECK_EVERY``
 steps.
 
-Profiler ranges (``torch.profiler.record_function``) name the step's
-layers for a trace: ``minipic.fields`` (pad, window extract, J fold, Yee,
+Spans (``trace.span``; profiler ranges while a profiler runs) name the
+step's layers: ``minipic.fields`` (pad, window extract, J fold, Yee,
 damping, the window's field roll), ``minipic.advance`` (the kernel and its
 epilogue), ``minipic.rebin`` (with the kill at the walls and the window's
 bucket roll and injection) and ``minipic.diag`` (energies, momentum, live
-count, weight guard).
+count, weight guard).  Inside them, with the recorder on (``trace``), the
+sub-spans ``fields.tiles``, ``fields.fold``, ``fields.b_half``,
+``fields.e_full``, ``fields.damping``, ``rebin.kill``, ``rebin.sort`` and
+those of ``binning.rebin_auto``; around them ``step`` (each step), and
+``step.census`` and ``step.read`` in ``Simulation.run_step``.  Every host
+read of the step goes through ``trace.read``, which counts it by site.
 """
 from __future__ import annotations
 
@@ -53,7 +58,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .core.config import Deck
 from .core.state import (
@@ -73,6 +77,7 @@ from .ops.advance import fused_push_deposit, live_watermark, resolve_mode
 from .particles import species as species_mod
 from .particles.binning import rebin, rebin_auto, wrap_positions
 from .particles.species import load_species, mix_seed
+from .trace import read, span
 
 # Bucket capacity quantum for whole-bucket chunks (kchunk=0), as in the JAX
 # package (whose re-bin kernels slice buckets in 512-slot blocks).
@@ -230,11 +235,11 @@ def shift_window(deck: Deck, state: SimState, w0n: int) -> SimState:
     shift_c = tiling.tile_nx
     f = state.fields
     keep = torch.arange(deck.nx, device=f.ex.device) < deck.nx - shift_c
-    with record_function("minipic.fields"):
+    with span("minipic.fields"):
         f = FieldState(*(torch.where(keep, torch.roll(c, -shift_c, dims=1),
                                      torch.zeros_like(c)) for c in f))
     out = []
-    with record_function("minipic.rebin"):
+    with span("minipic.rebin"):
         for i, (spec, p) in enumerate(zip(deck.species, state.species)):
             inj = species_mod.inject_column(
                 spec, deck.domain, tiling, p.capacity,
@@ -266,7 +271,7 @@ class _HostClock:
         if (last is not None and last[0] is state.step
                 and last[1] is state.window_x0):
             return last[2], last[3]
-        return int(state.step), int(state.window_x0)
+        return read(state.step, "clock"), read(state.window_x0, "clock")
 
     def keep(self, state: SimState, step: int, w0: int) -> None:
         self._last = (state.step, state.window_x0, step, w0)
@@ -370,12 +375,12 @@ def build_step(deck: Deck, device: torch.device):
         pushed, kes, moms, disps = [], [], [], []
         jsum = None
         if deck.species:
-            with record_function("minipic.fields"):
+            with span("minipic.fields"), span("fields.tiles"):
                 ftiles = extract_field_tiles(
                     pad_fields_periodic(f, g), tiling.tile_rows,
                     tiling.tile_cols, tiling.tile_ny, tiling.tile_nx, g)
         for spec, mode, p in zip(deck.species, modes, state.species):
-            with record_function("minipic.advance"):
+            with span("minipic.advance"):
                 pnew, js, disp = advance_species_tiles(
                     p, ftiles, qm=spec.charge / spec.mass, q=spec.charge,
                     order=spec.shape_order, tile_ny=tiling.tile_ny,
@@ -385,18 +390,23 @@ def build_step(deck: Deck, device: torch.device):
                 a + b for a, b in zip(jsum, js))
             pushed.append(pnew)
             disps.append(disp)
-            with record_function("minipic.diag"):
+            with span("minipic.diag"):
                 kes.append(kinetic_energy(pnew, spec.mass))
                 moms.append(momentum_sum(pnew, spec.mass))
 
-        with record_function("minipic.fields"):
-            j = None if jsum is None else CurrentState(*(to_global(t)
-                                                         for t in jsum))
-            f = update_b_half_periodic(f, dt, dx, dy)
-            f = update_e_full_periodic(f, dt, dx, dy, j)
-            f = update_b_half_periodic(f, dt, dx, dy)
+        with span("minipic.fields"):
+            with span("fields.fold"):
+                j = None if jsum is None else CurrentState(*(to_global(t)
+                                                             for t in jsum))
+            with span("fields.b_half"):
+                f = update_b_half_periodic(f, dt, dx, dy)
+            with span("fields.e_full"):
+                f = update_e_full_periodic(f, dt, dx, dy, j)
+            with span("fields.b_half"):
+                f = update_b_half_periodic(f, dt, dx, dy)
             if mask is not None:
-                f = apply_damping(f, mask)
+                with span("fields.damping"):
+                    f = apply_damping(f, mask)
 
         drift_now = state.drift
         do_rebin = False
@@ -411,7 +421,8 @@ def build_step(deck: Deck, device: torch.device):
             drift_now = state.drift + disp
             # A shift rolls buckets: no mover may wait in a trailing-column
             # bucket, so a shift step re-bins with force.
-            do_rebin = shift_now or bool(drift_now > deck.drift_threshold())
+            do_rebin = shift_now or read(drift_now > deck.drift_threshold(),
+                                         "drift")
             # Past this line a deferred re-bin may no longer wait: extract
             # with counted drops.  Stays on the device.
             if not shift_now:
@@ -424,15 +435,17 @@ def build_step(deck: Deck, device: torch.device):
                 force = state.drift > 0.5
                 sched = sched | force
             do_rebin = (shift_now or deck.rebin_interval == 1
-                        or bool(sched))
+                        or read(sched, "schedule"))
 
         overflow = torch.zeros((), dtype=torch.int32, device=dev)
         pending_total = torch.zeros((), dtype=torch.int32, device=dev)
         binned = []
         for p in pushed:
-            with record_function("minipic.rebin"):
+            with span("minipic.rebin"):
                 if not periodic:
-                    p = wrap_positions(p, deck.nx, deck.ny, periodic=False)
+                    with span("rebin.kill"):
+                        p = wrap_positions(p, deck.nx, deck.ny,
+                                           periodic=False)
                 if do_rebin:
                     mc, sc = rebin_caps(deck, p.capacity)
                     if mc > 0:
@@ -440,7 +453,8 @@ def build_step(deck: Deck, device: torch.device):
                                                  seg_cap=sc, fused=fused)
                         pending_total = pending_total + pend
                     else:
-                        p, ov = rebin(p, tiling)
+                        with span("rebin.sort"):
+                            p, ov = rebin(p, tiling)
                     overflow = overflow + ov
             binned.append(p)
         if do_rebin and trigger_drift:
@@ -451,7 +465,7 @@ def build_step(deck: Deck, device: torch.device):
         elif do_rebin and interval_grace:
             drift_now = (pending_total > 0).to(torch.float32)
 
-        with record_function("minipic.diag"):
+        with span("minipic.diag"):
             live = torch.zeros((), dtype=torch.int32, device=dev)
             for p in binned:
                 live = live + (p.w > 0).sum(dtype=torch.int32)
@@ -515,7 +529,8 @@ class Simulation:
     def step(self, n: int = 1) -> Optional[StepDiag]:
         diag = None
         for _ in range(n):
-            self.state, diag = self._step(self.state)
+            with span("step"):
+                self.state, diag = self._step(self.state)
         return diag
 
     def ensure_capacity(self, overflow: int = 0) -> bool:
@@ -578,9 +593,12 @@ class Simulation:
         at once), and check the capacity when `i` is a multiple of
         CAPACITY_CHECK_EVERY.  The CLI numbers its steps absolutely, so a
         resumed run checks on the steps an uninterrupted one does."""
-        self.state, diag = self._step(self.state)
-        ovf = int(diag.overflow) if diag.rebinned else 0
-        self.overflow_total += ovf
-        if self.state.species and (ovf > 0 or i % CAPACITY_CHECK_EVERY == 0):
-            self.ensure_capacity(ovf)
+        with span("step"):
+            self.state, diag = self._step(self.state)
+            ovf = read(diag.overflow, "overflow") if diag.rebinned else 0
+            self.overflow_total += ovf
+            if self.state.species and (ovf > 0
+                                       or i % CAPACITY_CHECK_EVERY == 0):
+                with span("step.census"):
+                    self.ensure_capacity(ovf)
         return diag

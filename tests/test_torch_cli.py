@@ -388,7 +388,7 @@ def test_wipe_run_artifacts_leaves_other_files(tmp_path):
 
 def test_cli_save_particles_and_profile(tmp_path):
     """--save-particles writes a particle file per save; --profile writes a
-    Chrome trace of the first steps."""
+    Chrome trace of the first steps and the step's spans and counters."""
     out = str(tmp_path / "o")
     _run(["--deck", "two_stream", "--nx", "32", "--ny", "32", "--steps", "4",
           "--save-every", "2", "--save-particles", "--device", "cpu",
@@ -398,6 +398,12 @@ def test_cli_save_particles_and_profile(tmp_path):
         assert sorted(data) == ["ion", "left", "right"]
     with open(tmp_path / "prof" / "trace.json") as f:
         assert json.load(f)["traceEvents"]
+    with open(tmp_path / "prof" / "spans.json") as f:
+        spans = json.load(f)
+    names = {s["name"] for s in spans["spans"]}
+    assert {"step", "minipic.fields"} <= names
+    assert spans["steps"] == 4
+    assert spans["counters"]["host_reads"] >= 4
 
 
 ARTIFACTS = {"field": ("Bz_step_50.png",), "lineouts": ("line_slices_Bz.png",),

@@ -1132,3 +1132,52 @@ def test_float_kernel_j_equals_the_warp_window_emulation(cuda, layout,
         for n in range(3):
             assert (jk[n][t].cpu().numpy() == want[n]).all(), (t, n)
     assert (n_few if layout == "one-base" else n_many) > 0
+
+
+@pytest.mark.parametrize("deck", ["headline", "laser_plasma"])
+def test_every_sync_of_the_step_is_a_counted_read(cuda, deck):
+    """The benchmark's two decks, cut, stepped through run_step (a forced
+    re-bin and the census of step 50 among the steps) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing call
+    comes from inside ``trace.read``, one for each read it counts."""
+    import pathlib
+    import warnings
+
+    from minipic_torch import trace
+    from minipic_torch.decks import standard
+    from minipic_torch.headline import _force_rebin, headline_deck
+    from minipic_torch.simulation import Simulation
+
+    if deck == "headline":
+        sim = Simulation(headline_deck(grid=64), device=cuda)
+    else:
+        sim = standard.make("laser_plasma", nx=64, ny=64,
+                            ppc=2).simulation(device=cuda)
+    # The kernels built and loaded, a re-bin's first launches taken.
+    sim.run_step(1)
+    _force_rebin(sim)
+    sim.run_step(2)
+    torch.cuda.synchronize()
+    trace.drain()
+    rebins = 0
+    trace.enable()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(45, 56):
+                if i == 47:
+                    _force_rebin(sim)
+                rebins += sim.run_step(i).rebinned
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        trace.disable()
+    _, counters = trace.drain()
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    here = pathlib.Path(trace.__file__).resolve()
+    where = sorted({f"{w.filename}:{w.lineno}" for w in syncs})
+    assert all(pathlib.Path(w.filename).resolve() == here
+               for w in syncs), where
+    assert len(syncs) == counters["host_reads"], (where, counters)
+    assert counters["host_reads.overflow"] == rebins >= 1
+    assert counters["host_reads.census"] >= 2 * len(sim.state.species)

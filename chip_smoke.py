@@ -41,7 +41,14 @@ Phases, each printing what it found; any failure exits non-zero:
    and f64) and laser_wakefield_window's (TSC, 16^2, 512 slots; f32),
    with particles leaving through every wall and
    corner and dead slots: positions and momenta equal, J within 2e-5 of
-   its peak; the periodic mode on the same subsets as before;
+   its peak; the periodic mode on the same subsets as before; the
+   diagnostics kernels (csrc/diag.cu, moments and census) against their
+   plain versions at the headline's shape after its first census (4096
+   tiles x 40704 slots, 99,876,864 live at the bucket heads, thermal
+   momenta in the dead slots too, 512^2 fields) over float32 and float64
+   channels: counts and flags exact, sums within 1e-12 of the sum of the
+   terms' magnitudes, two launches bit-equal; each one's time beside the
+   plain version's and its bound, and the HBM rate it reached;
 3. small step: three 32^2 decks stepped on the card (kernels) against the
    same state stepped on the CPU (plain versions): the sort route, the
    deal route (ppc 40, buckets big enough for it), and the deal route with
@@ -194,6 +201,13 @@ OPEN_WINDOW_STEPS = 0
 OPEN_J_TOL = 2e-5
 ADVANCE_SOURCE = "minipic_torch/csrc/advance.cu"
 REBIN_SOURCE = "minipic_torch/csrc/rebin.cu"
+DIAG_SOURCE = "minipic_torch/csrc/diag.cu"
+# The headline's buckets after the first census grows them 1.5x, and its
+# live particles a bucket (PERF.md section 5).
+DIAG_TILES, DIAG_CAP, DIAG_LIVE = 4096, 40704, 24384
+# The diagnostics kernels' sums against their plain versions': the same
+# float64 terms in another order.
+DIAG_RTOL = 1e-12
 RK = "minipic_tpu/ops/pallas/rebin_kernels.py"
 # name -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
@@ -1599,6 +1613,92 @@ def _compare_open(deck, p, ft, label: str, kw=None) -> float:
     return err
 
 
+def phase_diag(dev, card: str) -> dict:
+    """The diagnostics kernels against their plain versions at the
+    headline's shape (phase 2); returns each one's numbers for the JSON
+    line, with the f64 channels' under "f64"."""
+    import torch
+
+    from minipic_torch.core.state import (FieldState, kinetic_energy_plain,
+                                          momentum_sum_plain)
+    from minipic_torch.ops import diag as dg
+    from minipic_torch.testing import diag_species
+
+    def rel(a, b, scale) -> float:
+        return float(((a - b).abs() / scale.clamp(min=1e-300)).max())
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        p = diag_species(DIAG_TILES, DIAG_CAP, live=DIAG_LIVE / DIAG_CAP,
+                         dtype=dtype, seed=17, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        f = FieldState(*(torch.randn((512, 512), generator=gen, device=dev,
+                                     dtype=dtype) * 0.01 for _ in range(6)))
+        e = p.w.element_size()
+        n = p.w.numel()
+        n_live = _live(p)
+        lanes = 16 // e
+        live_vec = int((p.w.reshape(-1, lanes) != 0).any(1).sum()) * lanes
+        ke, mom = dg.moments_kernel(p, 1.0)
+        ke2, mom2 = dg.moments_kernel(p, 1.0)
+        want_ke, want_mom = kinetic_energy_plain(p, 1.0), momentum_sum_plain(
+            p, 1.0)
+        w = p.w.double()
+        scale = torch.stack([(w * a.double()).abs().sum()
+                             for a in (p.px, p.py, p.pz)])
+        check(torch.equal(ke, ke2) and torch.equal(mom, mom2),
+              f"diag {tag}: two moments launches differ")
+        err_m = max(rel(ke, want_ke, want_ke.abs()), rel(mom, want_mom, scale))
+        check(err_m <= DIAG_RTOL, f"diag {tag}: moments off by {err_m:.3e}")
+        c = dg.census_kernel([p], (True,), f, 0.1, 0.1)
+        c2 = dg.census_kernel([p], (True,), f, 0.1, 0.1)
+        cp = dg.census_plain([p], (True,), f, 0.1, 0.1)
+        check(all(torch.equal(a, b) for a, b in zip(c, c2)),
+              f"diag {tag}: two census launches differ")
+        check(int(c.live) == int(cp.live) == n_live
+              and int(c.nonuniform) == int(cp.nonuniform) == 0,
+              f"diag {tag}: census live {int(c.live)} / {int(cp.live)} "
+              f"of {n_live}, flags {int(c.nonuniform)}")
+        err_c = rel(c.field_energy, cp.field_energy, cp.field_energy)
+        check(err_c <= DIAG_RTOL, f"diag {tag}: field energy off by "
+              f"{err_c:.3e}")
+        # Bytes the kernels read (w, and the momenta of vectors with a live
+        # slot; the census w and the fields), and the least the work needs
+        # (the momenta of live slots only).
+        read = {"moments": e * (n + 3 * live_vec),
+                "census": e * (n + 6 * 512 * 512)}
+        need = {"moments": e * (n + 3 * n_live), "census": read["census"]}
+        runs = {
+            "moments": (lambda: dg.moments_kernel(p, 1.0),
+                        lambda: (kinetic_energy_plain(p, 1.0),
+                                 momentum_sum_plain(p, 1.0)), err_m),
+            "census": (lambda: dg.census_kernel([p], (True,), f, 0.1, 0.1),
+                       lambda: dg.census_plain([p], (True,), f, 0.1, 0.1),
+                       err_c)}
+        for name, (kern, plain, err) in runs.items():
+            v = dict(max_rel_err=err, ms=cuda_ms(kern, 20, warm=2),
+                     plain_ms=cuda_ms(plain, 3), bytes_read=read[name],
+                     **bound(need[name]))
+            v["hbm_share"] = read[name] / (v["ms"] / 1e3) / HBM_BYTES_PER_S
+            out.setdefault(name, {})
+            if tag == "f32":
+                out[name].update(v)
+            else:
+                out[name]["f64"] = v
+            print(f"diag {tag}: {name} at the headline's shape "
+                  f"({DIAG_TILES} x {DIAG_CAP} slots, {n_live} live): kernel "
+                  f"{v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, bound "
+                  f"{v['bound_ms']:.4f} ms ({v['bound_by']}); "
+                  f"{read[name] / 1e9:.3f} GB read at "
+                  f"{read[name] / (v['ms'] / 1e3) / 1e12:.3f} TB/s, "
+                  f"{100 * v['hbm_share']:.1f}% of the HBM rate; max rel err "
+                  f"{err:.2e}, two launches bit-equal [{card}]")
+        del p, f, w, want_ke, want_mom
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_open_kernel(dev) -> None:
     """The advance in its open mode (grid None) against its plain version
     at the laser decks' shapes, leavers through every wall and corner and
@@ -2153,14 +2253,17 @@ def _run(sim, steps: int, card: str, label: str, force_at=None):
     energy change, peak memory GB)."""
     import torch
 
-    from minipic_torch.core.state import field_energy, kinetic_energy
+    from minipic_torch.core.state import (field_energy_plain,
+                                          kinetic_energy_plain)
     from minipic_torch.headline import _force_rebin
 
     deck = sim.deck
     p0 = sim.state.species[0]
     n_live = int((p0.w > 0).sum())
-    e0 = (float(field_energy(sim.state.fields, deck.dx, deck.dy))
-          + float(kinetic_energy(p0, deck.species[0].mass)))
+    # The plain versions: the steps' own diagnostics kernels count their
+    # launches from here.
+    e0 = (float(field_energy_plain(sim.state.fields, deck.dx, deck.dy))
+          + float(kinetic_energy_plain(p0, deck.species[0].mass)))
     overflow = torch.zeros((), dtype=torch.int32, device=p0.x.device)
     del p0  # would hold the first state's buckets through the run
     torch.cuda.reset_peak_memory_stats()
@@ -2211,6 +2314,7 @@ def phase_main(dev, card: str, precision: str = "f32") -> dict:
     import torch
 
     from minipic_torch import headline
+    from minipic_torch.ops import diag as dg
     from minipic_torch.ops import rebin as rb
     from minipic_torch.ops.advance import advance_kernel
     from minipic_torch.simulation import Simulation, deposit_modes
@@ -2232,11 +2336,16 @@ def phase_main(dev, card: str, precision: str = "f32") -> dict:
           f"{time.perf_counter() - t0:.2f} s")
     del p0
     advance_kernel.launches = 0
-    for k in rb.KERNELS.values():
+    for k in (*rb.KERNELS.values(), *dg.KERNELS.values()):
         k.reset()
     rebin_ms = _run(sim, MAIN_STEPS, card, tag)
     launches = {"advance": advance_kernel.launches,
                 **{n: k.launches for n, k in rb.KERNELS.items()}}
+    diag_launches = {n: k.launches for n, k in dg.KERNELS.items()}
+    print(f"{tag}: diagnostics launches {diag_launches}")
+    check(all(v == MAIN_STEPS for v in diag_launches.values()),
+          f"{tag}: diagnostics launches {diag_launches} in {MAIN_STEPS} "
+          "steps (one moments and one census a step)")
     ran = (rb.append_kernel.taken_count(), rb.defrag_kernel.taken_count())
     print(f"{tag}: launches {launches}; append/defrag ran "
           f"{ran[0]}/{ran[1]}")
@@ -2494,8 +2603,9 @@ def phase_main(dev, card: str, precision: str = "f32") -> dict:
           f"{inc_launches['append_incoming']} [{card}]")
     launches["extract"] = inc_launches["extract"]
     launches["append_runs"] = runs_launches
-    return ({n: dict(launches=launches[n], **v) for n, v in numbers.items()},
-            jobs)
+    out = {n: dict(launches=launches[n], **v) for n, v in numbers.items()}
+    out.update({f"{n}_launches": c for n, c in diag_launches.items()})
+    return out, jobs
 
 
 def phase_sort(dev, card: str) -> None:
@@ -3596,6 +3706,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
     phase_kernel(dev)
+    diag = phase_diag(dev, card)
     phase_open_kernel(dev)
     for dtype in (None, torch.float64):
         phase_rebin_kernels(dev, dtype)
@@ -3700,10 +3811,15 @@ def main() -> int:
         # the f64 energy deck), with each kernel's launches there.
         numbers[name]["f64"] = numbers64[name]
     print(card)
+    for name, v in diag.items():
+        v["launches"] = numbers.pop(f"{name}_launches")
+        v["f64"]["launches"] = numbers64.pop(f"{name}_launches")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], **numbers[name])
-        for name in KERNELS]}))
+        for name in KERNELS] + [
+        dict(name=name, route="cuda", source=DIAG_SOURCE, replaces=None, **v)
+        for name, v in diag.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

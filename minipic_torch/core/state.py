@@ -8,7 +8,8 @@ Same layout as ``minipic_tpu.core.state``:
   species.  Positions are in global cell units (x in [0, nx)); a slot is
   dead iff ``w == 0``.
 
-The diagnostics accumulate in float64 whatever the state's dtype.
+The diagnostics accumulate in float64 whatever the state's dtype; CUDA
+tensors take the kernels of ``ops/diag.py``.
 """
 from __future__ import annotations
 
@@ -83,13 +84,44 @@ class SimState(NamedTuple):
 
 
 def field_energy(f: FieldState, dx: float, dy: float) -> torch.Tensor:
-    """Total EM energy (1/2) ∫ (E² + B²) dA, accumulated in float64."""
+    """Total EM energy (1/2) ∫ (E² + B²) dA, accumulated in float64: on the
+    card the census kernel (``ops/diag.py``), elsewhere
+    ``field_energy_plain``."""
+    if f.ex.is_cuda:
+        from ..ops.diag import census_kernel
+
+        return census_kernel((), fields=f, dx=dx, dy=dy).field_energy
+    return field_energy_plain(f, dx, dy)
+
+
+def kinetic_energy(p: ParticleState, mass: float) -> torch.Tensor:
+    """Total kinetic energy Σ w m (γ - 1), in float64: on the card the
+    moments kernel (``ops/diag.py``), elsewhere ``kinetic_energy_plain``."""
+    if p.w.is_cuda:
+        from ..ops.diag import moments_kernel
+
+        return moments_kernel(p, mass)[0]
+    return kinetic_energy_plain(p, mass)
+
+
+def momentum_sum(p: ParticleState, mass: float) -> torch.Tensor:
+    """Total momentum Σ w m u per axis, float64 [3]: on the card the moments
+    kernel (``ops/diag.py``), elsewhere ``momentum_sum_plain``."""
+    if p.w.is_cuda:
+        from ..ops.diag import moments_kernel
+
+        return moments_kernel(p, mass)[1]
+    return momentum_sum_plain(p, mass)
+
+
+def field_energy_plain(f: FieldState, dx: float, dy: float) -> torch.Tensor:
+    """``field_energy`` in plain torch, on any device."""
     total = sum((c.to(torch.float64) ** 2).sum() for c in f)
     return 0.5 * total * dx * dy
 
 
-def kinetic_energy(p: ParticleState, mass: float) -> torch.Tensor:
-    """Total kinetic energy Σ w m (γ - 1), in float64, with γ - 1 taken as
+def kinetic_energy_plain(p: ParticleState, mass: float) -> torch.Tensor:
+    """``kinetic_energy`` in plain torch, on any device, with γ - 1 taken as
     p²/(γ+1): the naive form loses ~3 digits at thermal momenta."""
     px, py, pz, w = (a.to(torch.float64) for a in (p.px, p.py, p.pz, p.w))
     p2 = px * px + py * py + pz * pz
@@ -97,8 +129,8 @@ def kinetic_energy(p: ParticleState, mass: float) -> torch.Tensor:
     return (w * mass * (p2 / (gamma + 1.0))).sum()
 
 
-def momentum_sum(p: ParticleState, mass: float) -> torch.Tensor:
-    """Total momentum Σ w m u per axis, float64 [3]."""
+def momentum_sum_plain(p: ParticleState, mass: float) -> torch.Tensor:
+    """``momentum_sum`` in plain torch, on any device."""
     w = p.w.to(torch.float64) * mass
     return torch.stack([(w * a.to(torch.float64)).sum()
                         for a in (p.px, p.py, p.pz)])

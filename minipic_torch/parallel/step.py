@@ -43,10 +43,11 @@ import torch
 
 from ..core.config import Deck
 from ..core.state import (CurrentState, FieldState, ParticleState, SimState,
-                          field_energy, kinetic_energy, momentum_sum)
+                          field_energy)
 from ..fields.boundary import local_damping_mask
 from ..fields.tiles import extract_field_tiles, fold_tiles
 from ..fields.yee import update_b_half_block, update_e_full_block
+from ..ops.diag import census, moments
 from ..ops.rebin import (append_incoming_, append_runs_, append_segments_,
                          defrag_buckets_, identity_neighbor_table,
                          segment_movers, split_buckets)
@@ -124,8 +125,9 @@ class Schedule:
 
 def weight_violations(deck: Deck, species_per_shard, mesh: Mesh
                       ) -> torch.Tensor:
-    """``simulation.int8_weight_violations`` over the whole mesh: a
-    species' live weights are compared across every shard."""
+    """The census's uniform-weight guard (``simulation.weight_checks``)
+    over the whole mesh: a species' live weights are compared across every
+    shard."""
     dev0 = mesh.devices[0]
     bad = torch.zeros((), dtype=torch.int32, device=dev0)
     if deck.deposit != "int8":
@@ -191,9 +193,7 @@ def mesh_diag(deck: Deck, mesh: Mesh, fe: torch.Tensor, kes, moms,
     live = []
     for dev, sp in zip(mesh.devices, binned):
         with on(dev):
-            n = torch.zeros((), dtype=torch.int32, device=dev)
-            for p in sp:
-                n = n + (p.w > 0).sum(dtype=torch.int32)
+            n = census(sp, device=dev).live.reshape(())
         live.append(move(n, dev0))
     n_sp = len(deck.species)
     return StepDiag(
@@ -235,8 +235,9 @@ def advance_shards(deck: Deck, mesh: Mesh, modes, species, ftiles, origins,
                     a + b for a, b in zip(js_sum, js))
                 ps.append(pnew)
                 dsp = disp if dsp is None else torch.maximum(dsp, disp)
-                ke.append(kinetic_energy(pnew, spec.mass))
-                mom.append(momentum_sum(pnew, spec.mass))
+                k, m = moments(pnew, spec.mass)
+                ke.append(k)
+                mom.append(m)
         pushed.append(ps)
         jwin.append(js_sum)
         kes.append(ke)

@@ -65,15 +65,13 @@ from .core.state import (
     FieldState,
     ParticleState,
     SimState,
-    field_energy,
-    kinetic_energy,
-    momentum_sum,
 )
 from .fields.boundary import apply_damping, damping_mask
 from .fields.halo import fold_block_periodic, pad_fields_periodic
 from .fields.tiles import extract_field_tiles, fold_tiles
 from .fields.yee import update_b_half_periodic, update_e_full_periodic
 from .ops.advance import fused_push_deposit, live_watermark, resolve_mode
+from .ops.diag import census, moments
 from .particles import species as species_mod
 from .particles.binning import rebin, rebin_auto, wrap_positions
 from .particles.species import load_species, mix_seed
@@ -127,28 +125,17 @@ class StepDiag(NamedTuple):
     overflow: torch.Tensor  # int32: particles dropped at re-bin
     momentum: torch.Tensor  # [n_species, 3] float64
     shard_live: torch.Tensor  # [1] live particles, all species
-    weight_nonuniform: torch.Tensor  # int32: int8 species with uneven w
+    weight_nonuniform: torch.Tensor  # int32: checked species, uneven w
     rebinned: bool  # host: this step re-binned (overflow is 0 otherwise)
 
 
-def int8_weight_violations(deck: Deck, species_states,
-                           device=None) -> torch.Tensor:
-    """Count int8-engaged species whose LIVE weights are not uniform: the
-    int8 deposit scales jx/jy by q*max(w), right only for uniform w."""
-    dev = species_states[0].w.device if species_states else device
-    bad = torch.zeros((), dtype=torch.int32, device=dev)
-    if deck.deposit != "int8":
-        return bad
-    for spec, p in zip(deck.species, species_states):
-        if not spec.uniform_weights():
-            continue
-        wmax = p.w.max()
-        inf = torch.full_like(p.w, float("inf"))
-        wmin = torch.where(p.w > 0, p.w, inf).min()
-        bad = bad + ((wmin != wmax) & torch.isfinite(wmin)).to(torch.int32)
-    return bad
-
-
+def weight_checks(deck: Deck) -> Tuple[bool, ...]:
+    """Per species, whether the step's census counts it when its LIVE
+    weights are not uniform (``StepDiag.weight_nonuniform``): the int8
+    deposit scales jx/jy by q*max(w), right only for uniform w, so a
+    species the int8 deposit takes by its uniform weights is checked."""
+    return tuple(deck.deposit == "int8" and spec.uniform_weights()
+                 for spec in deck.species)
 
 
 def tile_origins(tiling, device, row0: int = 0, col0: int = 0,
@@ -353,6 +340,8 @@ def build_step(deck: Deck, device: torch.device):
         (deck.rebin_interval + 1) * deck.cfl_step_cells()
         <= deck.guard - deck.shape_reach())
     modes = deposit_modes(deck)
+    checks = weight_checks(deck)
+    n_sp = len(deck.species)
 
     def to_global(t):
         tr = t.reshape(tiling.tile_rows, tiling.tile_cols,
@@ -372,14 +361,18 @@ def build_step(deck: Deck, device: torch.device):
             shift_now = bool(window_shift_now(n_step, w0, dt, tiling.tile_nx,
                                               dx))
 
-        pushed, kes, moms, disps = [], [], [], []
+        pushed, disps = [], []
+        # The moments kernel writes each species' row in place.
+        kes = torch.empty(n_sp, dtype=torch.float64, device=dev)
+        moms = torch.empty((n_sp, 3), dtype=torch.float64, device=dev)
         jsum = None
         if deck.species:
             with span("minipic.fields"), span("fields.tiles"):
                 ftiles = extract_field_tiles(
                     pad_fields_periodic(f, g), tiling.tile_rows,
                     tiling.tile_cols, tiling.tile_ny, tiling.tile_nx, g)
-        for spec, mode, p in zip(deck.species, modes, state.species):
+        for i, (spec, mode, p) in enumerate(zip(deck.species, modes,
+                                                state.species)):
             with span("minipic.advance"):
                 pnew, js, disp = advance_species_tiles(
                     p, ftiles, qm=spec.charge / spec.mass, q=spec.charge,
@@ -391,8 +384,7 @@ def build_step(deck: Deck, device: torch.device):
             pushed.append(pnew)
             disps.append(disp)
             with span("minipic.diag"):
-                kes.append(kinetic_energy(pnew, spec.mass))
-                moms.append(momentum_sum(pnew, spec.mass))
+                moments(pnew, spec.mass, (kes[i], moms[i]))
 
         with span("minipic.fields"):
             with span("fields.fold"):
@@ -466,18 +458,14 @@ def build_step(deck: Deck, device: torch.device):
             drift_now = (pending_total > 0).to(torch.float32)
 
         with span("minipic.diag"):
-            live = torch.zeros((), dtype=torch.int32, device=dev)
-            for p in binned:
-                live = live + (p.w > 0).sum(dtype=torch.int32)
+            c = census(binned, checks, f, dx, dy, dev)
             diag = StepDiag(
-                field_energy=field_energy(f, dx, dy),
-                kinetic_energy=(torch.stack(kes) if kes else torch.zeros(
-                    0, dtype=torch.float64, device=dev)),
+                field_energy=c.field_energy,
+                kinetic_energy=kes,
                 overflow=overflow,
-                momentum=(torch.stack(moms) if moms else torch.zeros(
-                    (0, 3), dtype=torch.float64, device=dev)),
-                shard_live=live.reshape(1),
-                weight_nonuniform=int8_weight_violations(deck, binned, dev),
+                momentum=moms,
+                shard_live=c.live,
+                weight_nonuniform=c.nonuniform,
                 rebinned=do_rebin,
             )
         new_state = SimState(fields=f, species=tuple(binned),

@@ -206,3 +206,40 @@ def sum_warp_windows(adds, nyg: int, nxg: int, win_warps: int, dtype):
     for k in range(1, nsets):
         out = out + sets[k]
     return out
+
+
+def diag_species(num_tiles: int, cap: int, *, live: float = 0.6,
+                 layout: str = "tails", weight: float = 0.004,
+                 uneven: bool = False, dtype=torch.float32, seed: int = 0,
+                 device="cpu"):
+    """A species' buckets for the diagnostics, made on `device` from
+    `seed`: thermal momenta (0.05) in EVERY slot, dead ones too, and weight
+    `weight` in the live slots (`uneven`: each live weight times
+    1 + U(0, 0.5)).  `layout`: "tails" puts each bucket's first `live`
+    share live and the rest dead, as a re-bin leaves them; "holes" makes
+    each slot live with probability `live`; "dead" kills every slot."""
+    from .core.state import ParticleState
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (num_tiles, cap)
+
+    def rnd():
+        return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+    mom = [torch.randn(shape, generator=gen, dtype=dtype, device=device)
+           * 0.05 for _ in range(3)]
+    slot = torch.arange(cap, device=device)[None, :]
+    if layout == "tails":
+        alive = (slot < round(live * cap)).expand(shape)
+    elif layout == "holes":
+        alive = rnd() < live
+    elif layout == "dead":
+        alive = torch.zeros(shape, dtype=torch.bool, device=device)
+    else:
+        raise ValueError(f"layout {layout!r}")
+    w = torch.full(shape, weight, dtype=dtype, device=device)
+    if uneven:
+        w = w * (1.0 + 0.5 * rnd())
+    w = torch.where(alive, w, torch.zeros_like(w))
+    pos = [rnd() * 8 for _ in range(2)]
+    return ParticleState(*pos, *mom, w)

@@ -1181,3 +1181,148 @@ def test_every_sync_of_the_step_is_a_counted_read(cuda, deck):
     assert len(syncs) == counters["host_reads"], (where, counters)
     assert counters["host_reads.overflow"] == rebins >= 1
     assert counters["host_reads.census"] >= 2 * len(sim.state.species)
+
+
+# ----------------------------------------------------------------------
+# The diagnostics kernels (csrc/diag.cu) against their plain versions: the
+# same float64 terms summed in another order, so 1e-12 of the sum of the
+# terms' magnitudes; counts and flags exact; two launches bit-equal.
+
+_DIAG_LAYOUTS = {
+    # (tiles, capacity, layout, offset): offset 1 starts every channel one
+    # element into its buffer, off the 16-byte vectors.
+    "tails": (64, 4096, "tails", 0),
+    "holes": (64, 4096, "holes", 0),
+    "dead": (16, 1024, "dead", 0),
+    "ragged": (3, 1021, "holes", 0),
+    "unaligned": (7, 999, "tails", 1),
+}
+
+
+def _diag_case(dev, layout, dtype, seed=0, uneven=False):
+    from minipic_torch.testing import diag_species
+
+    T, cap, lay, off = _DIAG_LAYOUTS[layout]
+    p = diag_species(T, cap, layout=lay, uneven=uneven, dtype=dtype,
+                     seed=seed, device=dev)
+    if off:
+        p = ParticleState(*(torch.cat([torch.zeros(off, dtype=dtype,
+                                                   device=dev),
+                                       a.reshape(-1)])[off:].reshape(T, cap)
+                            for a in p))
+        assert p.w.data_ptr() % 16 != 0
+    return p
+
+
+def _within(got, want, scale, what):
+    err = (got - want).abs()
+    assert bool((err <= 1e-12 * scale).all()), (what, got, want, scale)
+
+
+@pytest.mark.parametrize("layout", list(_DIAG_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_moments_kernel_matches_plain(cuda, dtype, layout):
+    from minipic_torch.core.state import (kinetic_energy_plain,
+                                          momentum_sum_plain)
+    from minipic_torch.ops.diag import moments, moments_kernel
+
+    p = _diag_case(cuda, layout, dtype, seed=3)
+    mass = 1836.0
+    n0 = moments_kernel.launches
+    ke, mom = moments(p, mass)
+    ke2, mom2 = moments(p, mass)
+    assert moments_kernel.launches == n0 + 2
+    want_ke, want_mom = kinetic_energy_plain(p, mass), momentum_sum_plain(
+        p, mass)
+    torch.cuda.synchronize()
+    assert ke.dtype == mom.dtype == torch.float64 and mom.shape == (3,)
+    # No atomics: the same bits every launch.
+    assert torch.equal(ke, ke2) and torch.equal(mom, mom2)
+    w = p.w.double() * mass
+    scale = torch.stack([(w * a.double()).abs().sum()
+                         for a in (p.px, p.py, p.pz)])
+    _within(ke, want_ke, want_ke.abs(), "kinetic")
+    _within(mom, want_mom, scale, "momentum")
+    if layout == "dead":
+        assert float(ke) == 0.0 and not bool(mom.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_census_kernel_matches_plain(cuda, dtype):
+    from minipic_torch.core.state import FieldState
+    from minipic_torch.ops.diag import census, census_kernel, census_plain
+
+    for checks, specs in [((True, True), [("tails", False), ("holes", False)]),
+                          ((True, True), [("holes", False), ("tails", True)]),
+                          ((False, True), [("ragged", True), ("dead", False)]),
+                          ((True,), [("unaligned", True)])]:
+        states = [_diag_case(cuda, lay, dtype, seed=7 + i, uneven=u)
+                  for i, (lay, u) in enumerate(specs)]
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        f = FieldState(*(torch.randn((64, 96), generator=gen, device=cuda,
+                                     dtype=dtype) for _ in range(6)))
+        n0 = census_kernel.launches
+        got = census(states, checks, f, 0.1, 0.2, cuda)
+        again = census(states, checks, f, 0.1, 0.2, cuda)
+        assert census_kernel.launches == n0 + 2
+        want = census_plain(states, checks, f, 0.1, 0.2, cuda)
+        torch.cuda.synchronize()
+        assert got.live.dtype == torch.int32 and got.live.shape == (1,)
+        assert got.nonuniform.dtype == torch.int32
+        assert torch.equal(got.live, want.live), checks
+        assert torch.equal(got.nonuniform, want.nonuniform), checks
+        _within(got.field_energy, want.field_energy, want.field_energy,
+                "field energy")
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        # A shard's interior: strided rows.
+        inner = FieldState(*(a[3:-3, 4:-4] for a in f))
+        fe = census((), (), inner, 0.1, 0.2, cuda).field_energy
+        want_fe = census_plain((), (), inner, 0.1, 0.2, cuda).field_energy
+        _within(fe, want_fe, want_fe, "interior field energy")
+        # No species: a live count of 0 on the device asked for.
+        none = census((), device=cuda)
+        assert int(none.live) == 0 and int(none.nonuniform) == 0
+
+
+def test_census_flags_a_nonuniform_int8_species(cuda):
+    from minipic_torch.ops.diag import census
+
+    uniform = _diag_case(cuda, "tails", torch.float32, seed=1)
+    uneven = _diag_case(cuda, "holes", torch.float32, seed=2, uneven=True)
+    assert int(census([uniform], (True,)).nonuniform) == 0
+    assert int(census([uneven], (True,)).nonuniform) == 1
+    assert int(census([uneven, uniform], (False, True)).nonuniform) == 0
+    assert int(census([uniform, uneven], (True, True)).nonuniform) == 1
+
+
+@pytest.mark.parametrize("deck", ["headline", "laser_plasma"])
+def test_step_launches_the_diagnostics_kernels(cuda, deck):
+    """Simulation.run_step on the card: one moments launch per species and
+    one census a step, and the diagnostics those kernels return within
+    1e-12 of the plain versions on the same states."""
+    from minipic_torch.core.state import field_energy_plain
+    from minipic_torch.decks import standard
+    from minipic_torch.headline import headline_deck
+    from minipic_torch.ops.diag import census_kernel, moments_kernel
+    from minipic_torch.simulation import Simulation
+
+    if deck == "headline":
+        sim = Simulation(headline_deck(grid=64), device=cuda)
+    else:
+        sim = standard.make("laser_plasma", nx=64, ny=64,
+                            ppc=2).simulation(device=cuda)
+    n_sp = len(sim.deck.species)
+    sim.run_step(1)
+    m0, c0 = moments_kernel.launches, census_kernel.launches
+    steps = 6
+    for i in range(2, 2 + steps):
+        d = sim.run_step(i)
+    assert moments_kernel.launches - m0 == n_sp * steps
+    assert census_kernel.launches - c0 == steps
+    st = sim.state
+    want = field_energy_plain(st.fields, sim.deck.dx, sim.deck.dy)
+    _within(d.field_energy, want, want, "field energy")
+    live = sum(int((p.w > 0).sum()) for p in st.species)
+    assert int(d.shard_live[0]) == live
+    assert int(d.weight_nonuniform) == 0

@@ -11,10 +11,17 @@ Everything a cell is sits in files that the harness finds by name:
 * ``metrics/<name>.py``: one reader a metric (``metrics/__init__.py``).
 
 The program is driven only through ``minipic_torch``'s ``Deck``,
-``SpeciesSpec`` and ``Simulation`` (``run_step``, the path of the command
-line and ``Simulation.run``).  The inputs are the benchmark's own
-(``inputs.py``); the reference (``reference/``) imports nothing of the
-program.
+``SpeciesSpec`` and its simulations' ``run_step`` (the path of the command
+line and of ``run``): ``Simulation`` on one device, or, as the workload's
+``layout`` says, the mesh simulations ``ShardedSimulation`` (block
+placement) and ``BalancedSimulation`` (striped placement) with their shards
+round-robin over the cell's cards.  The harness holds every state it makes
+or judges in natural tile order (bucket t is tile t, row-major); a mesh
+simulation keeps its buckets in its storage order
+(``storage_permutation()``), so the inputs go in through that permutation
+and what the check reads comes out through it.  The inputs are the
+benchmark's own (``inputs.py``); the reference (``reference/``) imports
+nothing of the program.
 """
 from __future__ import annotations
 
@@ -40,6 +47,10 @@ BENCHMARK = ROOT.parent / "BENCHMARK.json"
 # Steps after the window within which a check waits for a natural re-bin
 # before it forces one.
 _REBIN_WAIT = 100
+# The workload's ``layout``: the program's simulation that runs the deck.
+LAYOUTS = ("single", "sharded", "balanced")
+# The type of a deck's stated precision.
+PRECISION = {"f32": torch.float32, "f64": torch.float64}
 
 
 def load_json(path: Path) -> dict:
@@ -71,8 +82,30 @@ def build_deck(deck: dict):
                     density=inputs.density_profile(sp.get("density")))
         for sp in deck["species"])
     fields = {f.name for f in dataclasses.fields(Deck)}
-    kw = {k: v for k, v in deck.items() if k in fields and k != "species"}
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in deck.items() if k in fields and k != "species"}
     return Deck(species=species, **kw)
+
+
+def cell_chips(bench: dict, cell: str) -> int:
+    """The cards cell `cell` asks for in BENCHMARK.json (1 where it has no
+    entry there)."""
+    for w in bench["workloads"]:
+        if w["name"] == cell:
+            return int(w["chips"])
+    return 1
+
+
+def mesh_devices(deck, device: torch.device, chips: int) -> list:
+    """The devices of a mesh simulation's shards: the deck's ``mesh_shape``
+    shards round-robin over cards 0..chips-1, or all on `device` when it is
+    not a card."""
+    if deck.mesh_shape is None:
+        raise ValueError("a mesh layout needs the deck's mesh_shape")
+    n = deck.mesh_shape[0] * deck.mesh_shape[1]
+    if device.type != "cuda":
+        return [device] * n
+    return [torch.device("cuda", s % chips) for s in range(n)]
 
 
 @dataclasses.dataclass
@@ -117,10 +150,15 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> List[dict]:
 
 
 class Sim:
-    """The program's simulation with the cell's inputs and its restart."""
+    """The program's simulation with the cell's inputs and its restart.
+
+    ``held()`` is the program's state as it holds it (no copy): the
+    ``SimState`` of ``Simulation``, or the per-shard ``shard_state`` of a
+    mesh simulation, in its storage order.  ``natural(state)`` reads such a
+    state, or one the harness made, in natural tile order."""
 
     def __init__(self, deck: dict, config: dict, workload: dict, seed: int,
-                 device):
+                 device, chips: int = 1):
         from minipic_torch.core.state import (FieldState, ParticleState,
                                               SimState)
         from minipic_torch.simulation import Simulation
@@ -131,28 +169,51 @@ class Sim:
         self.device = torch.device(device)
         if workload["entry"] != "run_step":
             raise ValueError(f"entry {workload['entry']!r}: the harness "
-                             "drives Simulation.run_step")
+                             "drives the simulation's run_step")
+        layout = workload.get("layout", "single")
+        if layout not in LAYOUTS:
+            raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
         pdeck = build_deck(deck)
         self.total_steps = pdeck.total_steps
-        sim = Simulation(pdeck, seed=0, device=self.device)
-        self.capacities = [p.capacity for p in sim.state.species]
+        self._types = FieldState, ParticleState, SimState
         # The program loads its own particles; the cell's are the
         # benchmark's, made from the seed.
-        sim.state = sim.state._replace(species=())
+        if layout == "single":
+            sim = Simulation(pdeck, seed=0, device=self.device)
+            self.devices = [self.device]
+            self.perm = None
+            self.capacities = [p.capacity for p in sim.state.species]
+            self._window_x0 = sim.state.window_x0
+            sim.state = sim.state._replace(species=())
+        else:
+            from minipic_torch.parallel.balanced import BalancedSimulation
+            from minipic_torch.parallel.step import ShardedSimulation
+
+            cls = (ShardedSimulation if layout == "sharded"
+                   else BalancedSimulation)
+            sim = cls(pdeck, seed=0,
+                      devices=mesh_devices(pdeck, self.device, chips))
+            self.devices = sim.mesh.distinct()
+            # perm[storage row] = natural tile id
+            self.perm = torch.as_tensor(sim.storage_permutation(),
+                                        device=self.device)
+            st = sim.shard_state
+            self.capacities = [p.capacity for p in st.species[0]]
+            self._window_x0 = None
+            sim.shard_state = st._replace(species=[() for _ in st.species])
+            st = None
         self.sim = sim
-        self._window_x0 = sim.state.window_x0
-        self._types = FieldState, ParticleState, SimState
         self.periodic = ref_step.geometry(deck).periodic
         initial = self.make_initial(config)
         self.n_inputs = sum(int((p.w > 0).sum()) for p in initial.species)
         # overflow_total when the state was last set to the inputs
         self.ovf_base = 0
+        initial = self.to_storage(initial)
         self.initial = initial if workload["restart"] == "deck" else None
         sim.state = initial
 
     def make_initial(self, config: dict):
-        dtype = torch.float64 if self.deck["precision"] == "f64" \
-            else torch.float32
+        dtype = PRECISION[self.deck["precision"]]
         field_t, particle_t, state_t = self._types
         gen = inputs.seeded_generator(self.seed, self.device)
         species = tuple(
@@ -167,18 +228,68 @@ class Sim:
             drift=torch.zeros((), dtype=torch.float32, device=self.device),
             window_x0=self._window_x0)
 
+    def to_storage(self, state):
+        """A state made in natural tile order, its buckets put in the
+        simulation's storage order."""
+        if self.perm is None:
+            return state
+        return state._replace(species=tuple(
+            self._types[1](*(a.index_select(0, self.perm) for a in p))
+            for p in state.species))
+
+    def held(self):
+        """The program's state as it holds it (no copy)."""
+        return self.sim.state if self.perm is None else self.sim.shard_state
+
+    def hold(self, state) -> None:
+        """Set the program's state as it holds it (``held``'s form)."""
+        if self.perm is None:
+            self.sim.state = state
+        else:
+            self.sim.shard_state = state
+
+    def natural(self, state):
+        """(each species' live particles as ``reference.step.Flat`` with the
+        natural id of the tile each sits in, the six global fields, the
+        accumulated drift) of a state the harness made (a ``SimState`` in
+        natural order) or one the program held (``held()``)."""
+        if not isinstance(state, self._types[2]):
+            # The mesh's own global view, in storage order, on its first
+            # device: the buckets' rows map back through the permutation.
+            now = self.sim.shard_state
+            self.sim.shard_state = state
+            try:
+                state = self.sim.state
+            finally:
+                self.sim.shard_state = now
+            species = tuple(
+                f._replace(tile=self.perm[f.tile])
+                for f in (ref_step.flatten(tuple(p)) for p in state.species))
+        else:
+            species = tuple(ref_step.flatten(tuple(p))
+                            for p in state.species)
+        return species, tuple(state.fields), float(state.drift)
+
+    def live_counts(self) -> List[float]:
+        """Each species' live particles now, over every shard."""
+        shards = ([self.sim.state.species] if self.perm is None
+                  else self.sim.shard_state.species)
+        return [float(sum(int((sp[i].w > 0).sum()) for sp in shards))
+                for i in range(len(shards[0]))]
+
     def restart(self, state=None) -> None:
-        """Back to the initial state (kept, or `state`), with the capacity
-        policy's memory cleared as a new ``Simulation`` has it.  The program
-        offers no public reset: its managers sit in ``_capmgrs``, and the
-        restart fails rather than set an attribute the program no longer
-        reads."""
+        """Back to the initial state (kept, or `state`, made in natural
+        order), with the capacity policy's memory cleared as a new
+        simulation has it.  The program offers no public reset: its
+        managers sit in ``_capmgrs``, and the restart fails rather than set
+        an attribute the program no longer reads."""
         with record_function("portbench.restart"):
             if not hasattr(self.sim, "_capmgrs"):
                 raise AttributeError(
-                    "Simulation._capmgrs is gone: the restart cannot clear "
-                    "the capacity policy")
-            self.sim.state = self.initial if state is None else state
+                    "the simulation's _capmgrs is gone: the restart cannot "
+                    "clear the capacity policy")
+            self.sim.state = (self.initial if state is None
+                              else self.to_storage(state))
             self.sim._capmgrs = None
             self.ovf_base = self.sim.overflow_total
 
@@ -192,21 +303,25 @@ class Sim:
             return self.sim.run_step(i)
 
     def force_rebin(self) -> None:
-        st = self.sim.state
-        self.sim.state = st._replace(
-            drift=torch.full_like(st.drift, float("inf")))
+        st = self.held()
+        self.hold(st._replace(drift=torch.full_like(st.drift, float("inf"))))
 
+    def sync(self) -> None:
+        """Wait for every card the simulation uses."""
+        for d in self.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+    def peak_bytes(self) -> int:
+        """``max_memory_allocated`` of the fullest card used."""
+        return max(torch.cuda.max_memory_allocated(d) for d in self.devices)
 
 
 class Judged(NamedTuple):
     """A step the check judges."""
 
-    prev: object  # the state the reference steps from
-    cur: object  # the program's state after the step
+    prev: object  # the state the reference steps from (``Sim.natural``)
+    cur: object  # the program's state after the step, as it held it
     diag: object  # the program's StepDiag of the step
     relaid: bool  # the capacity policy changed the buckets after the step
 
@@ -244,7 +359,7 @@ def drive(sim: Sim, seconds: float, i: int, on_step=None,
             marks.append((time.perf_counter(), time.thread_time()))
             sim.restart()
             i = 1
-        prev, changes = sim.sim.state, sim.sim.capacity_changes
+        prev, changes = sim.held(), sim.sim.capacity_changes
         diag = sim.step(i)
         lives.append(diag.shard_live)
         if sim.periodic:
@@ -253,7 +368,7 @@ def drive(sim: Sim, seconds: float, i: int, on_step=None,
         rebins += diag.rebinned
         if n >= min_steps and time.perf_counter() - t0 >= seconds:
             break
-    _sync(sim.device)
+    sim.sync()
     wall = time.perf_counter() - t0
     live = float(torch.cat(lives).sum())
     passes = " ".join(
@@ -263,7 +378,7 @@ def drive(sim: Sim, seconds: float, i: int, on_step=None,
           f"changes {sim.sim.capacity_changes}"
           + (f", ms/step of each whole deck (host thread's CPU ms/step) "
              f"{passes}" if passes else ""), file=sys.stderr)
-    last = Judged(prev, sim.sim.state, diag,
+    last = Judged(prev, sim.held(), diag,
                   sim.sim.capacity_changes != changes)
     return Window(n, wall, live, abs(live - expect) if sim.periodic else None,
                   last, i)
@@ -281,29 +396,31 @@ def warm_up(sim: Sim) -> int:
     if sim.workload["restart"] == "deck":
         sim.restart()
         steps = 0
-    _sync(sim.device)
+    sim.sync()
     return steps
 
 
-def produced(state, diag, relaid: bool) -> cmp.Produced:
+def produced(sim: Sim, state, diag, relaid: bool) -> cmp.Produced:
     """The program's step as the judged side."""
-    species = tuple(ref_step.flatten(tuple(p)) for p in state.species)
+    species, fields, drift = sim.natural(state)
     return cmp.Produced(
-        species=species, fields=tuple(state.fields),
+        species=species, fields=fields,
         field_energy=float(diag.field_energy),
         kinetic=tuple(float(v) for v in diag.kinetic_energy),
         momentum=tuple(tuple(float(v) for v in m) for m in diag.momentum),
         live=int(diag.shard_live.sum()),
         overflow=int(diag.overflow) if diag.rebinned else 0,
-        rebinned=bool(diag.rebinned), drift=float(state.drift),
-        relaid=relaid)
+        rebinned=bool(diag.rebinned), drift=drift, relaid=relaid)
 
 
-def reference_of(prev, deck: dict, dtype=torch.float32) -> ref_step.Result:
-    """The reference's step from state `prev`."""
-    species = tuple(ref_step.flatten(tuple(p)) for p in prev.species)
-    return ref_step.step(species, tuple(prev.fields), float(prev.drift),
-                         deck, cmp.expected_modes(deck), dtype=dtype)
+def reference_of(sim: Sim, prev, deck: dict,
+                 dtype=None) -> ref_step.Result:
+    """The reference's step from state `prev`, in the deck's precision
+    (`dtype`: another)."""
+    dtype = PRECISION[deck["precision"]] if dtype is None else dtype
+    species, fields, drift = sim.natural(prev)
+    return ref_step.step(species, fields, drift, deck,
+                         cmp.expected_modes(deck), dtype=dtype)
 
 
 def judged_steps(sim: Sim, last: Judged, next_i: int, config: dict):
@@ -331,9 +448,9 @@ def judged_steps(sim: Sim, last: Judged, next_i: int, config: dict):
         if restart and i > sim.total_steps:
             sim.restart()
             i = 1
-        changes, prev = sim.sim.capacity_changes, sim.sim.state
+        changes, prev = sim.sim.capacity_changes, sim.held()
         diag = sim.step(i)
-        return Judged(prev, sim.sim.state, diag,
+        return Judged(prev, sim.held(), diag,
                       sim.sim.capacity_changes != changes)
 
     for kind in sim.workload["judge"]:
@@ -357,7 +474,7 @@ def judged_steps(sim: Sim, last: Judged, next_i: int, config: dict):
                 print(f"check: no capacity change in {sim.total_steps + 1} "
                       "steps", file=sys.stderr)
         elif kind == "start":
-            sim.sim.state = None  # freed before the inputs are made again
+            sim.hold(None)  # freed before the inputs are made again
             sim.restart(None if restart else sim.make_initial(config))
             i = 0
             rec = one()
@@ -385,14 +502,15 @@ def step_readings(sim: Sim, last: Judged, next_i: int, config: dict,
     deck = sim.deck
     geo = ref_step.geometry(deck)
     for rec in judged_steps(sim, last, next_i, config):
-        ref = reference_of(rec.prev, deck)
+        ref = reference_of(sim, rec.prev, deck)
         out = {}
         for side in sides:
             if side == "control":
                 prod = cmp.from_result(reference_of(
-                    rec.prev, deck, CONTROL_DTYPE[deck["precision"]]), geo)
+                    sim, rec.prev, deck, CONTROL_DTYPE[deck["precision"]]),
+                    geo)
             else:
-                prod = produced(rec.cur, rec.diag, rec.relaid)
+                prod = produced(sim, rec.cur, rec.diag, rec.relaid)
             out[side] = cmp.compare(prod, ref, deck)
             prod = None
         rec = ref = None
@@ -432,7 +550,7 @@ def run_cell(cell: str, workload: dict, config: dict, seed: int,
     deck = deck_dict(config, workload)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    sim = Sim(deck, config, workload, seed, dev)
+    sim = Sim(deck, config, workload, seed, dev, cell_chips(bench, cell))
     if hook is not None:
         hook(sim.sim)
     i = warm_up(sim)
@@ -445,7 +563,7 @@ def run_cell(cell: str, workload: dict, config: dict, seed: int,
     ctx.steps, ctx.wall_s, ctx.live_sum = (window.steps, window.wall_s,
                                            window.live_sum)
     if on_card:
-        ctx.peak_bytes = torch.cuda.max_memory_allocated(dev)
+        ctx.peak_bytes = sim.peak_bytes()
     metrics = read_metrics(cell_metrics(bench, cell, trace), ctx)
     t0 = time.perf_counter()
     correct, checks, judged, failed = check(
@@ -455,10 +573,12 @@ def run_cell(cell: str, workload: dict, config: dict, seed: int,
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     result = {
         "correct": correct, "attempted": judged, "failed": failed,
-        "metrics": metrics, "device": device_info(dev, ctx)}
+        "metrics": metrics, "device": device_info(dev, ctx, len(sim.devices))}
     if ctx.trace is not None:
         result["device"]["busy_s"] = ctx.trace.busy_us / 1e6
         result["device"]["window_s"] = ctx.trace.wall_us / 1e6
+        result["device"]["busy_s_by_card"] = [
+            us / 1e6 for _, us in ctx.trace.busy_by_card]
         result["breakdown"] = breakdown(ctx.trace)
     result["checks"] = checks
     return result
@@ -488,25 +608,26 @@ def _traced_window(sim: Sim, seconds: float, i: int, dev,
 
     def on_step(k):
         if k == first + n:
-            _sync(dev)
+            sim.sync()
             wall["traced"] = time.perf_counter() - wall["traced"]
             prof.stop()
-            live_end.extend(float((p.w > 0).sum())
-                            for p in sim.sim.state.species)
+            live_end.extend(sim.live_counts())
         if k == again + n:
-            _sync(dev)
+            sim.sync()
             wall["again"] = time.perf_counter() - wall["again"]
         if k == first:
-            _sync(dev)
+            sim.sync()
             prof.start()
             wall["traced"] = time.perf_counter()
         if k == again:
-            _sync(dev)
+            sim.sync()
             wall["again"] = time.perf_counter()
 
     window = drive(sim, seconds, i, on_step=on_step,
                    min_steps=max(first + n, again + n) + 1)
-    ctx.trace = summarize(events_of(prof), n, wall["traced"] * 1e6)
+    ctx.trace = summarize(events_of(prof), n, wall["traced"] * 1e6,
+                          cards=[d.index or 0 for d in sim.devices
+                                 if d.type == "cuda"])
     ctx.timed_wall_us = wall["again"] * 1e6
     total_end = sum(live_end) or 1.0
     mean_live = window.live_sum / window.steps
@@ -523,9 +644,11 @@ def _traced_window(sim: Sim, seconds: float, i: int, dev,
     return window
 
 
-def device_info(dev: torch.device, ctx: RunContext) -> dict:
+def device_info(dev: torch.device, ctx: RunContext, count: int) -> dict:
+    """The result's ``device``: `count` is the cards the run used,
+    ``memory_peak_bytes`` the peak of the fullest."""
     if dev.type == "cuda":
         return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-                "count": 1, "memory_peak_bytes": int(ctx.peak_bytes or 0)}
+                "count": count, "memory_peak_bytes": int(ctx.peak_bytes or 0)}
     return {"platform": "cpu", "kind": "cpu", "count": 1,
             "memory_peak_bytes": 0}

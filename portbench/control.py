@@ -27,7 +27,8 @@ def readings(name: str, seed: int, seconds: float, device,
     if workload is None:
         workload, config = cell.cell_files(name)
     deck = cell.deck_dict(config, workload)
-    sim = cell.Sim(deck, config, workload, seed, device)
+    sim = cell.Sim(deck, config, workload, seed, device, cell.cell_chips(
+        cell.load_json(cell.BENCHMARK), name))
     i = cell.warm_up(sim)
     window = cell.drive(sim, seconds, i)
     last, next_i = window.last, window.next_i

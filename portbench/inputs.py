@@ -2,16 +2,24 @@
 tile-bucket layout the program takes, and the initial fields.
 
 A frozen copy of the port's quiet-start loader (``_load_buckets`` of
-``minipic_torch/particles/species.py``, its weight mode) and of the laser
-init (``gaussian_laser_x`` of ``minipic_torch/fields/init.py``), with the
-density profiles that configuration files name.  It imports nothing of the
-program: the program and the reference are handed the same tensors.
+``minipic_torch/particles/species.py``, its weight and count modes) and of
+the laser init (``gaussian_laser_x`` of ``minipic_torch/fields/init.py``),
+with the density profiles that configuration files name.  It imports
+nothing of the program: the program and the reference are handed the same
+tensors.
 
 * Positions: ``ppc`` particles a cell on the lattice (i + (m+1/2)/ppc_x,
   j + (n+1/2)/ppc_y), in global cell units, tile by tile.
-* Weights: w = n dx dy / ppc, n the species' density profile (1 without).
+* Weights (``load_mode`` "weight"): w = n dx dy / ppc, n the species'
+  density profile (1 without).
+* Weights (``load_mode`` "count", with a profile): one weight n_max dx dy /
+  ppc (n_max the species' ``n_max``, else the profile's largest value), a
+  particle kept where its sub-cell rank (m ppc_x + l + 1/2) / ppc is below
+  n / n_max, so the live count a cell follows the profile; each bucket is
+  then live-compacted (live slots first, in load order).
 * Momenta: drift + per-axis Gaussian spread, drawn on the device from one
-  ``torch.Generator`` seeded with the run's seed, one call an axis.
+  ``torch.Generator`` seeded with the run's seed, one call an axis, for
+  every lattice slot before the compaction.
 """
 from __future__ import annotations
 
@@ -34,7 +42,17 @@ def _tanh_ramp(n0: float, x0: float, width: float) -> Callable:
     return density
 
 
-PROFILES: Dict[str, Callable[..., Callable]] = {"tanh_ramp": _tanh_ramp}
+def _gaussian_blob(base: float, amp: float, x0: float, y0: float,
+                   radius: float) -> Callable:
+    """base + amp exp(-((x - x0)^2 + (y - y0)^2) / radius^2)."""
+    def density(x, y):
+        r2 = ((x - x0) ** 2 + (y - y0) ** 2) / (radius ** 2)
+        return base + amp * torch.exp(-r2)
+    return density
+
+
+PROFILES: Dict[str, Callable[..., Callable]] = {
+    "tanh_ramp": _tanh_ramp, "gaussian_blob": _gaussian_blob}
 
 
 def density_profile(spec: Optional[dict]) -> Optional[Callable]:
@@ -92,7 +110,15 @@ def load_species(sp: dict, deck: dict, capacity: int,
     else:
         n = torch.as_tensor(density(x * dx, y * dy), dtype=dtype,
                             device=device)
-    w = n * (dx * dy / ppc)
+    count = sp.get("load_mode", "weight") == "count" and density is not None
+    if count:
+        n_max = (torch.tensor(sp["n_max"], dtype=dtype, device=device)
+                 if sp.get("n_max") is not None else n.max())
+        sub_rank = ((m * ppc_x + l).to(dtype) + 0.5) / ppc
+        keep = sub_rank[None, :] < (n / torch.clamp(n_max, min=1e-30))
+        w = torch.where(keep, n_max * (dx * dy / ppc), torch.zeros_like(n))
+    else:
+        w = n * (dx * dy / ppc)
     shape = (tiles, per_tile)
     spread = [sp.get("uth", 0.0) if sp.get(k) is None else sp[k]
               for k in ("uth_x", "uth_y", "uth_z")]
@@ -104,9 +130,14 @@ def load_species(sp: dict, deck: dict, capacity: int,
         else:
             moms.append(torch.randn(shape, generator=gen, dtype=dtype,
                                     device=device) * uth + drift)
+    chans = [x, y, *moms, w]
+    if count:
+        order = torch.sort((w <= 0).to(torch.int8), dim=1,
+                           stable=True).indices
+        chans = [torch.gather(a, 1, order) for a in chans]
     pad = capacity - per_tile
     return tuple(torch.nn.functional.pad(a.to(dtype), (0, pad))
-                 for a in (x, y, *moms, w))
+                 for a in chans)
 
 
 def _gaussian_laser_x(deck: dict, a0: float, k0: float, x_center: float,

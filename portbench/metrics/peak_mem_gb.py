@@ -1,5 +1,6 @@
 """Peak device memory over set-up and window: ``torch.cuda.
-max_memory_allocated()`` when the window closes, in 1e9 bytes."""
+max_memory_allocated()`` when the window closes, of the fullest card the
+run uses, in 1e9 bytes."""
 
 
 def read(ctx):

@@ -285,14 +285,21 @@ def judge(reading: Dict[str, float], limits: Dict[str, float]
 
 def expected_modes(deck: dict) -> Tuple[str, ...]:
     """Each species' deposit as the configuration states it: "f64" for a
-    float64 deck; "int8" where asked, every weight is equal and the tile
-    window holds the int8 deposit's layout (6 (tile_ny + 2g) <= 128,
-    2 (tile_nx + 2g) <= 128, (tile_ny + 2g) % 8 == 0); else "f32"."""
+    float64 deck; "int8" where asked, every weight is equal by the way the
+    species is loaded (no density profile, or count loading with a stated
+    n_max) and the tile window holds the int8 deposit's layout
+    (6 (tile_ny + 2g) <= 128, 2 (tile_nx + 2g) <= 128, (tile_ny + 2g) % 8
+    == 0); else "f32"."""
     if deck["precision"] == "f64":
         return tuple("f64" for _ in deck["species"])
     nyg = deck["tile_ny"] + 2 * deck["guard"]
     nxg = deck["tile_nx"] + 2 * deck["guard"]
     window = 6 * nyg <= 128 and 2 * nxg <= 128 and nyg % 8 == 0
+
+    def equal_weights(sp):
+        return sp.get("density") is None or (
+            sp.get("load_mode") == "count" and sp.get("n_max") is not None)
+
     return tuple("int8" if deck.get("deposit") == "int8" and window
-                 and sp.get("density") is None else "f32"
+                 and equal_weights(sp) else "f32"
                  for sp in deck["species"])

@@ -450,9 +450,12 @@ def step(species: Tuple[Flat, ...], fields, drift: float, deck: dict,
     moms = [momentum(p, sp["mass"]) for p, sp in zip(pushed, deck["species"])]
     if not geo.periodic:
         pushed = [kill_at_walls(p, geo) for p in pushed]
-    drift_now = (torch.tensor(drift, dtype=torch.float32, device=disp.device)
-                 + disp.to(torch.float32))
-    thr = torch.tensor(drift_threshold(deck), dtype=torch.float32)
+    # The program keeps the drift in float32 and adds each step's
+    # displacement in its own type, so a float64 deck's drift is float64.
+    dtype_drift = torch.promote_types(torch.float32, disp.dtype)
+    drift_now = (torch.tensor(drift, dtype=dtype_drift, device=disp.device)
+                 + disp.to(dtype_drift))
+    thr = torch.tensor(drift_threshold(deck), dtype=dtype_drift)
     rebinned = bool(drift_now.cpu() > thr)
     return Result(
         species=tuple(pushed), fields=fields,

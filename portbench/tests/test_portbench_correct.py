@@ -1,5 +1,6 @@
 """What decides ``correct``: sound runs of the program pass, the control
-(the reference in bfloat16 in the program's place) fails, and so does a
+(the reference in the precision below the deck's, in the program's place:
+bfloat16 for float32, float32 for float64) fails, and so does a
 run whose step is broken underneath, once for each fault a one-chip cell
 can have.  At sizes the CPU holds; the card's runs are the benchmark's."""
 from __future__ import annotations
@@ -20,7 +21,8 @@ def _run(name, small, hook=None, control_=False, seed=2 ** 31 + 5):
 
 
 @pytest.mark.parametrize("name,fixture", [
-    ("headline-int8", "headline_small"), ("laser_plasma-f32", "laser_small")])
+    ("headline-int8", "headline_small"), ("laser_plasma-f32", "laser_small"),
+    ("headline-f64", "headline_f64_small")])
 def test_sound_runs_pass_and_the_control_fails(name, fixture, request):
     small = request.getfixturevalue(fixture)
     workload, config = small
@@ -83,7 +85,8 @@ def _one_current_altered(p, pnew, js, disp):
 @pytest.mark.parametrize("fault", [
     "unchanged", "half_left_out", "momentum_altered", "current_altered"])
 @pytest.mark.parametrize("name,fixture", [
-    ("headline-int8", "headline_small"), ("laser_plasma-f32", "laser_small")])
+    ("headline-int8", "headline_small"), ("laser_plasma-f32", "laser_small"),
+    ("headline-f64", "headline_f64_small")])
 def test_a_broken_step_is_not_correct(name, fixture, fault, request,
                                       monkeypatch):
     small = request.getfixturevalue(fixture)

@@ -175,3 +175,25 @@ def test_the_idle_share_is_taken_against_the_untraced_wall():
         pytest.approx(75.0)
     assert device_idle_pct.read(NS(trace=NS(ops=(), busy_us=0.0, wall_us=1.0),
                                    timed_wall_us=1.0)) is None
+
+
+def test_busy_time_is_each_cards_union_averaged_over_the_cards():
+    """Two cards: each card's busy time is the union of its own
+    operations, ``busy_us`` their mean, the idle gaps each card's averaged;
+    the same operations read as one card's give today's single union."""
+    from portbench.trace import Event, summarize
+
+    host = [Event("portbench.step", 0.0, 100.0, False, 1, 1, 0),
+            Event("aten::add", 5.0, 6.0, False, 1, 2, 0)]
+    ops = [(10.0, 20.0, 0), (30.0, 40.0, 0), (15.0, 35.0, 1)]
+    dev = [Event("k", a, b, True, 9, 10 + i, 2, card)
+           for i, (a, b, card) in enumerate(ops)]
+    two = summarize(host + dev, 1, 100.0, cards=[0, 1])
+    assert two.busy_by_card == ((0, 20.0), (1, 20.0))
+    assert two.busy_us == 20.0
+    assert dict(two.idle_gaps) == {"portbench.step": 5.0}
+    assert [o.card for o in two.ops] == [0, 0, 1]
+    one = summarize(host + [e._replace(card=0) for e in dev], 1, 100.0,
+                    cards=[0])
+    assert one.busy_us == 30.0 and one.busy_by_card == ((0, 30.0),)
+    assert one.idle_gaps == ()

@@ -97,8 +97,8 @@ def _species_equal(a, b):
         assert fa == fb
         assert (da is None) == (db is None)
         if da is not None:
-            x = torch.linspace(0, 51.2, 1001)[None, :]
-            y = torch.linspace(0, 51.2, 7)[:, None]
+            x = torch.linspace(0, 102.4, 1001)[None, :]
+            y = torch.linspace(0, 102.4, 7)[:, None]
             assert torch.equal(da(x, y), db(x, y))
     assert len(a.species) == len(b.species)
 
@@ -116,13 +116,58 @@ def test_the_frozen_decks_equal_the_ports():
         _species_equal(got, want)
 
 
-def test_the_frozen_loader_and_laser_equal_the_ports():
-    """Same lattice, weights and fields as the port's own loader and laser
-    init (momenta come from another stream: the same seed draws them on
-    both sides of a run from the benchmark's copy)."""
+# The blob of each load_balance deck (minipic_torch/decks/standard.py) as
+# configuration files name it.
+BLOBS = {
+    "load_balance_stress": (0.1, 4.0, 51.2, 51.2, 12.0),
+    "load_balance_stress_counts": (0.1, 4.0, 51.2, 51.2, 12.0),
+    "load_balance_bunching": (0.05, 4.0, 12.8, 25.6, 8.0),
+}
+
+
+def _blob_loads_equal(name):
+    """The deck's species as configuration entries with the blob profile:
+    the same densities, and the same buckets as the port's loader (weight
+    or count mode) from the same generator state."""
     from minipic_torch.decks import standard
     from minipic_torch.particles.species import load_species
     from minipic_torch.simulation import bucket_capacity
+
+    pdeck = standard.make(name, nx=64, ny=64).deck
+    blob = dict(zip(("base", "amp", "x0", "y0", "radius"), BLOBS[name]),
+                profile="gaussian_blob")
+    deck = _deck_fields(pdeck)
+    deck["species"] = [
+        dict({f.name: getattr(s, f.name) for f in dataclasses.fields(s)},
+             density=blob) for s in pdeck.species]
+    _species_equal(cell.build_deck(deck), pdeck)
+    cap = bucket_capacity(pdeck)
+    for sp, spec in zip(deck["species"], pdeck.species):
+        ours = inputs.load_species(sp, deck, cap,
+                                   inputs.seeded_generator(7, "cpu"),
+                                   torch.float32, "cpu")
+        port = load_species(spec, pdeck.domain, pdeck.tiling, cap,
+                            torch.Generator().manual_seed(7), torch.float32,
+                            "cpu")
+        # Count loading leaves lattice slots empty; weight loading none.
+        lattice = ours[5][:, :spec.ppc * pdeck.tile_nx * pdeck.tile_ny]
+        assert bool((lattice == 0).any()) == (spec.load_mode == "count")
+        for a, b in zip(ours, port):
+            assert torch.equal(a, b)
+
+
+def test_the_frozen_loader_and_laser_equal_the_ports():
+    """Same lattice, weights and fields as the port's own loader and laser
+    init (momenta come from another stream: the same seed draws them on
+    both sides of a run from the benchmark's copy); the count mode and the
+    blob of the load_balance decks the same, momenta and all, from one
+    generator state."""
+    from minipic_torch.decks import standard
+    from minipic_torch.particles.species import load_species
+    from minipic_torch.simulation import bucket_capacity
+
+    for name in BLOBS:
+        _blob_loads_equal(name)
 
     case = standard.laser_plasma(nx=64, ny=64)
     workload, config = cell.cell_files("laser_plasma-f32")

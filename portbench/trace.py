@@ -8,10 +8,12 @@ A device operation is charged to the innermost range (``minipic.advance``,
 ``portbench.restart``) open on the host when it was launched: the profiler
 links each kernel to the host operation that launched it.  Where it does
 not, the operation is charged to the device-side span of the range that
-holds it (one stream: a range's kernels run in a row).  Busy time is the
-union of the device operations' intervals (the port's ``headline.py``
-``_busy_us``, copied); an idle gap is labelled by the innermost range and
-host operation open at its middle.
+holds it (one stream a card: a range's kernels run in a row).  Busy time
+is the union of the device operations' intervals on each card (the port's
+``headline.py`` ``_busy_us``, copied), averaged over the cards the run
+uses; an idle gap of a card is labelled by the innermost range and host
+operation open at its middle, and the gaps are averaged over the cards
+alike.  With one card every number is that card's.
 """
 from __future__ import annotations
 
@@ -35,13 +37,15 @@ class DeviceOp(NamedTuple):
     start: float  # us
     end: float
     range: str  # innermost range at launch ("" outside every range)
+    card: int = 0  # the card it ran on
 
 
 class TraceSummary(NamedTuple):
     ops: Tuple[DeviceOp, ...]
     steps: int
     wall_us: float
-    busy_us: float
+    busy_us: float  # the mean over the cards of each card's busy time
+    busy_by_card: Tuple[Tuple[int, float], ...]  # (card, busy us)
     linked_share: float  # share of device ops linked to their launch
     # share of the linked ones that the device-side range spans charge to
     # the same range
@@ -117,6 +121,7 @@ class Event(NamedTuple):
     thread: int
     id: int
     linked_id: int
+    card: int = 0  # the device index of a device event
 
 
 def events_of(prof) -> List[Event]:
@@ -131,15 +136,19 @@ def events_of(prof) -> List[Event]:
         raise RuntimeError("the profiler kept no Kineto results")
     return [Event(k.name(), k.start_ns() / 1e3, k.end_ns() / 1e3,
                   k.device_type() == cuda, k.start_thread_id(),
-                  k.correlation_id(), k.linked_correlation_id())
+                  k.correlation_id(), k.linked_correlation_id(),
+                  k.device_index())
             for k in raw.events() if k.name() != "[memory]"]
 
 
 def summarize(events: Sequence[Event], steps: int, wall_us: float,
-              host_thread: Optional[int] = None) -> TraceSummary:
+              host_thread: Optional[int] = None,
+              cards: Sequence[int] = ()) -> TraceSummary:
     """The summary of a traced window of `steps` steps, `wall_us` long.
     `host_thread`: the thread that ran the steps (default: the one that
-    opened the most ``portbench.step`` ranges)."""
+    opened the most ``portbench.step`` ranges).  `cards`: the cards the run
+    used (default: those the device events name); a device event on
+    another index is charged to the first of them."""
     host = [e for e in events if not e.on_device]
     if host_thread is None:
         counts = Counter(e.thread for e in host if e.name == "portbench.step")
@@ -147,6 +156,12 @@ def summarize(events: Sequence[Event], steps: int, wall_us: float,
     main = [e for e in host if e.thread == host_thread]
     ranges = [(e.start, e.end, e.name) for e in main if _is_range(e.name)]
     by_id = {e.id: e for e in host if e.linked_id == 0}
+    cards = list(cards) or sorted({e.card for e in events if e.on_device})
+    cards = cards or [0]
+
+    def card(e):
+        return e.card if e.card in cards else cards[0]
+
     dev = [e for e in events if e.on_device and not _is_range(e.name)]
     launched = [by_id.get(e.linked_id) if e.linked_id else None for e in dev]
     linked = [i for i, h in enumerate(launched) if h is not None]
@@ -155,28 +170,34 @@ def summarize(events: Sequence[Event], steps: int, wall_us: float,
     for i, lab in zip(linked, innermost(
             ranges, [launched[i].start for i in linked])):
         labels[i] = lab
-    dev_spans = [(e.start, e.end, e.name) for e in events
-                 if e.on_device and _is_range(e.name)]
-    by_span = innermost(dev_spans, [e.start for e in dev])
+    by_span = [""] * len(dev)
+    for c in cards:
+        mine = [i for i, e in enumerate(dev) if card(e) == c]
+        dev_spans = [(e.start, e.end, e.name) for e in events
+                     if e.on_device and _is_range(e.name) and card(e) == c]
+        for i, lab in zip(mine, innermost(dev_spans,
+                                          [dev[i].start for i in mine])):
+            by_span[i] = lab
     for i in loose:
         labels[i] = by_span[i]
     agree = sum(labels[i] == by_span[i] for i in linked)
-    ops = [DeviceOp(e.name, e.start, e.end, lab)
+    ops = [DeviceOp(e.name, e.start, e.end, lab, card(e))
            for e, lab in zip(dev, labels)]
-    spans = merged([(o.start, o.end) for o in ops])
-    gaps = []
-    for (_, a), (b, _) in zip(spans, spans[1:]):
-        gaps.append((a, b))
-    labels = innermost([(e.start, e.end, e.name) for e in main],
-                       [(a + b) / 2 for a, b in gaps])
-    range_of = innermost(ranges, [(a + b) / 2 for a, b in gaps])
+    busy = tuple((c, busy_us([(o.start, o.end) for o in ops if o.card == c]))
+                 for c in cards)
     idle: Counter = Counter()
-    for (a, b), lab, rng in zip(gaps, labels, range_of):
-        key = lab if lab == rng or not rng else f"{rng} > {lab}"
-        idle[key or "(no host range)"] += b - a
+    for c in cards:
+        spans = merged([(o.start, o.end) for o in ops if o.card == c])
+        gaps = [(a, b) for (_, a), (b, _) in zip(spans, spans[1:])]
+        labels = innermost([(e.start, e.end, e.name) for e in main],
+                           [(a + b) / 2 for a, b in gaps])
+        range_of = innermost(ranges, [(a + b) / 2 for a, b in gaps])
+        for (a, b), lab, rng in zip(gaps, labels, range_of):
+            key = lab if lab == rng or not rng else f"{rng} > {lab}"
+            idle[key or "(no host range)"] += (b - a) / len(cards)
     return TraceSummary(
         ops=tuple(ops), steps=steps, wall_us=wall_us,
-        busy_us=busy_us([(o.start, o.end) for o in ops]),
+        busy_us=sum(us for _, us in busy) / len(cards), busy_by_card=busy,
         linked_share=len(linked) / len(dev) if dev else 0.0,
         span_agreement=agree / len(linked) if linked else 0.0,
         idle_gaps=tuple(idle.most_common()))

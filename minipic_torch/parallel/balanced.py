@@ -21,7 +21,8 @@ Per step:
      mover buffers gathered (once per device), each mover routed to the
      bucket of the shard that owns its destination (one stable sort per
      device, which orders every bucket's arrivals as the per-shard sort of
-     the JAX package does), then append_incoming or the defrag under a
+     the JAX package does; the gather is the ``minipic.parallel`` span, the
+     route the re-bin's), then append_incoming or the defrag under a
      mesh-agreed flag; the sort fallback without a mover buffer;
   6. moving window: no bucket moves — the gid <-> storage map rotates by
      the shift count, positions shift by a tile, and the buckets of the
@@ -49,8 +50,8 @@ from ..particles.binning import rebin_by_tid
 from ..simulation import (StepDiag, deposit_modes, resolve_backend,
                           window_injection_key, window_shift_now)
 from ..trace import span
-from .mesh import (PARALLEL_RANGE, Mesh, all_gather, default_devices, move,
-                   on, pall, pmax, psum)
+from .mesh import (Mesh, all_gather, default_devices, move, move_all, on,
+                   pall, pmax, psum)
 from .step import (MeshSimulation, Schedule, ShardedState, advance_shards,
                    finish_rebin, flag_on, mesh_diag, rebin_species)
 
@@ -173,11 +174,9 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
         ovf = None
         for d in devs:
             with on(d):
-                with span(PARALLEL_RANGE):
-                    pool = ParticleState(*(
-                        torch.cat([move(m[ci].reshape(-1), d)
-                                   for _, m, _, _ in splits])
-                        for ci in range(6)))
+                pool = ParticleState(*(torch.cat(move_all(
+                    [m[ci].reshape(-1) for _, m, _, _ in splits], d))
+                    for ci in range(6)))
                 key, on_grid = dest_storage(pool, k, d)
                 pool = pool._replace(w=torch.where(
                     on_grid, pool.w, torch.zeros_like(pool.w)))
@@ -236,8 +235,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
                 bufs.append(buf[:, :cap_b])
                 stays.append(ParticleState(*(torch.where(
                     moving, torch.zeros_like(a), a) for a in flat)))
-        with span(PARALLEL_RANGE):
-            gathered = all_gather(bufs, mesh, dim=1)
+        gathered = all_gather(bufs, mesh, dim=1)
         out, ovs = [], []
         for s, (sh, stay, gat, dr) in enumerate(zip(shards, stays, gathered,
                                                     drops)):
@@ -273,8 +271,7 @@ def build_balanced_step(deck: Deck, mesh: Mesh) -> Callable:
                 canvases.append(torch.stack([
                     fold_tiles(c.reshape(tr, tc, nyt + 2 * g, nxt + 2 * g),
                                nyt, nxt, g) for c in full]))
-        with span(PARALLEL_RANGE):
-            total = psum(canvases, Mesh(devs, 1, len(devs)))
+        total = psum(canvases, Mesh(devs, 1, len(devs)))
         j = {}
         for d, c in zip(devs, total):
             with on(d):

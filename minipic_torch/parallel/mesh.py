@@ -16,6 +16,12 @@ list, each result on its shard's device.  A move to another device is
 ``Tensor.to(device, non_blocking=True)``, which PyTorch orders after the
 work queued on the source's stream; a "move" on the same device is the
 tensor itself, so the receiver must not write into what it received.
+
+Every hand-off between devices goes through ``move``, which counts it on
+the host (``trace.count``, with the recorder on: ``parallel.peer_copies``
+and the bytes handed, ``parallel.peer_bytes``).  The reductions and the
+gather open the ``minipic.parallel`` span themselves, and so does
+``move_all``, which hands a list of tensors to one device.
 """
 from __future__ import annotations
 
@@ -26,12 +32,15 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from ..core.config import Deck
-from ..trace import span
+from ..trace import count, span
 
 AXES = ("ry", "rx")
 # Layer span (a profiler range while a profiler runs) of the collectives:
 # the halo exchange and fold, particle routing, the gathers and the J sum.
 PARALLEL_RANGE = "minipic.parallel"
+# Counters of ``move``: the tensors handed to another device, and their bytes.
+PEER_COPIES = "parallel.peer_copies"
+PEER_BYTES = "parallel.peer_bytes"
 # Shards of a mesh on the CPU when the deck names no mesh_shape: the JAX
 # package's test harness runs 8 virtual CPU devices.
 CPU_SHARDS = 8
@@ -134,7 +143,20 @@ def local_tile_grid(deck: Deck, mesh: Mesh) -> Tuple[int, int]:
 
 
 def move(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    return x if x.device == device else x.to(device, non_blocking=True)
+    """`x` on `device`: `x` itself where it lies there, else a copy,
+    counted (host only: no read, no launch)."""
+    if x.device == device:
+        return x
+    count(PEER_COPIES)
+    count(PEER_BYTES, x.nbytes)
+    return x.to(device, non_blocking=True)
+
+
+@collective
+def move_all(xs: Sequence[torch.Tensor],
+             device: torch.device) -> List[torch.Tensor]:
+    """Each of `xs` on `device` (``move``)."""
+    return [move(x, device) for x in xs]
 
 
 def shift(xs: Sequence[torch.Tensor], mesh: Mesh, axis: str,
@@ -171,20 +193,24 @@ def _reduce(xs: Sequence[torch.Tensor], mesh: Mesh,
     return [done[d] for d in mesh.devices]
 
 
+@collective
 def psum(xs, mesh: Mesh) -> List[torch.Tensor]:
     return _reduce(xs, mesh, torch.add)
 
 
+@collective
 def pmax(xs, mesh: Mesh) -> List[torch.Tensor]:
     return _reduce(xs, mesh, torch.maximum)
 
 
+@collective
 def pall(xs, mesh: Mesh) -> List[torch.Tensor]:
     """Logical AND of 0-d bool tensors over the mesh (the JAX package's
     ``psum(ok) == n`` agreement)."""
     return _reduce(xs, mesh, torch.logical_and)
 
 
+@collective
 def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh,
                dim: int = 0) -> List[torch.Tensor]:
     """Every shard's tensor concatenated along `dim` in shard order,

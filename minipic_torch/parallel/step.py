@@ -24,9 +24,16 @@ Per step, per shard (the JAX package's per-chip program, with its
      each shard handing its first column to its left neighbour, the last
      column of the mesh taking fresh plasma keyed per global tile row.
 
-Host reads: the drift predicate once a step (the JAX package's ``pmax``
-then one read); ``ShardedSimulation.run`` adds the overflow on a step that
-re-binned and the census every ``CAPACITY_CHECK_EVERY`` steps.
+Host reads, each through ``trace.read``: the drift predicate once a step
+(the JAX package's ``pmax`` then one read); ``MeshSimulation.run_step`` adds
+the overflow on a step that re-binned and the census every
+``CAPACITY_CHECK_EVERY`` steps.  The step counter and the window's origin
+live on the host, so the window's shift predicate reads nothing.
+
+Spans: the layers of ``simulation.py`` (``minipic.fields``, ``.advance``,
+``.rebin``, ``.diag``) and ``minipic.parallel`` around every hand-off
+between devices (``mesh.move``); ``step`` around each step of
+``run_step``, ``step.census`` around its census.
 
 ``ShardedSimulation.state`` assembles the global SimState in the JAX
 package's storage order (shard-major buckets, ``shard_major_permutation``;
@@ -59,11 +66,11 @@ from ..simulation import (CAPACITY_CHECK_EVERY, StepDiag,
                           bucket_capacity, deposit_modes, rebin_caps,
                           resolve_backend, tile_origins, uses_rebin_auto,
                           window_injection_key, window_shift_now)
-from ..trace import span
+from ..trace import read, span
 from .exchange import exchange_particles, roll_segments_sharded
 from .halo import exchange_halo, fold_halo
-from .mesh import (Mesh, local_tile_grid, make_mesh, move, on, pall, pmax,
-                   psum, shard_shape, shift)
+from .mesh import (PARALLEL_RANGE, Mesh, local_tile_grid, make_mesh, move,
+                   move_all, on, pall, pmax, psum, shard_shape, shift)
 
 
 class ShardedState(NamedTuple):
@@ -100,14 +107,16 @@ class Schedule:
             return False, True, drift
         if self.trigger_drift:
             drift_now = drift + disp
-            do = shift_now or bool(drift_now > deck.drift_threshold())
+            do = shift_now or read(drift_now > deck.drift_threshold(),
+                                   "drift")
             force = True if shift_now else drift_now > deck.force_threshold()
             return do, force, drift_now
         sched = step % deck.rebin_interval == 0
         force = True
         if self.interval_grace and not shift_now:
             force = drift > 0.5
-            do = deck.rebin_interval == 1 or sched or bool(force)
+            do = (deck.rebin_interval == 1 or sched
+                  or read(force, "schedule"))
         else:
             do = shift_now or deck.rebin_interval == 1 or sched
         return do, force, drift
@@ -193,8 +202,8 @@ def mesh_diag(deck: Deck, mesh: Mesh, fe: torch.Tensor, kes, moms,
     live = []
     for dev, sp in zip(mesh.devices, binned):
         with on(dev):
-            n = census(sp, device=dev).live.reshape(())
-        live.append(move(n, dev0))
+            live.append(census(sp, device=dev).live.reshape(()))
+    live = move_all(live, dev0)
     n_sp = len(deck.species)
     return StepDiag(
         field_energy=fe,
@@ -248,7 +257,7 @@ def advance_shards(deck: Deck, mesh: Mesh, modes, species, ftiles, origins,
 
 def flag_on(v, dev):
     """A re-bin's force flag (a bool, or a 0-d tensor moved to `dev`)."""
-    return move(v, dev) if isinstance(v, torch.Tensor) else v
+    return move_all([v], dev)[0] if isinstance(v, torch.Tensor) else v
 
 
 def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
@@ -387,8 +396,9 @@ def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
 
     def shift_window(fields, species, w0n):
         """One window shift to origin w0n (see the module docstring)."""
-        strips = shift([torch.stack(tuple(f))[:, :, :nxt] for f in fields],
-                       mesh, "rx", up=True)
+        with span(PARALLEL_RANGE):
+            strips = shift([torch.stack(tuple(f))[:, :, :nxt]
+                            for f in fields], mesh, "rx", up=True)
         new_fields = []
         for sh, f, st in zip(shards, fields, strips):
             with on(sh["dev"]):
@@ -399,9 +409,10 @@ def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
                     *torch.cat([stk[:, :, nxt:], st], dim=2).unbind(0)))
         new_species = [[] for _ in range(S)]
         for i, spec in enumerate(deck.species):
-            firsts = shift([torch.stack([a.reshape(ltr, ltc, -1)[:, 0]
-                                         for a in sp[i]])
-                            for sp in species], mesh, "rx", up=True)
+            with span(PARALLEL_RANGE):
+                firsts = shift([torch.stack([a.reshape(ltr, ltc, -1)[:, 0]
+                                             for a in sp[i]])
+                                for sp in species], mesh, "rx", up=True)
             for s, (sh, sp, rc) in enumerate(zip(shards, species, firsts)):
                 p = sp[i]
                 with on(sh["dev"]):
@@ -626,8 +637,9 @@ class MeshSimulation:
         changed = False
         species = [list(sp) for sp in st.species]
         for i, mgr in enumerate(self._capmgrs):
-            counts = torch.cat([move((sp[i].w > 0).sum(1, dtype=torch.int32),
-                                     self.device) for sp in species])
+            counts = [(sp[i].w > 0).sum(1, dtype=torch.int32)
+                      for sp in species]
+            counts = torch.cat(move_all(counts, self.device))
             cap = species[0][i].capacity
             new_cap = mgr.plan(census_of_counts(counts, cap), overflow)
             if new_cap is None:
@@ -661,11 +673,14 @@ class MeshSimulation:
 
     def run_step(self, i: int) -> StepDiag:
         """One step of ``run``, numbered `i` (``Simulation.run_step``)."""
-        self._st, diag = self._step(self._st)
-        ovf = int(diag.overflow) if diag.rebinned else 0
-        self.overflow_total += ovf
-        if self.deck.species and (ovf > 0 or i % CAPACITY_CHECK_EVERY == 0):
-            self.ensure_capacity(ovf)
+        with span("step"):
+            self._st, diag = self._step(self._st)
+            ovf = read(diag.overflow, "overflow") if diag.rebinned else 0
+            self.overflow_total += ovf
+            if self.deck.species and (ovf > 0
+                                      or i % CAPACITY_CHECK_EVERY == 0):
+                with span("step.census"):
+                    self.ensure_capacity(ovf)
         return diag
 
     @property

@@ -4,7 +4,6 @@ the single-device step under its parent, the self times adding up to the
 step, and the host reads counted by hand; under a CPU profiler the same
 ``minipic.*`` ranges as before, on the recorder's clock."""
 import pathlib
-import statistics
 
 import pytest
 
@@ -208,8 +207,10 @@ def test_simulation_step_spans_each_step():
 def test_layer_ranges_under_the_profiler_lie_on_the_spans():
     """Under a CPU profiler: the ranges named minipic.* are today's four
     layers and no sub-span enters a range; each layer span lies inside its
-    profiler range, its ends typically within 50 us of the range's (one
-    clock; a single gap may hold a preemption of the process)."""
+    profiler range (one clock), and inside no other: each range ends before
+    the next layer span begins.  How far a span's ends lie inside its
+    range is the profiler's own cost, 4-100 us a range on an idle CPU and
+    more on a loaded one, so no time is asserted."""
     from torch.profiler import ProfilerActivity, profile
 
     sim = DECKS["laser_plasma"][0]()
@@ -235,12 +236,11 @@ def test_layer_ranges_under_the_profiler_lie_on_the_spans():
     layer = sorted(((s[0], s[2], s[3]) for s in spans if s[0] in LAYERS),
                    key=lambda e: e[1])
     assert len(ranges) == len(layer) > 0
-    gaps = []
     for (rn, rs, re_), (sn, ss, se) in zip(ranges, layer):
         assert rn == sn
         assert rs <= ss and se <= re_
-        gaps += [ss - rs, re_ - se]
-    assert statistics.median(gaps) < 50_000
+    for (_, _, re_), (_, ss, _) in zip(ranges, layer[1:]):
+        assert re_ <= ss
 
 
 def test_drain_refuses_an_open_span_and_by_name_sums_a_step():

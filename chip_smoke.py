@@ -112,7 +112,9 @@ Phases, each printing what it found; any failure exits non-zero:
    int8, whole-bucket chunks, the default deal-route re-bin), 60
    ``Simulation.step`` calls on the card; then each kernel against its plain
    version on the run's final state, at the main path's shapes, and each
-   one's time (the advance also on a copy with each bucket's live slots
+   one's time (the advance launched fused, as the step launches it, equal
+   bit for bit to the raw launch with the fused epilogue's plain contract
+   after it; also on a copy with each bucket's live slots
    shuffled, and in its f32 mode on that state, lattice and shuffled),
    with the whole deal-route re-bin (fused and through
    append_runs: equal) and the sort re-bin; then ``rebin_incremental`` on
@@ -555,8 +557,7 @@ def _continuity(deck, p0, mode, ft, origins=None):
     a tile's 27136 slots alone left 2.8e-6 of scale."""
     import torch
 
-    from minipic_torch.ops.advance import (fused_push_deposit,
-                                           live_watermark, qshape_scale)
+    from minipic_torch.ops.advance import fused_push_deposit, qshape_scale
     from minipic_torch.particles.deposit import deposit_rho_chunk
     from minipic_torch.simulation import tile_local_coords, tile_origins
 
@@ -575,8 +576,7 @@ def _continuity(deck, p0, mode, ft, origins=None):
             deck.dy, quantize=qshape_scale(order) if mode == "int8" else 0.0)
 
     p1, (jx, jy, _), _ = fused_push_deposit(
-        p0, ft, live_watermark(p0.w),
-        **_kw(deck, mode, p0.x.device, origins))
+        p0, ft, **_kw(deck, mode, p0.x.device, origins))
     jx, jy = jx.to(cpu), jy.to(cpu)
     zx = torch.zeros_like(jx[:, :, :1])
     zy = torch.zeros_like(jy[:, :1, :])
@@ -656,6 +656,33 @@ def _compare(p, ft, counts, kw, label: str) -> float:
     check(abs(float(dk.max()) - float(dp.max())) <= dtol * float(dp.max()),
           f"{label}: dmax differs")
     return err
+
+
+def _compare_fused(p, ft, counts, kw, label: str) -> float:
+    """B1 fused (the step's advance on the card: its own watermark, the
+    prefix sums, then the finish kernel) against B1 raw over `counts` (the
+    live watermark) with the plain contract of the fused epilogue after it
+    (``minipic_torch.testing.fused_epilogue``): equal bit for bit.  Returns
+    the fused call's device ms."""
+    import torch
+
+    from minipic_torch.ops.advance import advance_kernel
+    from minipic_torch.testing import fused_epilogue
+
+    out, js, d = advance_kernel.fused(p, ft, **kw)
+    raw_out, raw_js, raw_d = advance_kernel(p, ft, counts, **kw)
+    want_js, want_d = fused_epilogue(raw_js, raw_d, p.w, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("x", "y", "px", "py", "pz"), out, raw_out):
+        check(torch.equal(a, b), f"{label} {name}: fused differs from raw")
+    for name, a, b in zip(("jx", "jy", "jz"), js, want_js):
+        check(torch.equal(a, b), f"{label} {name}: fused differs from the "
+              "raw windows' epilogue")
+    check(torch.equal(d, want_d), f"{label}: max displacement differs")
+    ms = cuda_ms(lambda: advance_kernel.fused(p, ft, **kw), 5)
+    print(f"kernel: {label}: fused equals raw and its epilogue bit for bit; "
+          f"fused {ms:.3f} ms")
+    return ms
 
 
 def phase_kernel(dev) -> None:
@@ -2377,6 +2404,7 @@ def phase_main(dev, card: str, precision: str = "f32") -> dict:
     counts = live_watermark(p.w)
     kw = _kw(deck, mode, dev)
     err = _compare(p, ft, counts, kw, f"{tag}-path shape o2 {mode}")
+    fused_ms = _compare_fused(p, ft, counts, kw, f"{tag}-path {mode}")
     # Bytes: six channels in and five out up to each watermark, the field
     # windows in, the J windows and displacements out; e bytes a value.
     e = p.x.element_size()
@@ -2387,8 +2415,9 @@ def phase_main(dev, card: str, precision: str = "f32") -> dict:
         max_abs_err=err,
         ms=cuda_ms(lambda: advance_kernel(p, ft, counts, **kw), 5),
         plain_ms=cuda_ms(lambda: advance_plain(p, ft, counts, **kw), 2),
-        **bound(e * (11 * n_wm + 9 * win + T),
-                ADVANCE_OPS_PER_PARTICLE * _live(p), f64=f64))
+        fused_ms=fused_ms, **bound(e * (11 * n_wm + 9 * win + T),
+                                   ADVANCE_OPS_PER_PARTICLE * _live(p),
+                                   f64=f64))
     # The same work with each bucket's live slots in random order: a warp's
     # lanes then hold up to 32 bases.
     ps = _shuffle_slots(p, counts,

@@ -21,7 +21,9 @@ process of its own.  Cells (default: all):
 
 The advance is timed with CUDA events over REPS launches after one, in
 lattice order (the buckets as the run leaves them) and with each bucket's
-live slots shuffled.  Each cell prints one line, ``ab LABEL CELL: ...``:
+live slots shuffled: B1 raw (``advance_kernel`` over the live watermark),
+and in lattice order the step's advance (``simulation.
+advance_species_tiles``: on the card B1 fused and the kernel after it).  Each cell prints one line, ``ab LABEL CELL: ...``:
 ms/step (mean; the headline cells also the advance-only steps' median)
 and the advance times.  Last, ``ab LABEL fingerprint``: a hash of the
 advance's new positions and momenta in the f32 and f64 modes on inputs
@@ -71,8 +73,10 @@ def _shuffled(p, counts, seed: int = 3):
 
 
 def _advance_times(p, ft, kw, modes) -> str:
-    """The advance in each mode on `p`, lattice and shuffled."""
+    """The advance in each mode on `p`: B1 raw, lattice and shuffled, and
+    the step's advance."""
     from minipic_torch.ops.advance import advance_kernel, live_watermark
+    from minipic_torch.simulation import advance_species_tiles
 
     counts = live_watermark(p.w)
     ps = _shuffled(p, counts)
@@ -81,7 +85,9 @@ def _advance_times(p, ft, kw, modes) -> str:
         k = dict(kw, mode=mode)
         lat = _ms(lambda: advance_kernel(p, ft, counts, **k))
         shf = _ms(lambda: advance_kernel(ps, ft, counts, **k))
-        out.append(f"advance {mode} {lat:.3f} ms, shuffled {shf:.3f} ms")
+        step = _ms(lambda: advance_species_tiles(p, ft, **k))
+        out.append(f"advance {mode} {lat:.3f} ms, shuffled {shf:.3f} ms, "
+                   f"step's {step:.3f} ms")
     return "; ".join(out)
 
 

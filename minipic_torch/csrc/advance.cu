@@ -12,14 +12,27 @@
 // (jx, jy, jz) for each group of P.win_warps warps (below), in int8 mode one
 // set for the block.  Each warp walks the bucket in slabs of 32
 // consecutive slots, one per lane (loads stay coalesced), up to the live
-// watermark counts[t] rounded up to 32, so all 32 lanes run the same trip
-// count; the next slab's six values are loaded before the current slab's
-// arithmetic.  Lanes at or past the watermark, and dead slots (w == 0), are
-// copied through untouched and contribute nothing; the slots past the
-// rounded watermark are copied through in a loop of their own.  Particles
-// are written to NEW output tensors (x, y, px, py, pz; w is not written).
-// J windows are written whole, before the prefix sums (the caller applies
-// them, and in int8 mode the q*max(w) scale, in torch).
+// watermark rounded up to 32, so all 32 lanes run the same trip count; the
+// next slab's six values are loaded before the current slab's arithmetic.
+// Lanes at or past the watermark, and dead slots (w == 0), are copied
+// through untouched and contribute nothing; the slots past the rounded
+// watermark are copied through in a loop of their own.  Particles are
+// written to NEW output tensors (x, y, px, py, pz; w is not written).
+//
+// Two forms of a launch (P.fused, a run-time flag read outside the slab
+// loop).  Raw (0): the watermark is counts[t], and the J windows are
+// written whole before the prefix sums, with the per-tile max displacement
+// dmax[t]: the form the plain version computes.  Fused (1, the step's): the
+// block finds the watermark itself, the highest slot with w > 0 plus 1
+// (ops/advance.live_watermark), reading the bucket's w from its end down,
+// a chunk at a time, until a chunk holds a live slot; it writes the J
+// windows with the x prefix sums of jx and the y prefix sums of jy applied
+// (left to right, bottom to top; int8 sums the integers, exact, before the
+// conversion), and in int8 mode its largest weight wmax[t] (over every slot
+// it read, which is every slot).  finish_kernel, launched after it, then
+// applies what needs every tile: the uniform q*max(w) scale of int8 jx and
+// jy, and the 0-d max displacement.  Together they are the JAX wrapper's
+// pallas_call and the epilogue after it.
 //
 // Tile origins.  Each tile's origin in global cells comes from two int32
 // arrays ox[t], oy[t], as the TPU kernel's scalar-prefetch ox_ref, oy_ref:
@@ -142,6 +155,7 @@ struct AdvanceParamsT {
   int num_tiles, capacity, tile_nx, tile_ny, guard;
   int periodic;         // 1: periodic box (fold and wrap); 0: open walls
   int win_warps;        // f32, f64: warps to a set of J windows (1, 2, 4, 8)
+  int fused;            // 1: own watermark, prefix sums, wmax (see Layout)
   R h;                  // push half-kick q/m dt/2 (int8: times 1/S^2)
   R dtdx, dtdy;         // dt/dx, dt/dy
   R q;                  // species charge
@@ -194,6 +208,79 @@ constexpr int kMaxPasses = 3;
 constexpr int kUnroll = 4;
 constexpr bool kDeposit = !MINIPIC_NO_DEPOSIT;
 constexpr float kSixth = (float)(1.0 / 6.0);
+// The fused watermark's scan: kScanUnroll<R> loads in flight a thread, so
+// a chunk of kThreads * kScanUnroll<R> slots per block-wide round trip.
+// Measured at the headline's state (H100 80GB HBM3): float 8 and 16 take the
+// same time, 16 and more spill in the int8 kernel; double 64 is the fastest
+// of 8 to 64 (its kernel 20.4 ms against 21.5 without the scan).
+template <typename R>
+constexpr int kScanUnroll = sizeof(R) == 8 ? 64 : 8;
+
+__device__ __forceinline__ float neg_inf(float) {
+  return __int_as_float((int)0xff800000u);
+}
+__device__ __forceinline__ double neg_inf(double) {
+  return __longlong_as_double((long long)0xfff0000000000000ULL);
+}
+
+// torch's max of two values: NaN wins (so a NaN anywhere is the max).
+template <typename R>
+__device__ __forceinline__ R nan_max(R a, R b) {
+  return (b > a || b != b) ? b : a;
+}
+
+// nan_max over v of every lane of the warp.
+template <typename R>
+__device__ __forceinline__ R warp_nan_max(R v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = nan_max(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// The highest slot of w[0, n) with w > 0, plus 1 (0 for none), as
+// ops/advance.live_watermark: the block reads w from slot n - 1 down, a
+// chunk at a time (coalesced, kScanUnroll<R> loads in flight a thread),
+// until a chunk holds a slot with w > 0.  wmx takes the nan_max of
+// every value this thread read.  Every thread of the block calls it; *s_wm
+// is 0 on entry (and read by all after a barrier).
+template <typename R>
+__device__ int watermark(const R* __restrict__ w, int n, int* s_wm, R& wmx) {
+  constexpr int U = kScanUnroll<R>;
+  for (int end = n; end > 0; end -= kThreads * U) {
+    R v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = end - 1 - (u * kThreads + (int)threadIdx.x);
+      v[u] = s >= 0 ? w[s] : R(0);
+    }
+    int hi = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = end - 1 - (u * kThreads + (int)threadIdx.x);
+      if (s >= 0) {
+        wmx = nan_max(wmx, v[u]);
+        if (v[u] > R(0)) hi = max(hi, s + 1);
+      }
+    }
+    if (__syncthreads_or(hi != 0)) {
+      if (hi) atomicMax(s_wm, hi);
+      __syncthreads();
+      return *s_wm;
+    }
+  }
+  return 0;
+}
+
+// In place: a[k] = a[0] + a[1] + ... + a[k] (stride apart), added left to
+// right in V.
+template <typename V>
+__device__ __forceinline__ void prefix_sum(V* a, int n, int stride) {
+  V acc = a[0];
+  for (int k = 1; k < n; ++k) {
+    acc = acc + a[k * stride];
+    a[k * stride] = acc;
+  }
+}
 
 // Staging bytes of one warp for its tensor-core products, at NP pairs of
 // 8-column tiles: int8 A of jx and of jy (16 rows x 32 particles, 512 each)
@@ -718,7 +805,8 @@ advance_kernel(AdvanceParamsT<R> P,
                R* __restrict__ pxo, R* __restrict__ pyo,
                R* __restrict__ pzo,
                R* __restrict__ jxo, R* __restrict__ jyo,
-               R* __restrict__ jzo, R* __restrict__ dmax) {
+               R* __restrict__ jzo, R* __restrict__ dmax,
+               R* __restrict__ wmax) {
   static_assert(!QUANT || sizeof(R) == 4, "the int8 mode is float only");
   static_assert(!(QUANT && SHARED), "the int8 mode has its own one set");
   constexpr int NT = 2 * NP;  // column tiles of 8
@@ -729,6 +817,9 @@ advance_kernel(AdvanceParamsT<R> P,
   // compare-and-swap loop on sm_90).
   __shared__ int s_dmax;
   __shared__ R s_wmax[kWarps];
+  // Fused: the watermark found, and (int8) the warps' largest weights.
+  __shared__ int s_wm;
+  __shared__ R s_weight[kWarps];
   const int g = P.guard;
   const int nxg = P.tile_nx + 2 * g;
   const int nyg = P.tile_ny + 2 * g;
@@ -788,12 +879,19 @@ advance_kernel(AdvanceParamsT<R> P,
          i += blockDim.x)
       words[i] = 0u;
   }
-  if (threadIdx.x == 0) s_dmax = 0;
+  if (threadIdx.x == 0) {
+    s_dmax = 0;
+    s_wm = 0;
+  }
   __syncthreads();
 
-  const int count = counts[t];
-  const int count32 = min(P.capacity, (count + 31) & ~31);
   const size_t pbase = (size_t)t * P.capacity;
+  // int8: the largest weight of every slot this thread reads (the scan's
+  // and the slab loop's; together every slot of the bucket).
+  R wmx = neg_inf(R(0));
+  const int count = P.fused ? watermark(w + pbase, P.capacity, &s_wm, wmx)
+                            : counts[t];
+  const int count32 = min(P.capacity, (count + 31) & ~31);
   const R ox = (R)ox_t[t];
   const R oy = (R)oy_t[t];
   const R S = P.S;
@@ -823,6 +921,9 @@ advance_kernel(AdvanceParamsT<R> P,
     const int s = sbase + lane;
     const size_t k = pbase + s;
     const R x0 = nx0, y0 = ny0, ux = nux, uy = nuy, uz = nuz, wv = nwv;
+    if constexpr (QUANT) {
+      if (s < s_end) wmx = nan_max(wmx, wv);
+    }
     if (s + s_step < s_end) {
       const size_t kn = k + s_step;
       nx0 = x[kn]; ny0 = y[kn]; nux = px[kn]; nuy = py[kn]; nuz = pz[kn];
@@ -1006,7 +1107,13 @@ advance_kernel(AdvanceParamsT<R> P,
   }
 
   if constexpr (QUANT && kDeposit) {
-    // Each warp's sums into the block's windows, once.
+    // Each warp's sums into its own staging area, which its last slab has
+    // done with, as windows [3][nwin] (jx, jy int32, jz f32): every cell of
+    // the window is one element of one lane's fragments.  Summed below in a
+    // fixed order, so J comes out the same from launch to launch.
+    __syncwarp();
+    int* const own = reinterpret_cast<int*>(st.ax);
+    float* const own_z = reinterpret_cast<float*>(own + 2 * nwin);
     const int grp = lane >> 2, tq = lane & 3;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -1015,9 +1122,9 @@ advance_kernel(AdvanceParamsT<R> P,
         const int r = grp + 8 * (e >> 1);
         const int c = 8 * n + 2 * tq + (e & 1);
         if (r < nyg && c < nxg) {
-          atomicAdd(&i_jx[r * nxg + c], accx[n][e]);
-          atomicAdd(&i_jy[r * nxg + c], accy[n][e]);
-          atomicAdd(&s_jz[r * nxg + c], accz[n][e]);
+          own[r * nxg + c] = accx[n][e];
+          own[nwin + r * nxg + c] = accy[n][e];
+          own_z[r * nxg + c] = accz[n][e];
         }
       }
   }
@@ -1038,33 +1145,101 @@ advance_kernel(AdvanceParamsT<R> P,
   } else {
     atomicMax(&s_dmax, __float_as_int(local_max));
   }
+  if constexpr (QUANT) {
+    const R m = warp_nan_max(wmx);
+    if (lane == 0) s_weight[warp] = m;
+  }
   __syncthreads();
+  // The block's J: int8, the warps' sums (warp 0, 1, ...) and the int32
+  // adds of particles outside int8; f32 and f64, the sets summed in a fixed
+  // order (set 0, then 1, ...).  Raw: written out; fused: kept in set 0
+  // for the prefix sums.
+  const unsigned char* const stages =
+      reinterpret_cast<const unsigned char*>(s_jz + nwin);
   for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-    if (QUANT) {
-      jxo[fbase + i] = (float)i_jx[i] * P.cjx;
-      jyo[fbase + i] = (float)i_jy[i] * P.cjy;
-      jzo[fbase + i] = s_jz[i];
+    if constexpr (QUANT) {
+      int sx = i_jx[i], sy = i_jy[i];
+      float sz = 0.0f;
+      for (int wp = 0; wp < kWarps; ++wp) {
+        const int* const o =
+            reinterpret_cast<const int*>(stages + wp * Stage<NP>::kBytes);
+        const float z = reinterpret_cast<const float*>(o + 2 * nwin)[i];
+        sx += o[i];
+        sy += o[nwin + i];
+        sz = wp == 0 ? z : sz + z;
+      }
+      if (P.fused) {
+        i_jx[i] = sx;
+        i_jy[i] = sy;
+        s_jz[i] = sz;
+      } else {
+        jxo[fbase + i] = (float)sx * P.cjx;
+        jyo[fbase + i] = (float)sy * P.cjy;
+        jzo[fbase + i] = sz;
+      }
     } else {
-      // The sets summed in a fixed order: set 0, then 1, ...
       R sx = s_jx[i], sy = s_jy[i], sz = s_jz[i];
-      for (int w = 1; w < nsets; ++w) {
-        const R* const o = s_jx + 3 * w * nwin;
+      for (int set_w = 1; set_w < nsets; ++set_w) {
+        const R* const o = s_jx + 3 * set_w * nwin;
         sx = sx + o[i];
         sy = sy + o[nwin + i];
         sz = sz + o[2 * nwin + i];
       }
-      jxo[fbase + i] = sx;
-      jyo[fbase + i] = sy;
-      jzo[fbase + i] = sz;
+      if (P.fused) {
+        s_jx[i] = sx;
+        s_jy[i] = sy;
+        s_jz[i] = sz;
+      } else {
+        jxo[fbase + i] = sx;
+        jyo[fbase + i] = sy;
+        jzo[fbase + i] = sz;
+      }
+    }
+  }
+  if (P.fused) {
+    // jx summed along x (each row, by the first half of the block), jy
+    // along y (each column, by the second), in order; int8's integers are
+    // exact (a prefix of one particle's terms is bounded as a cell's sum
+    // is: the prefix of q1 - q0 along a row lies in [-S, S]).
+    __syncthreads();
+    constexpr int kHalf = kThreads / 2;
+    if (threadIdx.x < kHalf) {
+      for (int r = threadIdx.x; r < nyg; r += kHalf) {
+        if constexpr (QUANT) prefix_sum(i_jx + r * nxg, nxg, 1);
+        else prefix_sum(s_jx + r * nxg, nxg, 1);
+      }
+    } else {
+      for (int c = threadIdx.x - kHalf; c < nxg; c += kHalf) {
+        if constexpr (QUANT) prefix_sum(i_jy + c, nyg, nxg);
+        else prefix_sum(s_jy + c, nyg, nxg);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
+      if constexpr (QUANT) {
+        jxo[fbase + i] = (float)i_jx[i] * P.cjx;
+        jyo[fbase + i] = (float)i_jy[i] * P.cjy;
+      } else {
+        jxo[fbase + i] = s_jx[i];
+        jyo[fbase + i] = s_jy[i];
+      }
+      jzo[fbase + i] = s_jz[i];
     }
   }
   if (threadIdx.x == 0) {
     if constexpr (sizeof(R) == 8) {
       R m = s_wmax[0];
-      for (int w = 1; w < kWarps; ++w) m = r_max(m, s_wmax[w]);
+      for (int wp = 1; wp < kWarps; ++wp) m = r_max(m, s_wmax[wp]);
       dmax[t] = m;
     } else {
       dmax[t] = __int_as_float(s_dmax);
+    }
+    if constexpr (QUANT) {
+      if (P.fused) {
+        R m = s_weight[0];
+        for (int wp = 1; wp < kWarps; ++wp) m = nan_max(m, s_weight[wp]);
+        wmax[t] = m;
+      }
     }
   }
 }
@@ -1091,7 +1266,7 @@ cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
                    const int* counts, const int* ox, const int* oy,
                    const R* ex, const R* ey, const R* ez, const R* bx,
                    const R* by, const R* bz, R* xo, R* yo, R* pxo, R* pyo,
-                   R* pzo, R* jx, R* jy, R* jz, R* dmax,
+                   R* pzo, R* jx, R* jy, R* jz, R* dmax, R* wmax,
                    cudaStream_t stream) {
   const int nwin = (P.tile_nx + 2 * P.guard) * (P.tile_ny + 2 * P.guard);
   const size_t smem = smem_bytes(QUANT, NP, nwin, sizeof(R), P.win_warps);
@@ -1101,7 +1276,66 @@ cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
   if (err != cudaSuccess) return err;
   kernel<<<P.num_tiles, kThreads, smem, stream>>>(
       P, x, y, px, py, pz, w, counts, ox, oy, ex, ey, ez, bx, by, bz, xo, yo,
-      pxo, pyo, pzo, jx, jy, jz, dmax);
+      pxo, pyo, pzo, jx, jy, jz, dmax, wmax);
+  return cudaGetLastError();
+}
+
+// nan_max of a[0, n), on every thread of the block (scratch: kWarps
+// values of shared memory, free again on return).
+template <typename R>
+__device__ R block_nan_max(const R* __restrict__ a, int n, R* scratch) {
+  R m = neg_inf(R(0));
+  for (int i = threadIdx.x; i < n; i += blockDim.x) m = nan_max(m, a[i]);
+  m = warp_nan_max(m);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = scratch[0];
+  for (int wp = 1; wp < kWarps; ++wp) m = nan_max(m, scratch[wp]);
+  __syncthreads();
+  return m;
+}
+
+// After a fused launch, what needs every tile: the 0-d max displacement,
+// the max of the tiles' dmax_t (block 0), and in int8 mode (QUANT) the
+// scale of the n values of jx and of jy by q * max(w), max(w) the max of
+// the tiles' wmax_t (each block finds it and scales a share).  The same
+// values as torch's dmax.max(), w.max() * q and jx * qws: a max is exact in
+// any order, and each value is rounded once.  Bound by the 2 x n window
+// values read and written (8 MB at the int8 headline).
+template <bool QUANT, typename R>
+__global__ void __launch_bounds__(kThreads)
+finish_kernel(int num_tiles, int n, R q, R* __restrict__ jx,
+              R* __restrict__ jy, const R* __restrict__ dmax_t,
+              const R* __restrict__ wmax_t, R* __restrict__ dmax) {
+  __shared__ R scratch[kWarps];
+  if constexpr (QUANT) {
+    const R qws = block_nan_max(wmax_t, num_tiles, scratch) * q;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += gridDim.x * blockDim.x) {
+      jx[i] = jx[i] * qws;
+      jy[i] = jy[i] * qws;
+    }
+  }
+  if (blockIdx.x == 0) {
+    const R m = block_nan_max(dmax_t, num_tiles, scratch);
+    if (threadIdx.x == 0) *dmax = m;
+  }
+}
+
+// Blocks of finish_kernel: int8, one for every kFinishValues window values,
+// at most kFinishBlocks; else one.
+constexpr int kFinishValues = 4 * kThreads;
+constexpr int kFinishBlocks = 264;
+
+template <bool QUANT, typename R>
+cudaError_t launch_finish(int num_tiles, int nwin, R q, R* jx, R* jy,
+                          const R* dmax_t, const R* wmax_t, R* dmax,
+                          cudaStream_t stream) {
+  const int n = num_tiles * nwin;
+  const int want = (n + kFinishValues - 1) / kFinishValues;
+  const int blocks = !QUANT ? 1 : (want < kFinishBlocks ? want : kFinishBlocks);
+  finish_kernel<QUANT, R><<<blocks, kThreads, 0, stream>>>(
+      num_tiles, n, q, jx, jy, dmax_t, wmax_t, dmax);
   return cudaGetLastError();
 }
 
@@ -1111,7 +1345,7 @@ cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
 // int8 mode both J window layouts, chosen by P.win_warps (1: private).
 #define MINIPIC_ARGS                                                        \
   P, x, y, px, py, pz, w, counts, ox, oy, ex, ey, ez, bx, by, bz, xo, yo, \
-      pxo, pyo, pzo, jx, jy, jz, dmax, s
+      pxo, pyo, pzo, jx, jy, jz, dmax, wmax, s
 #define MINIPIC_LAUNCH(O, Q, N)                                             \
   return (int)(P.periodic                                                   \
                    ? (!Q && P.win_warps > 1                                 \
@@ -1124,7 +1358,9 @@ cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
 // Plain C entry point (bound with ctypes).  Returns the CUDA error code of
 // the launch (0 on success); launches on `stream`, allocates nothing.  The
 // int8 mode needs nyg 8 or 16 and nxg <= 64 (the wrapper checks); the f32
-// mode P.win_warps 1, 2, 4 or 8 (int8 does not read it).
+// mode P.win_warps 1, 2, 4 or 8 (int8 does not read it).  Raw launches
+// (P.fused 0) read counts and not wmax; fused ones the reverse (wmax: int8
+// only; either may be null where it is not read).
 extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
                                const float* x, const float* y,
                                const float* px, const float* py,
@@ -1136,7 +1372,7 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
                                const float* bz, float* xo, float* yo,
                                float* pxo, float* pyo, float* pzo, float* jx,
                                float* jy, float* jz, float* dmax,
-                               void* stream) {
+                               float* wmax, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nxg = P.tile_nx + 2 * P.guard;
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
@@ -1167,7 +1403,8 @@ extern "C" int minipic_advance_f64(int order, AdvanceParams64 P,
                                    const double* bz, double* xo, double* yo,
                                    double* pxo, double* pyo, double* pzo,
                                    double* jx, double* jy, double* jz,
-                                   double* dmax, void* stream) {
+                                   double* dmax, double* wmax,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!win_warps_ok(P.win_warps)) return (int)cudaErrorInvalidValue;
   if (order == 1) MINIPIC_LAUNCH(1, false, 1);
@@ -1176,6 +1413,29 @@ extern "C" int minipic_advance_f64(int order, AdvanceParams64 P,
 }
 #undef MINIPIC_LAUNCH
 #undef MINIPIC_ARGS
+
+// finish_kernel after a fused launch of num_tiles windows of nwin cells:
+// int8 (quant) scales jx and jy by q * max(wmax_t) and reduces dmax_t into
+// the 0-d dmax; f32 only reduces dmax_t (jx, jy, wmax_t are not read).
+extern "C" int minipic_advance_finish(int quant, int num_tiles, int nwin,
+                                      float q, float* jx, float* jy,
+                                      const float* dmax_t,
+                                      const float* wmax_t, float* dmax,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(quant ? launch_finish<true>(num_tiles, nwin, q, jx, jy, dmax_t,
+                                           wmax_t, dmax, s)
+                     : launch_finish<false>(num_tiles, nwin, q, jx, jy,
+                                            dmax_t, wmax_t, dmax, s));
+}
+
+// The f64 mode's: dmax_t reduced into the 0-d dmax.
+extern "C" int minipic_advance_finish_f64(int num_tiles, const double* dmax_t,
+                                          double* dmax, void* stream) {
+  return (int)launch_finish<false, double>(
+      num_tiles, 0, 0.0, nullptr, nullptr, dmax_t, nullptr, dmax,
+      static_cast<cudaStream_t>(stream));
+}
 
 // Resident blocks per SM of the periodic kernel that minipic_advance (mode
 // 0 f32, 1 int8) or minipic_advance_f64 (mode 2) would launch for this

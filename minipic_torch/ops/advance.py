@@ -53,9 +53,17 @@ fields; "f64", every deck of precision "f64", takes float64 ones and is the
 f32 mode's arithmetic in double: the exact Esirkepov deposit that the JAX
 package's f64 runs take (its XLA branch), whatever the deck's deposit.
 
-``fused_push_deposit`` then applies, in torch, what the JAX wrapper applies
-after its ``pallas_call``: the uniform q*max(w) scale of int8 jx/jy and the
-x/y prefix sums.
+``fused_push_deposit`` is the step's advance: the JAX wrapper's
+``pallas_call`` and what it applies after it (the uniform q*max(w) scale of
+int8 jx/jy, the x/y prefix sums, the max displacement), over the live
+watermark (``live_watermark``).  On the card all of it is hand-written: B1
+launched fused (``AdvanceKernel.fused``) finds each tile's watermark, sums
+the prefixes of its J windows and writes its largest weight, and one small
+kernel after it scales int8 jx/jy by q*max(w) and reduces the displacement;
+no torch operation touches the buckets.  On the CPU it is ``advance_plain``
+and that epilogue in torch.  ``AdvanceKernel.__call__`` (raw: given counts,
+J before the prefix sums, per-tile displacements) is the plain version's
+contract, for the tests and tools.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..core.state import FieldState, ParticleState
 from ..particles.shapes import shape_values
 
@@ -148,7 +157,7 @@ def resolve_mode(deposit: str, qw0: float, tile_ny: int, tile_nx: int,
 
 
 _INT_PARAMS = ("num_tiles", "capacity", "tile_nx", "tile_ny", "guard",
-               "periodic", "win_warps")
+               "periodic", "win_warps", "fused")
 _REAL_PARAMS = ("h", "dtdx", "dtdy", "q", "grid_nx", "grid_ny", "inv_nx",
                 "inv_ny", "half_x", "half_y", "cjx", "cjy", "cz", "czq",
                 "S")
@@ -461,11 +470,13 @@ def _advance_block(p: ParticleState, ftiles: FieldState, counts: torch.Tensor,
 
 
 class AdvanceKernel:
-    """Launches csrc/advance.cu (or the copy at `src`); ``launches`` counts
-    kernel launches."""
+    """Launches csrc/advance.cu (or the copy at `src`): B1, raw
+    (``__call__``) or fused (``fused``).  ``launches`` counts B1's
+    launches, ``finish_launches`` those of the kernel after a fused one."""
 
     def __init__(self, src=None):
         self.launches = 0
+        self.finish_launches = 0
         self._src = src
         self._lib = None
 
@@ -477,11 +488,18 @@ class AdvanceKernel:
             lib = ctypes.CDLL(str(built.path))
             fn = lib.minipic_advance
             fn.argtypes = ([ctypes.c_int, ctypes.c_int, AdvanceParams]
-                           + [ctypes.c_void_p] * 25)
+                           + [ctypes.c_void_p] * 26)
             fn.restype = ctypes.c_int
             fn = lib.minipic_advance_f64
             fn.argtypes = ([ctypes.c_int, AdvanceParams64]
-                           + [ctypes.c_void_p] * 25)
+                           + [ctypes.c_void_p] * 26)
+            fn.restype = ctypes.c_int
+            fn = lib.minipic_advance_finish
+            fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_float]
+                           + [ctypes.c_void_p] * 6)
+            fn.restype = ctypes.c_int
+            fn = lib.minipic_advance_finish_f64
+            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
             fn.restype = ctypes.c_int
             occ = lib.minipic_advance_blocks_per_sm
             occ.argtypes = [ctypes.c_int] * 5
@@ -501,8 +519,46 @@ class AdvanceKernel:
         return n
 
     def __call__(self, p: ParticleState, ftiles: FieldState,
-                 counts: torch.Tensor, *, qm, q, order, tile_ny, tile_nx,
-                 origins, g, dt, dx, dy, grid, mode):
+                 counts: torch.Tensor, **kw):
+        """B1 raw, over the watermarks `counts`: ``advance_plain``'s
+        outputs (new x, y, px, py, pz; the J windows before the prefix sums
+        and the int8 scale; the per-tile max displacement [T])."""
+        _check(counts, "counts", torch.int32, (p.x.shape[0],), p.x.device)
+        outs, js, dmax, _ = self._launch(p, ftiles, counts, **kw)
+        return outs, js, dmax
+
+    def fused(self, p: ParticleState, ftiles: FieldState, **kw):
+        """B1 fused, then the kernel after it: ``fused_push_deposit`` on the
+        card, with no torch operation over the buckets (see the module
+        docstring)."""
+        mode = kw["mode"]
+        outs, js, dmax_t, wmax_t = self._launch(p, ftiles, None, **kw)
+        T, nyg, nxg = js[0].shape
+        dmax = torch.empty((), dtype=dmax_t.dtype, device=dmax_t.device)
+        stream = torch.cuda.current_stream(dmax.device).cuda_stream
+        lib = self._load()
+        if mode == "f64":
+            err = lib.minipic_advance_finish_f64(T, dmax_t.data_ptr(),
+                                                 dmax.data_ptr(), stream)
+        else:
+            quant = mode == "int8"
+            err = lib.minipic_advance_finish(
+                int(quant), T, nyg * nxg, kw["q"], js[0].data_ptr(),
+                js[1].data_ptr(), dmax_t.data_ptr(),
+                wmax_t.data_ptr() if quant else None, dmax.data_ptr(),
+                stream)
+        if err != 0:
+            raise RuntimeError(f"advance finish kernel launch failed: CUDA "
+                               f"error {err}")
+        self.finish_launches += 1
+        return ParticleState(*outs, p.w), js, dmax
+
+    def _launch(self, p: ParticleState, ftiles: FieldState,
+                counts: Optional[torch.Tensor], *, qm, q, order, tile_ny,
+                tile_nx, origins, g, dt, dx, dy, grid, mode):
+        """One launch of B1: raw over `counts`, or fused for `counts` None.
+        Returns the new particle channels, the J windows, the per-tile max
+        displacement and (fused int8, else None) the per-tile max weight."""
         T, cap = p.x.shape
         nyg, nxg = tile_ny + 2 * g, tile_nx + 2 * g
         dev = p.x.device
@@ -513,7 +569,6 @@ class AdvanceKernel:
             _check(a, name, real, (T, cap), dev)
         for name, a in zip(FieldState._fields, ftiles):
             _check(a, name, real, (T, nyg, nxg), dev)
-        _check(counts, "counts", torch.int32, (T,), dev)
         ox, oy = origins
         _check(ox, "ox", torch.int32, (T,), dev)
         _check(oy, "oy", torch.int32, (T,), dev)
@@ -525,21 +580,26 @@ class AdvanceKernel:
                              f"{_SMEM_LIMIT} bytes of shared memory a block "
                              "may use")
         lib = self._load()
+        fused = counts is None
         k = _constants(qm=qm, q=q, order=order, tile_ny=tile_ny,
                        tile_nx=tile_nx, dt=dt, dx=dx, dy=dy, grid=grid,
                        mode=mode)
         params = (AdvanceParams64 if mode == "f64" else AdvanceParams)(
             num_tiles=T, capacity=cap, tile_nx=tile_nx, tile_ny=tile_ny,
             guard=g, periodic=int(grid is not None),
-            win_warps=window_warps(nyg, nxg, mode), **k)
+            win_warps=window_warps(nyg, nxg, mode), fused=int(fused), **k)
         outs = tuple(torch.empty_like(a) for a in p[:5])
         js = tuple(torch.empty((T, nyg, nxg), dtype=real, device=dev)
                    for _ in range(3))
         dmax = torch.empty(T, dtype=real, device=dev)
+        wmax = (torch.empty(T, dtype=real, device=dev)
+                if fused and mode == "int8" else None)
         ptrs = ([a.data_ptr() for a in p]
-                + [counts.data_ptr(), ox.data_ptr(), oy.data_ptr()]
+                + [None if fused else counts.data_ptr(), ox.data_ptr(),
+                   oy.data_ptr()]
                 + [a.data_ptr() for a in ftiles]
-                + [a.data_ptr() for a in outs + js] + [dmax.data_ptr()])
+                + [a.data_ptr() for a in outs + js] + [dmax.data_ptr()]
+                + [None if wmax is None else wmax.data_ptr()])
         stream = torch.cuda.current_stream(dev).cuda_stream
         if mode == "f64":
             err = lib.minipic_advance_f64(order, params, *ptrs, stream)
@@ -550,7 +610,7 @@ class AdvanceKernel:
             raise RuntimeError(f"advance kernel launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
-        return outs, js, dmax
+        return outs, js, dmax, wmax
 
 
 def _check(a: torch.Tensor, name: str, dtype, shape, device):
@@ -582,27 +642,42 @@ def live_watermark(w: torch.Tensor) -> torch.Tensor:
     return (slot[None, :] * (w > 0).to(torch.int32)).amax(dim=1)
 
 
-def fused_push_deposit(p: ParticleState, ftiles: FieldState,
-                       counts: torch.Tensor, *, qm: float, q: float,
-                       order: int, tile_ny: int, tile_nx: int,
+def fused_push_deposit(p: ParticleState, ftiles: FieldState, *, qm: float,
+                       q: float, order: int, tile_ny: int, tile_nx: int,
                        origins: Tuple[torch.Tensor, torch.Tensor], g: int,
                        dt: float, dx: float, dy: float,
                        grid: Optional[Tuple[int, int]], mode: str):
-    """The advance with the JAX wrapper's epilogue.  Returns (pushed
-    ParticleState, its positions wrapped on a periodic `grid` and unwrapped
-    in the open mode (grid None), (jx, jy, jz) [T, nyg, nxg], max
-    displacement this step in cells as a 0-d tensor)."""
-    (xo, yo, pxo, pyo, pzo), (jx, jy, jz), dmax = advance_tiles(
-        p, ftiles, counts, qm=qm, q=q, order=order, tile_ny=tile_ny,
-        tile_nx=tile_nx, origins=origins, g=g, dt=dt, dx=dx, dy=dy,
-        grid=grid, mode=mode)
+    """The advance over the live watermark with the JAX wrapper's epilogue.
+    Returns (pushed ParticleState, its positions wrapped on a periodic
+    `grid` and unwrapped in the open mode (grid None), (jx, jy, jz) [T, nyg,
+    nxg], max displacement this step in cells as a 0-d tensor).  On the card
+    B1 fused and the kernel after it (counted ``advance.fused_epilogue``);
+    on the CPU the plain version and the epilogue in torch."""
+    kw = dict(qm=qm, q=q, order=order, tile_ny=tile_ny, tile_nx=tile_nx,
+              origins=origins, g=g, dt=dt, dx=dx, dy=dy, grid=grid,
+              mode=mode)
+    if p.x.is_cuda:
+        trace.count("advance.fused_epilogue")
+        return advance_kernel.fused(p, ftiles, **kw)
+    outs, js, dmax = advance_tiles(p, ftiles, live_watermark(p.w), **kw)
+    js, dmax = torch_epilogue(js, dmax, p.w, q=q, mode=mode)
+    return ParticleState(*outs, p.w), js, dmax
+
+
+def torch_epilogue(js, dmax: torch.Tensor, w: torch.Tensor, *, q: float,
+                   mode: str):
+    """The JAX wrapper's epilogue in torch, over the raw windows `js` and
+    per-tile displacements `dmax` of ``advance_plain`` (or of B1 raw):
+    int8 jx and jy scaled by q*max(w), jx summed along x and jy along y
+    (``torch.cumsum``), the max displacement.  Returns ((jx, jy, jz), 0-d
+    max displacement)."""
+    jx, jy, jz = js
     if mode == "int8":
         # q stays a Python number: the product rounds it once to the
         # channels' type, as a tensor of it would, without the host-to-device
-        # copy that making such a tensor costs (it drains the queue).
-        qws = p.w.max() * q
+        # copy that making such a tensor costs on the card.
+        qws = w.max() * q
         jx = jx * qws
         jy = jy * qws
-    jx = torch.cumsum(jx, dim=-1)
-    jy = torch.cumsum(jy, dim=-2)
-    return ParticleState(xo, yo, pxo, pyo, pzo, p.w), (jx, jy, jz), dmax.max()
+    return (torch.cumsum(jx, dim=-1), torch.cumsum(jy, dim=-2), jz), \
+        dmax.max()

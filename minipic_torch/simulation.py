@@ -70,7 +70,7 @@ from .fields.boundary import apply_damping, damping_mask
 from .fields.halo import fold_block_periodic, pad_fields_periodic
 from .fields.tiles import extract_field_tiles, fold_tiles
 from .fields.yee import update_b_half_periodic, update_e_full_periodic
-from .ops.advance import fused_push_deposit, live_watermark, resolve_mode
+from .ops.advance import fused_push_deposit, resolve_mode
 from .ops.diag import census, moments
 from .particles import species as species_mod
 from .particles.binning import rebin, rebin_auto, wrap_positions
@@ -290,9 +290,9 @@ def advance_species_tiles(p: ParticleState, ftiles: FieldState, *, qm: float,
     unwrapped for grid None, (jx, jy, jz) tile windows, max displacement in
     cells)."""
     return fused_push_deposit(
-        p, ftiles, live_watermark(p.w), qm=qm, q=q, order=order,
-        tile_ny=tile_ny, tile_nx=tile_nx, origins=origins, g=g, dt=dt,
-        dx=dx, dy=dy, grid=grid, mode=mode)
+        p, ftiles, qm=qm, q=q, order=order, tile_ny=tile_ny,
+        tile_nx=tile_nx, origins=origins, g=g, dt=dt, dx=dx, dy=dy,
+        grid=grid, mode=mode)
 
 
 def deposit_modes(deck: Deck) -> list:

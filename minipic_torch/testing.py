@@ -243,3 +243,128 @@ def diag_species(num_tiles: int, cap: int, *, live: float = 0.6,
     w = torch.where(alive, w, torch.zeros_like(w))
     pos = [rnd() * 8 for _ in range(2)]
     return ParticleState(*pos, *mom, w)
+
+
+def fused_epilogue(js, dmax, w, *, q, mode, **kw):
+    """What csrc/advance.cu's fused launch and the finish kernel after it
+    make of B1's raw windows `js` and per-tile displacements `dmax` (the
+    outputs of ``AdvanceKernel.__call__`` or ``advance_plain`` over
+    ``live_watermark(w)``), in their order: int8 jx and jy summed as the
+    integers they are (recovered from ``float(i) * cjx``, and checked),
+    then converted and scaled by q*max(w), each rounded once; f32 and f64
+    summed left to right (bottom to top) in their own type.  `kw`: the rest
+    of the advance's arguments (cjx, cjy from ``_constants``).  Returns
+    ((jx, jy, jz), 0-d max displacement)."""
+    from .ops import advance as adv
+
+    jx, jy, jz = js
+    if mode == "int8":
+        k = adv._constants(q=q, mode=mode, **{
+            n: kw[n] for n in ("qm", "order", "tile_ny", "tile_nx", "dt",
+                               "dx", "dy", "grid")})
+        qws = w.max() * q
+        out = []
+        for raw, c, dim in ((jx, k["cjx"], -1), (jy, k["cjy"], -2)):
+            c = adv._f(c, raw)
+            i = torch.round(raw.double() / c.double()).long()
+            if not torch.equal(i.to(raw.dtype) * c, raw):
+                raise ValueError("raw int8 windows are not integers times "
+                                 "their factor")
+            out.append((i.cumsum(dim).to(raw.dtype) * c) * qws)
+        jx, jy = out
+    else:
+        jx, jy = running_sum(jx, -1), running_sum(jy, -2)
+    return (jx, jy, jz), dmax.max()
+
+
+def running_sum(a, dim: int):
+    """Prefix sums of `a` along `dim`, added one after another in `a`'s
+    type, the first element as it is."""
+    out = a.clone()
+    for k in range(1, a.shape[dim]):
+        out.select(dim, k).copy_(out.select(dim, k - 1) + a.select(dim, k))
+    return out
+
+
+def prefix_gap_bound(terms, dim: int):
+    """A bound on the gap between two prefix sums of `terms` along `dim`
+    that each round at most n + 3 times a prefix (n = the axis' length: one
+    rounding an add, up to three in forming a term): (2 n + 6) u
+    cumsum(|terms|), u the unit roundoff of the terms' type."""
+    n = terms.shape[dim]
+    u = torch.finfo(terms.dtype).eps / 2
+    return (2 * n + 6) * u * terms.double().abs().cumsum(dim)
+
+
+def edge_case_buckets(device, *, cap: int = 1024, n_live: int = 700,
+                      dtype=torch.float32, periodic: bool = True,
+                      gids: bool = False, graded: bool = False,
+                      seed: int = 0):
+    """Buckets for the fused advance's edge cases on a 32^2 box of 4x4
+    tiles of 8x8 cells (guard 4): `n_live` live slots a bucket, up to a
+    cell off their tile (inside the box between open walls), except tile 0,
+    with no live slot; tile 1, live in its last slot too (watermark =
+    `cap`); tile 2, every third slot below its watermark dead (holes).
+    `graded`: weights 0.004 (1 + U[0, 1)), else 0.004.  `gids`: bucket t
+    holds tile perm[t] of a fixed permutation (global origins).  Returns
+    (ParticleState, FieldState windows, the advance's keyword arguments
+    less `mode`)."""
+    from .core.state import FieldState, ParticleState
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    T = 16
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=device, dtype=dtype)
+
+    gid = (torch.tensor([5, 0, 9, 14, 2, 11, 7, 1, 12, 4, 15, 8, 3, 10, 6,
+                         13], device=device) if gids
+           else torch.arange(T, device=device))
+    ox, oy = ((gid % 4) * 8).to(torch.int32), ((gid // 4) * 8).to(torch.int32)
+    x = ox[:, None] + rnd(T, cap) * 10 - 1
+    y = oy[:, None] + rnd(T, cap) * 10 - 1
+    if periodic:
+        x, y = torch.remainder(x, 32), torch.remainder(y, 32)
+    else:
+        x, y = x.clamp(0.01, 31.99), y.clamp(0.01, 31.99)
+    mom = [(rnd(T, cap) - 0.5) * 0.4 for _ in range(3)]
+    slot = torch.arange(cap, device=device)[None, :]
+    live = (slot < n_live).expand(T, cap).clone()
+    live[0] = False
+    live[1, cap - 1] = True
+    live[2] &= slot[0] % 3 != 1
+    w = 0.004 * (1.0 + rnd(T, cap) if graded else torch.ones_like(x))
+    w = torch.where(live, w, torch.zeros_like(w))
+    ft = FieldState(*((rnd(T, 16, 16) - 0.5) * 0.2 for _ in range(6)))
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              origins=(ox, oy), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32) if periodic else None)
+    return ParticleState(x, y, *mom, w), ft, kw
+
+
+def torch_ops(fn, device_type: str = "cuda"):
+    """Runs fn() and returns (its result, the names of the torch operations
+    it ran with a tensor on `device_type` that launch work there: every
+    operation but allocations (``empty*``) and views).  Kernels launched
+    outside torch (the port's ctypes launches) are not operations."""
+    from torch.utils._pytree import tree_flatten
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    names = []
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            view = any(r.alias_info is not None and not r.alias_info.is_write
+                       for r in func._schema.returns)
+            on = any(isinstance(a, torch.Tensor)
+                     and a.device.type == device_type
+                     for a in tree_flatten((args, kwargs, out))[0])
+            if on and not view and not name.startswith("empty"):
+                names.append(name)
+            return out
+
+    with _Count():
+        result = fn()
+    return result, names

@@ -76,7 +76,7 @@ def _jax_advance(deck, tiling, p, ftiles, mode):
 
 def _port_advance(deck, tiling, pt, ft, mode):
     return fused_push_deposit(
-        pt, ft, live_watermark(pt.w), qm=-1.0, q=-1.0,
+        pt, ft, qm=-1.0, q=-1.0,
         order=deck.species[0].shape_order, tile_ny=tiling.tile_ny,
         tile_nx=tiling.tile_nx, origins=tile_origins(tiling, "cpu"),
         g=deck.guard,
@@ -692,7 +692,7 @@ def test_open_mode_matches_pallas_interpret(order, tile, guard):
         return_disp=True)
     pt = _torch(p, ParticleState)
     out, jt, dt_ = fused_push_deposit(
-        pt, _torch(ftiles, FieldState), live_watermark(pt.w), qm=-1.0,
+        pt, _torch(ftiles, FieldState), qm=-1.0,
         q=-1.0, order=order, tile_ny=tile, tile_nx=tile,
         origins=tile_origins(tiling, "cpu"), g=guard, dt=deck.dt, dx=deck.dx,
         dy=deck.dy, grid=None, mode="f32")

@@ -213,7 +213,7 @@ def test_plain_f64_advance_matches_jax_xla_branch(order, boundary):
                         deck.guard, torch.float64)
     assert mode == "f64"
     out, jt, _ = fused_push_deposit(
-        pt, ft, live_watermark(pt.w), qm=-1.0, q=-1.0, order=order,
+        pt, ft, qm=-1.0, q=-1.0, order=order,
         tile_ny=tiling.tile_ny, tile_nx=tiling.tile_nx,
         origins=tile_origins(tiling, CPU), g=deck.guard, dt=deck.dt,
         dx=deck.dx, dy=deck.dy, grid=grid, mode=mode)

@@ -1326,3 +1326,131 @@ def test_step_launches_the_diagnostics_kernels(cuda, deck):
     live = sum(int((p.w > 0).sum()) for p in st.species)
     assert int(d.shard_live[0]) == live
     assert int(d.weight_nonuniform) == 0
+
+
+# ----------------------------------------------------------------------
+# B1 fused (the step's advance): its own watermark, the prefix sums in its
+# J flush, and the finish kernel's q*max(w) scale and max displacement,
+# against B1 raw over live_watermark with the torch epilogue after it.
+
+_FUSED_CASES = {
+    # name: testing.edge_case_buckets arguments (every case holds an empty
+    # tile, a tile live in its last slot and a tile with holes; 8,200
+    # slots: the watermark's scan reads up to three chunks of 4,096)
+    "periodic": dict(periodic=True),
+    "periodic_gids_graded": dict(periodic=True, gids=True, graded=True),
+    "open": dict(periodic=False),
+    "open_gids_graded": dict(periodic=False, gids=True, graded=True),
+}
+
+
+@pytest.mark.parametrize("case", list(_FUSED_CASES))
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("mode", ["int8", "f32", "f64"])
+def test_fused_advance_matches_the_raw_kernel_and_the_torch_epilogue(
+        cuda, mode, order, case):
+    """Particles, the max displacement and jz bit for bit as B1 raw over
+    live_watermark gives them (dmax.max()); jx and jy bit for bit as
+    testing.fused_epilogue makes of the raw windows, and within
+    prefix_gap_bound of the torch epilogue's (int8: the kernel sums the
+    exact integers, then rounds twice; f32, f64: left to right).  Graded
+    int8 weights pin the global max(w), not a tile's.  Two fused launches
+    agree bit for bit (int8's jz too: its warps' sums add in a fixed
+    order)."""
+    from minipic_torch import trace
+    from minipic_torch.ops.advance import fused_push_deposit, torch_epilogue
+    from minipic_torch.testing import (edge_case_buckets, fused_epilogue,
+                                       prefix_gap_bound)
+
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    p, ft, kw = edge_case_buckets(cuda, cap=8200, n_live=700, dtype=dtype,
+                                  **_FUSED_CASES[case])
+    kw = dict(kw, order=order, mode=mode)
+    n0, f0 = advance_kernel.launches, advance_kernel.finish_launches
+    trace.drain()
+    trace.enable()
+    try:
+        out, js, d = fused_push_deposit(p, ft, **kw)
+    finally:
+        trace.disable()
+    assert trace.drain()[1]["advance.fused_epilogue"] == 1
+    assert advance_kernel.launches == n0 + 1
+    assert advance_kernel.finish_launches == f0 + 1
+    again = advance_kernel.fused(p, ft, **kw)
+    raw_out, raw_js, raw_d = advance_kernel(p, ft, live_watermark(p.w),
+                                            **kw)
+    want_js, want_d = fused_epilogue(raw_js, raw_d, p.w, **kw)
+    torch_js, torch_d = torch_epilogue(raw_js, raw_d, p.w, q=kw["q"],
+                                       mode=mode)
+    torch.cuda.synchronize()
+    for a, b in zip(out, tuple(raw_out) + (p.w,)):
+        assert torch.equal(a, b)
+    assert d.dim() == 0 and torch.equal(d, raw_d.max())
+    assert torch.equal(d, torch_d)
+    assert torch.equal(js[2], raw_js[2])
+    for name, a, b in zip(("jx", "jy", "jz"), js, want_js):
+        assert torch.equal(a, b), name
+    qws = p.w.max() * kw["q"] if mode == "int8" else 1.0
+    for a, b, raw, dim in ((js[0], torch_js[0], raw_js[0], -1),
+                           (js[1], torch_js[1], raw_js[1], -2)):
+        gap = (a.double() - b.double()).abs()
+        assert bool((gap <= prefix_gap_bound(raw * qws, dim)).all())
+    for a, b in zip(tuple(out) + js + (d,),
+                    tuple(again[0]) + again[1] + (again[2],)):
+        assert torch.equal(a, b)
+    assert not bool(js[2][0].any()) and bool(js[2][2].any())
+
+
+@pytest.mark.parametrize("deck", ["headline", "laser_plasma"])
+def test_step_runs_no_torch_operation_in_the_advance(cuda, deck,
+                                                     monkeypatch):
+    """Simulation.run_step on the card: inside the advance, B1 fused and
+    the finish kernel, one launch each a species, counted by
+    ``advance.fused_epilogue``, and no torch operation that launches work.
+    The parent's sequence on the same inputs (live_watermark, B1 raw, the
+    torch epilogue) runs 12 such operations a species in int8 and 8 in
+    f32, so a step launches 11 (int8) or 7 (f32) kernels fewer a species."""
+    from minipic_torch import simulation, trace
+    from minipic_torch.decks import standard
+    from minipic_torch.headline import headline_deck
+    from minipic_torch.ops.advance import torch_epilogue
+    from minipic_torch.testing import torch_ops
+
+    if deck == "headline":
+        sim = simulation.Simulation(headline_deck(grid=64), device=cuda)
+    else:
+        sim = standard.make("laser_plasma", nx=64, ny=64,
+                            ppc=2).simulation(device=cuda)
+    n_sp = len(sim.deck.species)
+    sim.run_step(1)
+    real = simulation.advance_species_tiles
+    ops, calls = [], []
+
+    def counted(p, ftiles, **kw):
+        calls.append((p, ftiles, kw))
+        out, names = torch_ops(lambda: real(p, ftiles, **kw))
+        ops.extend(names)
+        return out
+
+    monkeypatch.setattr(simulation, "advance_species_tiles", counted)
+    n0, f0 = advance_kernel.launches, advance_kernel.finish_launches
+    steps = 6
+    trace.drain()
+    trace.enable()
+    try:
+        for i in range(2, 2 + steps):
+            sim.run_step(i)
+    finally:
+        trace.disable()
+    counters = trace.drain()[1]
+    assert ops == []
+    assert len(calls) == n_sp * steps
+    assert advance_kernel.launches - n0 == n_sp * steps
+    assert advance_kernel.finish_launches - f0 == n_sp * steps
+    assert counters["advance.fused_epilogue"] == n_sp * steps
+    for p, ftiles, kw in calls[-n_sp:]:
+        mode = kw["mode"]
+        _, names = torch_ops(lambda: torch_epilogue(
+            *advance_kernel(p, ftiles, live_watermark(p.w), **kw)[1:],
+            p.w, q=kw["q"], mode=mode))
+        assert len(names) == {"int8": 12, "f32": 8}[mode], names

@@ -32,8 +32,7 @@ from minipic_torch import bridge  # noqa: E402
 from minipic_torch.core import config as tcfg  # noqa: E402
 from minipic_torch.core.state import FieldState, ParticleState  # noqa: E402
 from minipic_torch.ops import rebin as rb  # noqa: E402
-from minipic_torch.ops.advance import (  # noqa: E402
-    fused_push_deposit, live_watermark)
+from minipic_torch.ops.advance import fused_push_deposit  # noqa: E402
 from minipic_torch.parallel import exchange, halo  # noqa: E402
 from minipic_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402
 from minipic_torch.parallel.step import (  # noqa: E402
@@ -262,7 +261,7 @@ def test_plain_advance_with_global_origins_matches_pallas(layout, mode):
     origins = (torch.tensor(ox, dtype=torch.int32),
                torch.tensor(oy, dtype=torch.int32))
     po, jt, _ = fused_push_deposit(
-        pt, ftt, live_watermark(pt.w), qm=-1.0, q=-1.0, order=2, tile_ny=8,
+        pt, ftt, qm=-1.0, q=-1.0, order=2, tile_ny=8,
         tile_nx=8, origins=origins, g=4, dt=deck.dt, dx=deck.dx, dy=deck.dy,
         grid=(64, 64), mode=mode)
     alive = np.asarray(sub.w) > 0

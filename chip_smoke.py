@@ -49,10 +49,9 @@ Phases, each printing what it found; any failure exits non-zero:
    channels: counts and flags exact, sums within 1e-12 of the sum of the
    terms' magnitudes, two launches bit-equal; each one's time beside the
    plain version's and its bound, and the HBM rate it reached;
-3. small step: three 32^2 decks stepped on the card (kernels) against the
-   same state stepped on the CPU (plain versions): the sort route, the
-   deal route (ppc 40, buckets big enough for it), and the deal route with
-   ``MINIPIC_APPEND_FUSED=0`` (append_runs);
+3. small step: two 32^2 decks stepped on the card (kernels) against the
+   same state stepped on the CPU (plain versions): the sort route and the
+   deal route (ppc 40, buckets big enough for it);
 4. decks: ``two_stream``, ``weibel`` and ``landau`` at their default sizes,
    seeded by their ``seed_state``, stepped on the card and on the CPU from
    one state with a re-bin forced half way (the small-bucket route:
@@ -67,7 +66,7 @@ Phases, each printing what it found; any failure exits non-zero:
    ``ShardedSimulation`` at (2, 2) and (2, 4) and ``BalancedSimulation``
    over 8 shards against ``Simulation`` on the card, 30 steps of
    tests/test_parallel.py:84's deck in f32 (int8, guard 4) and of its
-   deal-route variant (fused and append_runs), field energy within 1e-5
+   deal-route variant, field energy within 1e-5
    and kinetic within 1e-6 (the JAX package's bars), live counts exact,
    overflow 0; ``laser_wakefield_window`` cut to 64x32, sharded and striped,
    through two shifts;
@@ -1122,28 +1121,19 @@ def _small_deck(rebin_mode: str, ppc: int):
         rebin_mode=rebin_mode)
 
 
-def phase_small_step(dev) -> int:
-    """Three 32^2 headline-shaped decks stepped on the card (kernels) and on
-    the CPU (plain versions) from the same state: the sort route (ppc 8),
-    the deal route (ppc 40: 3072-slot buckets, 512-slot mover buffers,
-    256-slot runs), and the same with MINIPIC_APPEND_FUSED=0, read when the
-    step is built, so that append_runs appends.  Returns append_runs'
-    launches in that run."""
+def phase_small_step(dev) -> None:
+    """Two 32^2 headline-shaped decks stepped on the card (kernels) and on
+    the CPU (plain versions) from the same state: the sort route (ppc 8)
+    and the deal route (ppc 40: 3072-slot buckets, 512-slot mover buffers,
+    256-slot runs)."""
     from minipic_torch import bridge
     from minipic_torch.ops import rebin as rb
     from minipic_torch.simulation import Simulation
 
-    runs_launches = 0
-    for label, deck, fused in (("sort", _small_deck("sort", 8), "1"),
-                               ("deal", _small_deck("auto", 40), "1"),
-                               ("deal unfused", _small_deck("auto", 40),
-                                "0")):
-        os.environ["MINIPIC_APPEND_FUSED"] = fused
-        try:
-            cpu = Simulation(deck, seed=1, device="cpu")
-            gpu = Simulation(deck, seed=1, device=dev)
-        finally:
-            os.environ.pop("MINIPIC_APPEND_FUSED")
+    for label, deck in (("sort", _small_deck("sort", 8)),
+                        ("deal", _small_deck("auto", 40))):
+        cpu = Simulation(deck, seed=1, device="cpu")
+        gpu = Simulation(deck, seed=1, device=dev)
         check(gpu.backend == "cuda", "small deck did not take the CUDA "
               "backend")
         gpu.state = bridge.sim_state_from_numpy(
@@ -1170,15 +1160,12 @@ def phase_small_step(dev) -> int:
         app = (rb.append_kernel.launches, rb.append_runs_kernel.launches)
         check(split == (0 if label == "sort" else rebins),
               f"small {label}: {split} split launches, {rebins} re-bins")
-        check(app == ((0, split) if fused == "0" else (split, 0)),
+        check(app == (split, 0),
               f"small {label}: append/append_runs launches {app}")
-        if fused == "0":
-            runs_launches = app[1]
         print(f"small step: {label} route, 30 steps at 32^2 on the card "
               f"match the CPU (field energy {fe[0]:.6e} vs {fe[1]:.6e}, "
               f"{rebins} re-bins, {split} split launches, append/"
               f"append_runs launches {app[0]}/{app[1]})")
-    return runs_launches
 
 
 def _energies(state, deck):
@@ -1198,7 +1185,6 @@ def phase_decks(dev) -> dict:
     in that deck's card run (its device time is left to device_times)."""
     from minipic_torch import bridge
     from minipic_torch.decks import standard
-    from minipic_torch.headline import _force_rebin
     from minipic_torch.ops import rebin as rb
     from minipic_torch.simulation import Simulation
 
@@ -1217,8 +1203,8 @@ def phase_decks(dev) -> dict:
             k.reset()
         for i in range(steps):
             if i == steps // 2 and not rebin_steps:
-                _force_rebin(cpu)
-                _force_rebin(gpu)
+                cpu.force_rebin()
+                gpu.force_rebin()
             dc, dg = cpu.step(), gpu.step()
             fe = (float(dg.field_energy), float(dc.field_energy))
             check(abs(fe[0] - fe[1]) <= 1e-4 * abs(fe[1]) + 1e-12,
@@ -2282,7 +2268,6 @@ def _run(sim, steps: int, card: str, label: str, force_at=None):
 
     from minipic_torch.core.state import (field_energy_plain,
                                           kinetic_energy_plain)
-    from minipic_torch.headline import _force_rebin
 
     deck = sim.deck
     p0 = sim.state.species[0]
@@ -2297,7 +2282,7 @@ def _run(sim, steps: int, card: str, label: str, force_at=None):
     adv_ms, rebin_ms = [], []
     for i in range(steps):
         if i == force_at:
-            _force_rebin(sim)
+            sim.force_rebin()
         torch.cuda.synchronize()
         ts = time.perf_counter()
         diag = sim.step()
@@ -2850,25 +2835,19 @@ def phase_mesh_twins(dev, card: str) -> None:
                 guard=2, deposit="",
                 species=(cfg.SpeciesSpec("ele", charge=-1.0, mass=1.0,
                                          ppc=12, ux=0.3, uy=0.2, uth=0.05),))
-    runs = (("sharded (2, 2)", dict(mesh_shape=(2, 2)), "sharded", "1"),
-            ("sharded (2, 4)", dict(mesh_shape=(2, 4)), "sharded", "1"),
-            ("striped 8", {}, "balanced", "1"),
+    runs = (("sharded (2, 2)", dict(mesh_shape=(2, 2)), "sharded"),
+            ("sharded (2, 4)", dict(mesh_shape=(2, 4)), "sharded"),
+            ("striped 8", {}, "balanced"),
             ("deal route sharded (2, 2)", dict(mesh_shape=(2, 2), **deal),
-             "sharded", "1"),
-            ("deal route sharded (2, 2) append_runs",
-             dict(mesh_shape=(2, 2), **deal), "sharded", "0"))
-    for label, kw, layout, fused in runs:
+             "sharded"))
+    for label, kw, layout in runs:
         deck = _twin_deck(**kw)
-        os.environ["MINIPIC_APPEND_FUSED"] = fused
-        try:
-            ref = Simulation(deck, seed=7, device=dev)
-            if layout == "sharded":
-                r, c = deck.mesh_shape
-                sim = ShardedSimulation(deck, seed=7, devices=[dev] * (r * c))
-            else:
-                sim = BalancedSimulation(deck, seed=7, devices=[dev] * 8)
-        finally:
-            os.environ.pop("MINIPIC_APPEND_FUSED")
+        ref = Simulation(deck, seed=7, device=dev)
+        if layout == "sharded":
+            r, c = deck.mesh_shape
+            sim = ShardedSimulation(deck, seed=7, devices=[dev] * (r * c))
+        else:
+            sim = BalancedSimulation(deck, seed=7, devices=[dev] * 8)
         check(sim.mesh.distinct() == [dev], f"{label}: mesh devices "
               f"{sim.mesh.distinct()}")
         if "deal" in label:
@@ -2884,8 +2863,7 @@ def phase_mesh_twins(dev, card: str) -> None:
         check(counts["split"] == rebins * n_sp * sim.mesh.size,
               f"{label}: split launches {counts['split']}")
         if "deal" in label:
-            app = "append" if fused == "1" else "append_runs"
-            check(counts["segment"] == counts[app] == counts["split"],
+            check(counts["segment"] == counts["append"] == counts["split"],
                   f"{label}: launches {counts}")
         print(f"mesh twins: {label}, {sim.mesh.size} shards on {dev}: "
               f"{MESH_TWIN_STEPS} steps match Simulation on the card (field "
@@ -3740,7 +3718,7 @@ def main() -> int:
     for dtype in (None, torch.float64):
         phase_rebin_kernels(dev, dtype)
         phase_rebin_kernels_b6_b8(dev, dtype)
-    runs_launches = phase_small_step(dev)
+    phase_small_step(dev)
     b6 = phase_decks(dev)
     phase_open_twins(dev)
     phase_sharded_kernels(dev)
@@ -3756,7 +3734,6 @@ def main() -> int:
     sharded, lb_launches = phase_load_balance(dev, card)
     torch.cuda.empty_cache()
     numbers, jobs = phase_main(dev, card)
-    numbers["append_runs"]["launches"] = runs_launches
     numbers["advance"]["open"] = lp_advance
     torch.cuda.empty_cache()
     numbers64, jobs64 = phase_main(dev, card, "f64")

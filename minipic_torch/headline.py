@@ -13,8 +13,6 @@ headline-int8 --seed N --seconds S --trace 1``.
 """
 from __future__ import annotations
 
-import torch
-
 from .core.config import Deck, SpeciesSpec
 
 
@@ -31,13 +29,3 @@ def headline_deck(grid: int = 512, order: int = 2,
         precision="f32", rebin_interval=8, capacity_headroom=1.1, kchunk=0,
         deposit="int8", rebin_mode=rebin_mode)
 
-
-def _force_rebin(sim) -> None:
-    """Make the next step's drift predicate fire."""
-    if hasattr(sim, "shard_state"):  # a multi-device simulation: no assembly
-        st = sim.shard_state
-        sim.shard_state = st._replace(
-            drift=torch.full_like(st.drift, float("inf")))
-        return
-    sim.state = sim.state._replace(
-        drift=torch.full_like(sim.state.drift, float("inf")))

@@ -46,14 +46,14 @@ from ..fields.tiles import extract_field_tiles, fold_tiles
 from ..fields.yee import update_b_half_periodic, update_e_full_periodic
 from ..ops.rebin import append_incoming_, defrag_buckets_, split_buckets
 from ..particles import species as species_mod
-from ..particles.binning import rebin_by_tid
-from ..simulation import (StepDiag, deposit_modes, resolve_backend,
+from ..particles.binning import finish_rebin, rebin_by_tid
+from ..simulation import (Schedule, StepDiag, deposit_modes, resolve_backend,
                           window_injection_key, window_shift_now)
 from ..trace import span
 from .mesh import (Mesh, all_gather, default_devices, move, move_all, on,
                    pall, pmax, psum)
-from .step import (MeshSimulation, Schedule, ShardedState, advance_shards,
-                   finish_rebin, flag_on, mesh_diag, rebin_species)
+from .step import (MeshSimulation, ShardedState, advance_shards, flag_on,
+                   mesh_diag, rebin_species)
 
 
 def shard_of_tile(tile_rows: int, tile_cols: int, n_shards: int) -> np.ndarray:
@@ -384,8 +384,8 @@ class BalancedSimulation(MeshSimulation):
         deck.validate()
         devices = list(devices if devices is not None
                        else default_devices(deck, device))
-        self.mesh = Mesh(devices, 1, len(devices))
-        self._start(deck, fields, seed, build_balanced_step)
+        super().__init__(deck, fields, seed, Mesh(devices, 1, len(devices)),
+                         build_balanced_step)
 
     def storage_permutation(self) -> np.ndarray:
         t = self.deck.tiling

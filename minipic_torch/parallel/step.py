@@ -24,16 +24,19 @@ Per step, per shard (the JAX package's per-chip program, with its
      each shard handing its first column to its left neighbour, the last
      column of the mesh taking fresh plasma keyed per global tile row.
 
-Host reads, each through ``trace.read``: the drift predicate once a step
-(the JAX package's ``pmax`` then one read); ``MeshSimulation.run_step`` adds
-the overflow on a step that re-binned and the census every
-``CAPACITY_CHECK_EVERY`` steps.  The step counter and the window's origin
-live on the host, so the window's shift predicate reads nothing.
+Host reads, each through ``trace.read``: the re-bin decision
+(``simulation.Schedule``) reads the drift predicate once a step (the JAX
+package's ``pmax`` then one read), or, under the interval's grace, the
+backlog flag on a step the interval does not fire; ``run_step``
+(``simulation.Driver``) adds the overflow on a step that re-binned and the
+census every ``CAPACITY_CHECK_EVERY`` steps.  The step counter and the
+window's origin live on the host, so the window's shift predicate reads
+nothing.
 
 Spans: the layers of ``simulation.py`` (``minipic.fields``, ``.advance``,
 ``.rebin``, ``.diag``) and ``minipic.parallel`` around every hand-off
-between devices (``mesh.move``); ``step`` around each step of
-``run_step``, ``step.census`` around its census.
+between devices (``mesh.move``); ``step`` around each step,
+``step.census`` around ``run_step``'s census.
 
 ``ShardedSimulation.state`` assembles the global SimState in the JAX
 package's storage order (shard-major buckets, ``shard_major_permutation``;
@@ -42,7 +45,6 @@ bridge see what the JAX simulation's global arrays hold.
 """
 from __future__ import annotations
 
-import os
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -55,18 +57,16 @@ from ..fields.boundary import local_damping_mask
 from ..fields.tiles import extract_field_tiles, fold_tiles
 from ..fields.yee import update_b_half_block, update_e_full_block
 from ..ops.diag import census, moments
-from ..ops.rebin import (append_incoming_, append_runs_, append_segments_,
-                         defrag_buckets_, identity_neighbor_table,
-                         segment_movers, split_buckets)
+from ..ops.rebin import (append_incoming_, append_segments_, defrag_buckets_,
+                         identity_neighbor_table, segment_movers,
+                         split_buckets)
 from ..particles import species as species_mod
-from ..particles.binning import rebin_flat, wrap_positions
-from ..particles.species import load_species
-from ..simulation import (CAPACITY_CHECK_EVERY, StepDiag,
-                          advance_species_tiles, align_capacity,
-                          bucket_capacity, deposit_modes, rebin_caps,
-                          resolve_backend, tile_origins, uses_rebin_auto,
-                          window_injection_key, window_shift_now)
-from ..trace import read, span
+from ..particles.binning import finish_rebin, rebin_flat, wrap_positions
+from ..simulation import (Driver, Schedule, StepDiag, advance_species_tiles,
+                          align_capacity, deposit_modes, rebin_caps,
+                          resolve_backend, tile_origins, window_injection_key,
+                          window_shift_now)
+from ..trace import span
 from .exchange import exchange_particles, roll_segments_sharded
 from .halo import exchange_halo, fold_halo
 from .mesh import (PARALLEL_RANGE, Mesh, local_tile_grid, make_mesh, move,
@@ -84,52 +84,6 @@ class ShardedState(NamedTuple):
     step: int
     drift: torch.Tensor
     window_x0: Optional[int]
-
-
-class Schedule:
-    """The re-bin decision of a step, shared by the two multi-device
-    simulations and taken as the single-device step takes it: the drift
-    trigger (a mesh-wide displacement, read once), or the interval
-    schedule with its one-step grace; a window shift forces a re-bin."""
-
-    def __init__(self, deck: Deck):
-        self.deck = deck
-        self.trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
-        self.interval_grace = uses_rebin_auto(deck) and (
-            (deck.rebin_interval + 1) * deck.cfl_step_cells()
-            <= deck.guard - deck.shape_reach())
-
-    def decide(self, step: int, drift: torch.Tensor,
-               disp: Optional[torch.Tensor], shift_now: bool):
-        """(re-bin now, force: bool or 0-d bool tensor, drift now)."""
-        deck = self.deck
-        if not deck.species:
-            return False, True, drift
-        if self.trigger_drift:
-            drift_now = drift + disp
-            do = shift_now or read(drift_now > deck.drift_threshold(),
-                                   "drift")
-            force = True if shift_now else drift_now > deck.force_threshold()
-            return do, force, drift_now
-        sched = step % deck.rebin_interval == 0
-        force = True
-        if self.interval_grace and not shift_now:
-            force = drift > 0.5
-            do = (deck.rebin_interval == 1 or sched
-                  or read(force, "schedule"))
-        else:
-            do = shift_now or deck.rebin_interval == 1 or sched
-        return do, force, drift
-
-    def after(self, do_rebin: bool, drift_now: torch.Tensor,
-              pending_total: torch.Tensor) -> torch.Tensor:
-        """The drift carried to the next step."""
-        if do_rebin and self.trigger_drift:
-            return torch.where(pending_total == 0,
-                               torch.zeros_like(drift_now), drift_now)
-        if do_rebin and self.interval_grace:
-            return (pending_total > 0).to(torch.float32)
-        return drift_now
 
 
 def weight_violations(deck: Deck, species_per_shard, mesh: Mesh
@@ -151,19 +105,6 @@ def weight_violations(deck: Deck, species_per_shard, mesh: Mesh
                       for sp in species_per_shard], mesh)[0]
         bad = bad + ((wmin != wmax) & torch.isfinite(wmin)).to(torch.int32)
     return bad
-
-
-def finish_rebin(dropped: torch.Tensor, pending: torch.Tensor, force
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dropped, pending) of one shard's re-bin as ``rebin_auto`` returns
-    them: a forced pass turns the backlog into counted drops."""
-    pend = pending.sum().to(torch.int32)
-    if isinstance(force, bool):
-        return ((dropped + pend, torch.zeros_like(pend)) if force
-                else (dropped, pend))
-    zero = torch.zeros_like(pend)
-    return dropped + torch.where(force, pend, zero), torch.where(force, zero,
-                                                                 pend)
 
 
 def rebin_species(deck: Deck, mesh: Mesh, pushed, do_rebin: bool,
@@ -261,13 +202,10 @@ def flag_on(v, dev):
 
 
 def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
-    """Step function ShardedState -> (ShardedState, StepDiag) over `mesh`.
-    ``MINIPIC_APPEND_FUSED`` is read here, as ``simulation.build_step``
-    reads it."""
+    """Step function ShardedState -> (ShardedState, StepDiag) over `mesh`."""
     deck.validate()
     for d in mesh.distinct():
         resolve_backend(d)
-    fused = os.environ.get("MINIPIC_APPEND_FUSED", "1") == "1"
     rows, cols = mesh.shape
     S = mesh.size
     g = deck.guard
@@ -374,17 +312,13 @@ def build_sharded_step(deck: Deck, mesh: Mesh) -> Callable:
         for sh, (p1, _, wm, pending), inc, rd, okk in zip(
                 shards, splits, incoming, route_drop, ok):
             with on(sh["dev"]):
-                if use_seg and fused:
+                if use_seg:
                     app = append_segments_(p1, inc, wm, sh["ident"],
                                            b_seg=sc, active=okk)
-                elif use_seg:
-                    app = append_runs_(p1, inc, wm, b_seg=sc, active=okk)
-                else:
-                    app = append_incoming_(p1, inc, wm, active=okk)
-                if use_seg:
                     _, dd = defrag_buckets_(p1, inc, sh["ident"], b_seg=sc,
                                             active=~okk)
                 else:
+                    app = append_incoming_(p1, inc, wm, active=okk)
                     _, dd = defrag_buckets_(p1, inc, active=~okk)
                 dropped = (rd + app.sum() + dd.sum()).to(torch.int32)
                 dropped, pend = finish_rebin(dropped, pending,
@@ -534,45 +468,22 @@ def shard_major_permutation(deck: Deck, mesh: Mesh) -> np.ndarray:
     return ((sr * ltr + lr) * t.tile_cols + (sc * ltc + lc)).reshape(-1)
 
 
-class MeshSimulation:
-    """What the two multi-device simulations share: the initial state (the
-    single-device load on the mesh's first device, then put into the
-    layout's storage order and split), the global ``state`` view, and
-    ``step``, ``ensure_capacity`` (grow every shard alike, never shrink),
-    ``run`` and ``run_step`` as ``simulation.Simulation`` has them.
+class MeshSimulation(Driver):
+    """The multi-device simulations' driver: ``simulation.Driver`` with the
+    initial load on the mesh's first device put into the layout's storage
+    order and split, the global ``state`` view, ``shard_state`` (what the
+    step works on), and ``ensure_capacity`` that grows every shard alike.
+    A subclass supplies ``storage_permutation``, ``_split`` and
+    ``_assemble_fields``."""
 
-    A subclass sets ``self.mesh`` before calling ``_start`` and supplies
-    ``storage_permutation``, ``_split`` and ``_assemble_fields``."""
-
-    def _start(self, deck: Deck, fields, seed: int, build: Callable):
-        self.deck = deck
-        self.device = self.mesh.devices[0]
-        for d in self.mesh.distinct():
+    def __init__(self, deck: Deck, fields: Optional[FieldState], seed: int,
+                 mesh: Mesh, build: Callable):
+        self.deck, self.mesh = deck, mesh
+        self.device = mesh.devices[0]
+        for d in mesh.distinct():
             self.backend = resolve_backend(d)
-        cap = bucket_capacity(deck)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        perm = torch.as_tensor(self.storage_permutation(), device=self.device)
-        species = tuple(
-            ParticleState(*(a.index_select(0, perm) for a in load_species(
-                spec, deck.domain, deck.tiling, cap, gen, deck.dtype,
-                self.device)))
-            for spec in deck.species)
-        if fields is None:
-            fields = FieldState.zeros(deck.ny, deck.nx, deck.dtype,
-                                      self.device)
-        self._step = build(deck, self.mesh)
-        self.state = SimState(
-            fields=fields, species=species,
-            step=torch.zeros((), dtype=torch.int32, device=self.device),
-            drift=torch.zeros((), dtype=torch.float32, device=self.device),
-            window_x0=(torch.zeros((), dtype=torch.int32, device=self.device)
-                       if deck.moving_window else None))
-        self._capmgrs = None
-        self.capacity_changes = 0
-        self.overflow_total = 0
-
-    # Global view ------------------------------------------------------
+        self._step = build(deck, mesh)
+        self._start(fields, seed, self.storage_permutation())
 
     @property
     def state(self) -> SimState:
@@ -615,28 +526,26 @@ class MeshSimulation:
             step=int(state.step), drift=drift,
             window_x0=None if w0 is None else int(w0))
 
-    # Stepping ---------------------------------------------------------
+    @property
+    def shard_state(self) -> ShardedState:
+        """The per-shard state the step works on (no copy)."""
+        return self._st
 
-    def step(self, n: int = 1) -> Optional[StepDiag]:
-        diag = None
-        for _ in range(n):
-            self._st, diag = self._step(self._st)
-        return diag
+    @shard_state.setter
+    def shard_state(self, st: ShardedState) -> None:
+        self._st = st
 
     def ensure_capacity(self, overflow: int = 0) -> bool:
         """Grow every shard's buckets alike on overflow or high occupancy
         (``parallel.balance.CapacityManager`` over the mesh-wide census).
         Shrink is deferred, as in the JAX package: it would need a
         cross-shard positional re-bin, and spare capacity loses nothing."""
-        from .balance import CapacityManager, census_of_counts
+        from .balance import census_of_counts
 
         st = self._st
-        n_sp = len(self.deck.species)
-        if self._capmgrs is None:
-            self._capmgrs = [CapacityManager() for _ in range(n_sp)]
         changed = False
         species = [list(sp) for sp in st.species]
-        for i, mgr in enumerate(self._capmgrs):
+        for i, mgr in enumerate(self._managers()):
             counts = [(sp[i].w > 0).sum(1, dtype=torch.int32)
                       for sp in species]
             counts = torch.cat(move_all(counts, self.device))
@@ -655,43 +564,6 @@ class MeshSimulation:
             self.capacity_changes += 1
         return changed
 
-    def run(self, n_steps: Optional[int] = None,
-            save_every: Optional[int] = None,
-            saver: Optional[Callable] = None) -> Optional[StepDiag]:
-        """``simulation.Simulation.run`` over the mesh."""
-        n_steps = self.deck.total_steps if n_steps is None else n_steps
-        save_every = (self.deck.save_frequency if save_every is None
-                      else save_every)
-        if saver is not None:
-            saver(self.state, 0)
-        diag = None
-        for i in range(1, n_steps + 1):
-            diag = self.run_step(i)
-            if saver is not None and i % save_every == 0:
-                saver(self.state, i)
-        return diag
-
-    def run_step(self, i: int) -> StepDiag:
-        """One step of ``run``, numbered `i` (``Simulation.run_step``)."""
-        with span("step"):
-            self._st, diag = self._step(self._st)
-            ovf = read(diag.overflow, "overflow") if diag.rebinned else 0
-            self.overflow_total += ovf
-            if self.deck.species and (ovf > 0
-                                      or i % CAPACITY_CHECK_EVERY == 0):
-                with span("step.census"):
-                    self.ensure_capacity(ovf)
-        return diag
-
-    @property
-    def shard_state(self) -> ShardedState:
-        """The per-shard state the step works on (no copy)."""
-        return self._st
-
-    @shard_state.setter
-    def shard_state(self, st: ShardedState) -> None:
-        self._st = st
-
 
 class ShardedSimulation(MeshSimulation):
     """Block-sharded simulation mirroring ``simulation.Simulation``: the deck's
@@ -702,8 +574,9 @@ class ShardedSimulation(MeshSimulation):
     def __init__(self, deck: Deck, fields: Optional[FieldState] = None,
                  seed: int = 0, *, devices=None, device=None):
         deck.validate()
-        self.mesh = make_mesh(deck, devices, device=device)
-        self._start(deck, fields, seed, build_sharded_step)
+        super().__init__(deck, fields, seed,
+                         make_mesh(deck, devices, device=device),
+                         build_sharded_step)
 
     def storage_permutation(self) -> np.ndarray:
         return shard_major_permutation(self.deck, self.mesh)

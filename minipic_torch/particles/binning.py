@@ -135,10 +135,10 @@ def rebin_auto(p: ParticleState, tiling: Tiling, mover_cap: int, *,
 
     The movers reach their tiles by the deal route when `seg_cap` > 0 and
     ``p.capacity >= 8 * seg_cap + 256``: binned by direction into runs of
-    `seg_cap` and appended by the fused append (`fused`), or, with
-    ``fused=False``, rolled into each tile's own row first and appended by
-    append_runs.  Otherwise by the sort route: ``route_movers``, then
-    append_incoming.
+    `seg_cap` and appended by the fused append, or, with ``fused=False``
+    (the JAX package's unfused route, which the steps never take), rolled
+    into each tile's own row first and appended by append_runs.  Otherwise
+    by the sort route: ``route_movers``, then append_incoming.
 
     Returns (buckets, dropped, pending), int32 0-d:
     * dropped — particles lost: segment-run overflow and >1-hop kills, or
@@ -195,14 +195,20 @@ def rebin_auto(p: ParticleState, tiling: Tiling, mover_cap: int, *,
                                              active=~headroom_ok)
     dropped = (route_dropped + app_dropped.sum()
                + def_dropped.sum()).to(torch.int32)
+    return (p1, *finish_rebin(dropped, pending, force))
+
+
+def finish_rebin(dropped: torch.Tensor, pending: torch.Tensor, force
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dropped, pending), int32 0-d, of a re-bin pass from its drops and
+    its per-tile backlog `pending`: a forced pass (`force` a bool or a 0-d
+    bool tensor) turns the backlog into counted drops."""
     pend = pending.sum().to(torch.int32)
     if isinstance(force, bool):
-        if force:
-            return p1, dropped + pend, torch.zeros_like(pend)
-        return p1, dropped, pend
-    # Forced passes turn the backlog into counted drops.
+        return ((dropped + pend, torch.zeros_like(pend)) if force
+                else (dropped, pend))
     zero = torch.zeros_like(pend)
-    return (p1, dropped + torch.where(force, pend, zero),
+    return (dropped + torch.where(force, pend, zero),
             torch.where(force, zero, pend))
 
 

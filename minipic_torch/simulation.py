@@ -29,15 +29,17 @@ synchronized at integer steps):
 
 A fields-only deck (no species) runs steps 4 and 7 alone.
 
-Host syncs: the re-bin decision is taken on the host, so each step reads
-one device scalar (the drift predicate, or the schedule's on the interval
-trigger).  The window's schedule reads nothing: the step keeps host copies
-of the step counter and window_x0 of the state it returned (a state it did
-not make is read once).  The re-bin itself reads nothing back: its force
-flag, its append-or-defrag choice and the drift reset stay on the device.
-``Simulation.run`` adds one read on each step that re-binned (its overflow,
-zero on every other step) and the census every ``CAPACITY_CHECK_EVERY``
-steps.
+Host syncs: the re-bin decision (``Schedule``, shared with the mesh
+simulations) is taken on the host.  On the drift trigger each step reads
+one device scalar, the drift predicate.  The interval schedule and the
+window's schedule take the step counter and window_x0 from host copies
+of the state the step returned (a state it did not make is read once,
+``_HostClock``); under the interval's grace a step the interval does not
+fire reads the backlog flag.  The re-bin itself reads nothing back: its
+force flag, its append-or-defrag choice and the drift reset stay on the
+device.  ``Driver.run_step`` adds one read on each step that re-binned
+(its overflow, zero on every other step) and the census every
+``CAPACITY_CHECK_EVERY`` steps.
 
 Spans (``trace.span``; profiler ranges while a profiler runs) name the
 step's layers: ``minipic.fields`` (pad, window extract, J fold, Yee,
@@ -48,12 +50,11 @@ count, weight guard).  Inside them, with the recorder on (``trace``), the
 sub-spans ``fields.tiles``, ``fields.fold``, ``fields.b_half``,
 ``fields.e_full``, ``fields.damping``, ``rebin.kill``, ``rebin.sort`` and
 those of ``binning.rebin_auto``; around them ``step`` (each step), and
-``step.census`` and ``step.read`` in ``Simulation.run_step``.  Every host
+``step.census`` and ``step.read`` in ``Driver.run_step``.  Every host
 read of the step goes through ``trace.read``, which counts it by site.
 """
 from __future__ import annotations
 
-import os
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -246,22 +247,84 @@ def shift_window(deck: Deck, state: SimState, w0n: int) -> SimState:
 
 
 class _HostClock:
-    """Host copies of the step counter and window_x0 of the last state the
-    step returned, so that the window's schedule costs no device read; a
-    state the step did not make (other tensors) is read once."""
+    """Host copies of the step counter and window_x0 (None without a
+    window) of the last state the step returned, so that the window's and
+    the interval schedule's decisions cost no device read; a state the
+    step did not make (other tensors) is read once."""
 
     def __init__(self):
         self._last = None
 
-    def read(self, state: SimState) -> Tuple[int, int]:
+    def read(self, state: SimState) -> Tuple[int, Optional[int]]:
         last = self._last
         if (last is not None and last[0] is state.step
                 and last[1] is state.window_x0):
             return last[2], last[3]
-        return read(state.step, "clock"), read(state.window_x0, "clock")
+        w0 = state.window_x0
+        return (read(state.step, "clock"),
+                None if w0 is None else read(w0, "clock"))
 
-    def keep(self, state: SimState, step: int, w0: int) -> None:
+    def keep(self, state: SimState, step: int, w0: Optional[int]) -> None:
         self._last = (state.step, state.window_x0, step, w0)
+
+
+class Schedule:
+    """The re-bin decision of a step, one for every simulation: the drift
+    trigger (the largest displacement added to the drift, its predicate
+    read once), or the interval schedule on the host's step count with
+    its one-step grace; a window shift forces a re-bin."""
+
+    def __init__(self, deck: Deck):
+        self.deck = deck
+        self.trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
+        # Interval schedule: when the guard affords one extra CFL step, a
+        # mover-buffer overflow defers the tile to the next step instead
+        # of dropping at once (the drift trigger's deferral budget).
+        self.interval_grace = uses_rebin_auto(deck) and (
+            (deck.rebin_interval + 1) * deck.cfl_step_cells()
+            <= deck.guard - deck.shape_reach())
+
+    def decide(self, step: Optional[int], drift: Optional[torch.Tensor],
+               disp: Optional[torch.Tensor], shift_now: bool):
+        """(re-bin now, force: bool or 0-d bool tensor, drift now) from the
+        host step count (read on the interval schedule only), the drift
+        carried in and the step's largest displacement."""
+        deck = self.deck
+        if not deck.species:
+            return False, True, drift
+        if self.trigger_drift:
+            if drift is None:
+                raise ValueError("deck uses drift-triggered re-binning but "
+                                 "SimState.drift is unset")
+            drift_now = drift + disp
+            # A shift rolls buckets: no mover may wait in a trailing-column
+            # bucket, so a shift step re-bins with force.
+            do = shift_now or read(drift_now > deck.drift_threshold(),
+                                   "drift")
+            # Past this line a deferred re-bin may no longer wait: extract
+            # with counted drops.  Stays on the device.
+            force = True if shift_now else drift_now > deck.force_threshold()
+            return do, force, drift_now
+        sched = step % deck.rebin_interval == 0
+        if self.interval_grace and not shift_now:
+            # The backlog marker rides the drift (0 clean, 1 pending):
+            # re-bin again next step, then drop and count.
+            force = drift > 0.5
+            return (deck.rebin_interval == 1 or sched
+                    or read(force, "schedule")), force, drift
+        return shift_now or deck.rebin_interval == 1 or sched, True, drift
+
+    def after(self, do_rebin: bool, drift_now: torch.Tensor,
+              pending_total: torch.Tensor) -> torch.Tensor:
+        """The drift carried to the next step: reset only after a complete
+        re-bin, as a backlog keeps it hot so the next step re-triggers and
+        drains it."""
+        if do_rebin and self.trigger_drift:
+            return torch.where(pending_total == 0,
+                               torch.zeros_like(drift_now), drift_now)
+        if do_rebin and self.interval_grace:
+            return (pending_total > 0).to(torch.float32)
+        return drift_now
 
 
 def resolve_backend(device: torch.device) -> str:
@@ -312,14 +375,9 @@ def deposit_modes(deck: Deck) -> list:
 
 
 def build_step(deck: Deck, device: torch.device):
-    """Step function SimState -> (SimState, StepDiag) for `device`.
-
-    ``MINIPIC_APPEND_FUSED`` is read here, once: "0" appends the deal
-    route's arrivals with append_runs after a roll, anything else (the
-    default "1") with the fused append."""
+    """Step function SimState -> (SimState, StepDiag) for `device`."""
     deck.validate()
     resolve_backend(device)
-    fused = os.environ.get("MINIPIC_APPEND_FUSED", "1") == "1"
     tiling = deck.tiling
     g = deck.guard
     dt, dx, dy = deck.dt, deck.dx, deck.dy
@@ -330,15 +388,10 @@ def build_step(deck: Deck, device: torch.device):
     mask = (None if periodic else
             damping_mask(deck.ny, deck.nx, deck.absorb_width,
                          dtype=deck.dtype, device=device))
-    clock = _HostClock() if deck.moving_window else None
+    sched = Schedule(deck)
+    clock = (_HostClock() if deck.moving_window
+             or (deck.species and not sched.trigger_drift) else None)
     origins = tile_origins(tiling, device)
-    trigger_drift = bool(deck.species) and deck.uses_drift_trigger()
-    # Interval schedule: when the guard affords one extra CFL step, a
-    # mover-buffer overflow defers the tile to the next step instead of
-    # dropping at once (the drift trigger's deferral budget).
-    interval_grace = uses_rebin_auto(deck) and (
-        (deck.rebin_interval + 1) * deck.cfl_step_cells()
-        <= deck.guard - deck.shape_reach())
     modes = deposit_modes(deck)
     checks = weight_checks(deck)
     n_sp = len(deck.species)
@@ -353,13 +406,14 @@ def build_step(deck: Deck, device: torch.device):
         f = state.fields
         dev = f.ex.device
         shift_now = False
+        n_step = None
         if clock is not None:
-            if state.window_x0 is None:
+            if deck.moving_window and state.window_x0 is None:
                 raise ValueError("deck.moving_window but SimState.window_x0 "
                                  "is unset (Simulation sets it to 0)")
             n_step, w0 = clock.read(state)
-            shift_now = bool(window_shift_now(n_step, w0, dt, tiling.tile_nx,
-                                              dx))
+            shift_now = deck.moving_window and bool(window_shift_now(
+                n_step, w0, dt, tiling.tile_nx, dx))
 
         pushed, disps = [], []
         # The moments kernel writes each species' row in place.
@@ -400,34 +454,12 @@ def build_step(deck: Deck, device: torch.device):
                 with span("fields.damping"):
                     f = apply_damping(f, mask)
 
-        drift_now = state.drift
-        do_rebin = False
-        force = True  # a shift, or no deferral budget in the guard
-        if trigger_drift:
-            if state.drift is None:
-                raise ValueError("deck uses drift-triggered re-binning but "
-                                 "SimState.drift is unset")
-            disp = disps[0]
-            for d in disps[1:]:
-                disp = torch.maximum(disp, d)
-            drift_now = state.drift + disp
-            # A shift rolls buckets: no mover may wait in a trailing-column
-            # bucket, so a shift step re-bins with force.
-            do_rebin = shift_now or read(drift_now > deck.drift_threshold(),
-                                         "drift")
-            # Past this line a deferred re-bin may no longer wait: extract
-            # with counted drops.  Stays on the device.
-            if not shift_now:
-                force = drift_now > deck.force_threshold()
-        elif deck.species:
-            sched = state.step % deck.rebin_interval == 0
-            if interval_grace and not shift_now:
-                # The backlog marker rides SimState.drift (0 clean, 1
-                # pending): re-bin again next step, then drop and count.
-                force = state.drift > 0.5
-                sched = sched | force
-            do_rebin = (shift_now or deck.rebin_interval == 1
-                        or read(sched, "schedule"))
+        disp = None
+        if sched.trigger_drift:
+            for d in disps:
+                disp = d if disp is None else torch.maximum(disp, d)
+        do_rebin, force, drift_now = sched.decide(n_step, state.drift, disp,
+                                                  shift_now)
 
         overflow = torch.zeros((), dtype=torch.int32, device=dev)
         pending_total = torch.zeros((), dtype=torch.int32, device=dev)
@@ -442,20 +474,14 @@ def build_step(deck: Deck, device: torch.device):
                     mc, sc = rebin_caps(deck, p.capacity)
                     if mc > 0:
                         p, ov, pend = rebin_auto(p, tiling, mc, force=force,
-                                                 seg_cap=sc, fused=fused)
+                                                 seg_cap=sc)
                         pending_total = pending_total + pend
                     else:
                         with span("rebin.sort"):
                             p, ov = rebin(p, tiling)
                     overflow = overflow + ov
             binned.append(p)
-        if do_rebin and trigger_drift:
-            # Reset the budget only after a complete re-bin: a backlog
-            # keeps it hot so the next step re-triggers and drains it.
-            drift_now = torch.where(pending_total == 0,
-                                    torch.zeros_like(drift_now), drift_now)
-        elif do_rebin and interval_grace:
-            drift_now = (pending_total > 0).to(torch.float32)
+        drift_now = sched.after(do_rebin, drift_now, pending_total)
 
         with span("minipic.diag"):
             c = census(binned, checks, f, dx, dy, dev)
@@ -481,76 +507,67 @@ def build_step(deck: Deck, device: torch.device):
     return step
 
 
-class Simulation:
-    """User-facing entry point: holds a deck and a device, builds the initial
-    state, owns the step.  The device is the card unless the caller asks
-    for another (``device="cpu"`` runs the plain versions)."""
+class Driver:
+    """What the single-device and the mesh simulations share: the seeded
+    initial load, the step loop (``step``, ``run``, ``run_step``) with the
+    capacity policy's managers (``_capmgrs``) and the counters, and
+    ``force_rebin``.  The step function ``_step`` works on ``_st``, the
+    state as the simulation holds it.  A subclass sets ``deck`` and
+    ``device`` before ``_start`` and ``_step`` around it, and supplies the
+    ``state`` view (get and set) and ``ensure_capacity``."""
 
-    def __init__(self, deck: Deck, fields: Optional[FieldState] = None,
-                 seed: int = 0, *, device="cuda"):
-        deck.validate()
-        self.device = torch.device(device)
-        self.backend = resolve_backend(self.device)
-        self.deck = deck
-        tiling = deck.tiling
+    def _start(self, fields: Optional[FieldState], seed: int,
+               perm: Optional[np.ndarray] = None) -> None:
+        """The seeded load of every species on ``device`` (buckets put in
+        storage order by `perm`, perm[storage row] = tile id), zero fields
+        unless `fields` are given, step 0, no drift, window_x0 0 on a
+        moving window; then ``state`` set to it."""
+        deck, dev = self.deck, self.device
         cap = bucket_capacity(deck)
-        gen = torch.Generator(device=self.device)
+        gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        species = tuple(
-            load_species(spec, deck.domain, tiling, cap, gen, deck.dtype,
-                         self.device)
-            for spec in deck.species)
+        rows = None if perm is None else torch.as_tensor(perm, device=dev)
+
+        def load(spec):
+            p = load_species(spec, deck.domain, deck.tiling, cap, gen,
+                             deck.dtype, dev)
+            return p if rows is None else ParticleState(
+                *(a.index_select(0, rows) for a in p))
+
+        species = tuple(load(spec) for spec in deck.species)
         if fields is None:
-            fields = FieldState.zeros(deck.ny, deck.nx, deck.dtype,
-                                      self.device)
+            fields = FieldState.zeros(deck.ny, deck.nx, deck.dtype, dev)
         self.state = SimState(
             fields=fields, species=species,
-            step=torch.zeros((), dtype=torch.int32, device=self.device),
-            drift=torch.zeros((), dtype=torch.float32, device=self.device),
-            window_x0=(torch.zeros((), dtype=torch.int32, device=self.device)
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+            drift=torch.zeros((), dtype=torch.float32, device=dev),
+            window_x0=(torch.zeros((), dtype=torch.int32, device=dev)
                        if deck.moving_window else None))
-        self._step = build_step(deck, self.device)
         self._capmgrs = None  # per-species CapacityManagers, built lazily
         self.capacity_changes = 0
         self.overflow_total = 0  # particles dropped over `run` calls
+
+    def _managers(self) -> list:
+        """The capacity policy's managers, one per species; ``_capmgrs =
+        None`` restarts the policy."""
+        from .parallel.balance import CapacityManager
+
+        if self._capmgrs is None:
+            self._capmgrs = [CapacityManager() for _ in self.deck.species]
+        return self._capmgrs
 
     def step(self, n: int = 1) -> Optional[StepDiag]:
         diag = None
         for _ in range(n):
             with span("step"):
-                self.state, diag = self._step(self.state)
+                self._st, diag = self._step(self._st)
         return diag
 
-    def ensure_capacity(self, overflow: int = 0) -> bool:
-        """Grow the buckets on overflow or high occupancy, shrink them after
-        a calm spell (``parallel.balance.CapacityManager``, one per
-        species), keeping the bucket quantum.  A shrink that the positional
-        census does not fit yet is deferred.  Returns True if a capacity
-        changed; the step takes the new shapes as they come."""
-        from .parallel.balance import CapacityManager, census, with_capacity
-
-        if self._capmgrs is None:
-            self._capmgrs = [CapacityManager() for _ in self.state.species]
-        changed = False
-        species = list(self.state.species)
-        for i, (p, mgr) in enumerate(zip(species, self._capmgrs)):
-            new_cap = mgr.plan(census(p), overflow)
-            if new_cap is None:
-                continue
-            cap = align_capacity(self.deck, new_cap)
-            if cap > p.capacity:
-                species[i] = with_capacity(p, cap)
-                changed = True
-            elif cap < p.capacity:
-                try:
-                    species[i] = with_capacity(p, cap, self.deck.tiling)
-                    changed = True
-                except ValueError:
-                    pass
-        if changed:
-            self.state = self.state._replace(species=tuple(species))
-            self.capacity_changes += 1
-        return changed
+    def force_rebin(self) -> None:
+        """Make the next step re-bin: the drift set to infinity fires the
+        drift trigger, or, under the interval's grace, a forced pass."""
+        self._st = self._st._replace(
+            drift=torch.full_like(self._st.drift, float("inf")))
 
     def run(self, n_steps: Optional[int] = None,
             save_every: Optional[int] = None,
@@ -582,11 +599,64 @@ class Simulation:
         CAPACITY_CHECK_EVERY.  The CLI numbers its steps absolutely, so a
         resumed run checks on the steps an uninterrupted one does."""
         with span("step"):
-            self.state, diag = self._step(self.state)
+            self._st, diag = self._step(self._st)
             ovf = read(diag.overflow, "overflow") if diag.rebinned else 0
             self.overflow_total += ovf
-            if self.state.species and (ovf > 0
-                                       or i % CAPACITY_CHECK_EVERY == 0):
+            if self.deck.species and (ovf > 0
+                                      or i % CAPACITY_CHECK_EVERY == 0):
                 with span("step.census"):
                     self.ensure_capacity(ovf)
         return diag
+
+
+class Simulation(Driver):
+    """User-facing entry point: holds a deck and a device, builds the initial
+    state, owns the step.  The device is the card unless the caller asks
+    for another (``device="cpu"`` runs the plain versions)."""
+
+    def __init__(self, deck: Deck, fields: Optional[FieldState] = None,
+                 seed: int = 0, *, device="cuda"):
+        deck.validate()
+        self.deck = deck
+        self.device = torch.device(device)
+        self.backend = resolve_backend(self.device)
+        self._start(fields, seed)
+        self._step = build_step(deck, self.device)
+
+    @property
+    def state(self) -> SimState:
+        """The state the step works on (no copy)."""
+        return self._st
+
+    @state.setter
+    def state(self, state: SimState) -> None:
+        self._st = state
+
+    def ensure_capacity(self, overflow: int = 0) -> bool:
+        """Grow the buckets on overflow or high occupancy, shrink them after
+        a calm spell (``parallel.balance.CapacityManager``, one per
+        species), keeping the bucket quantum.  A shrink that the positional
+        census does not fit yet is deferred.  Returns True if a capacity
+        changed; the step takes the new shapes as they come."""
+        from .parallel.balance import census, with_capacity
+
+        changed = False
+        species = list(self._st.species)
+        for i, (p, mgr) in enumerate(zip(species, self._managers())):
+            new_cap = mgr.plan(census(p), overflow)
+            if new_cap is None:
+                continue
+            cap = align_capacity(self.deck, new_cap)
+            if cap > p.capacity:
+                species[i] = with_capacity(p, cap)
+                changed = True
+            elif cap < p.capacity:
+                try:
+                    species[i] = with_capacity(p, cap, self.deck.tiling)
+                    changed = True
+                except ValueError:
+                    pass
+        if changed:
+            self._st = self._st._replace(species=tuple(species))
+            self.capacity_changes += 1
+        return changed

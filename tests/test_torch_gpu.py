@@ -1145,7 +1145,7 @@ def test_every_sync_of_the_step_is_a_counted_read(cuda, deck):
 
     from minipic_torch import trace
     from minipic_torch.decks import standard
-    from minipic_torch.headline import _force_rebin, headline_deck
+    from minipic_torch.headline import headline_deck
     from minipic_torch.simulation import Simulation
 
     if deck == "headline":
@@ -1155,7 +1155,7 @@ def test_every_sync_of_the_step_is_a_counted_read(cuda, deck):
                             ppc=2).simulation(device=cuda)
     # The kernels built and loaded, a re-bin's first launches taken.
     sim.run_step(1)
-    _force_rebin(sim)
+    sim.force_rebin()
     sim.run_step(2)
     torch.cuda.synchronize()
     trace.drain()
@@ -1167,7 +1167,7 @@ def test_every_sync_of_the_step_is_a_counted_read(cuda, deck):
             warnings.simplefilter("always")
             for i in range(45, 56):
                 if i == 47:
-                    _force_rebin(sim)
+                    sim.force_rebin()
                 rebins += sim.run_step(i).rebinned
     finally:
         torch.cuda.set_sync_debug_mode("default")

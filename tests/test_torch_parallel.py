@@ -478,13 +478,11 @@ def test_sharded_matches_single_device():
                     1e-10, 1e-12)
 
 
-@pytest.mark.parametrize("fused", ["1", "0"])
-def test_sharded_deal_route_matches_single_device(fused, monkeypatch):
+def test_sharded_deal_route_matches_single_device():
     """The sharded deal route (segment in global coordinates, the seam
-    roll, the append through the identity table, fused or append_runs)
-    against the single-device deal route: per-tile counts exact, values
-    to f32 ulps (the sharded J fold sums in another order)."""
-    monkeypatch.setenv("MINIPIC_APPEND_FUSED", fused)
+    roll, the fused append through the identity table) against the
+    single-device deal route: per-tile counts exact, values to f32 ulps
+    (the sharded J fold sums in another order)."""
     deck = _deck(tcfg, mesh_shape=(2, 2), rebin_mode="incremental",
                  precision="f32", kchunk=64, capacity_headroom=3.0,
                  species=(tcfg.SpeciesSpec("ele", charge=-1.0, mass=1.0,

@@ -15,7 +15,6 @@ torch.set_num_threads(1)
 from minipic_torch import trace  # noqa: E402
 from minipic_torch.core.config import Deck, SpeciesSpec  # noqa: E402
 from minipic_torch.decks import standard  # noqa: E402
-from minipic_torch.headline import _force_rebin  # noqa: E402
 from minipic_torch.parallel.balance import (SHRINK_PATIENCE,  # noqa: E402
                                             CapacityManager)
 from minipic_torch.simulation import Simulation  # noqa: E402
@@ -84,7 +83,7 @@ def _steps(sim):
     diags, caps = [], []
     for i in STEPS:
         if i == FORCED:
-            _force_rebin(sim)
+            sim.force_rebin()
         if i == 50:
             caps.append([p.capacity for p in sim.state.species])
         diags.append(sim.run_step(i))
@@ -180,7 +179,7 @@ def test_the_recorder_off_records_nothing_and_enters_no_range(monkeypatch):
     sim = DECKS["laser_plasma"][0]()
     trace.drain()
     sim.run_step(1)
-    _force_rebin(sim)
+    sim.force_rebin()
     sim.run_step(2)
     sim.step(1)
     assert trace.drain() == ([], {})
@@ -220,7 +219,7 @@ def test_layer_ranges_under_the_profiler_lie_on_the_spans():
         trace.drain()
         trace.enable()
         try:
-            _force_rebin(sim)
+            sim.force_rebin()
             sim.run_step(3)
             sim.run_step(4)
         finally:

@@ -11,7 +11,8 @@ Phases, each printing what it found; any failure exits non-zero:
    the atomic instructions in each advance kernel's SASS and, per
    instantiation, how many shared compare-and-swap loops
    (``ATOMS.CAST.SPIN``) remain: none where each warp owns its J windows
-   (the f32 and f64 deposits' private sets), and how many warps share a
+   (the f32 and f64 deposits' private sets) or keeps its sums in
+   registers (the f64 tensor-core products), and how many warps share a
    set of J windows at each deck's window;
 2. kernel: the advance kernel against its plain torch version on the card,
    on 64 tiles of the headline tile shape (8x8, guard 4, 27136 slots,
@@ -22,7 +23,8 @@ Phases, each printing what it found; any failure exits non-zero:
    bases), displaced particles in shuffled slots, and lattice order with a
    few particles in the window-edge fold (int8 operands past 127), the f32
    and f64 J equal bit for bit across two launches (private J window
-   sets, no atomics); the f32 and f64 modes at windows too wide for a set
+   sets, the f64 products' warps summed in order; no atomics); the f32
+   and f64 modes at windows too wide for a set
    of J windows per warp (2, 4 and 8 warps to a set), against their plain
    versions; then
    each re-bin kernel against its plain version on 64-tile subsets with
@@ -381,20 +383,22 @@ def _sass_shared_atomics(lib) -> dict:
 
 def _advance_instantiation(kernel: str) -> str:
     """A readable name of an advance_kernel instantiation from its mangled
-    name (template arguments ORDER, QUANT, NP, PERIODIC, SHARED, R)."""
+    name (template arguments ORDER, QUANT, NP, PERIODIC, SHARED, R,
+    PRODUCTS)."""
     import re
 
     m = re.search(r"advance_kernelILi(\d)ELb([01])ELi(\d)ELb([01])ELb([01])E"
-                  r"([df])E", kernel)
+                  r"([df])Lb([01])EE", kernel)
     if m is None:
         return kernel[:90]
-    order, quant, np_, periodic, shared, real = m.groups()
+    order, quant, np_, periodic, shared, real, products = m.groups()
     mode = "int8" if quant == "1" else ("f64" if real == "d" else "f32")
     return (f"order {order} {mode}"
             + (f" {np_} column pair{'s' if np_ != '1' else ''}"
                if quant == "1" else "")
             + (" periodic" if periodic == "1" else " open")
             + ("" if quant == "1" else
+               " tensor-core products" if products == "1" else
                (" shared J sets" if shared == "1" else " private J sets")))
 
 
@@ -417,28 +421,32 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     # Shared-memory atomics as compiled: a shared float or double atomicAdd
     # is a compare-and-swap loop (ATOMS.CAST.SPIN) on this target.  The
-    # f32 and f64 deposits into private J sets add without atomics; the
-    # shared sets of wide windows keep them.
+    # f32 and f64 deposits into private J sets, and the f64 tensor-core
+    # products, add without atomics; the shared sets of wide windows keep
+    # them.
     for kernel, ops in _sass_shared_atomics(built["advance.cu"].path).items():
         name = _advance_instantiation(kernel)
         cas = sum(n for op, n in ops.items()
                   if op.startswith("ATOMS.CAST.SPIN"))
         print(f"build: SASS advance {name}: atomics {dict(sorted(ops.items()))}"
               f"; shared compare-and-swap loops: {cas or 'none'}")
-        if "private J sets" in name:
+        if "private J sets" in name or "tensor-core products" in name:
             check(cas == 0, f"{name}: {cas} ATOMS.CAST.SPIN in the deposit "
                   "into private J windows")
     from minipic_torch.decks import standard
     from minipic_torch.headline import headline_deck
-    from minipic_torch.ops.advance import kernel_smem_bytes, window_warps
+    from minipic_torch.ops.advance import (f64_products, kernel_smem_bytes,
+                                           window_warps)
 
     for name in ["headline", *standard.CASES]:
         deck = headline_deck() if name == "headline" else \
             standard.make(name).deck
         nyg, nxg = deck.tile_ny + 2 * deck.guard, deck.tile_nx + 2 * deck.guard
         sets = ", ".join(
-            f"{mode} {window_warps(nyg, nxg, mode)} "
-            f"({kernel_smem_bytes(nyg, nxg, mode)} bytes a block)"
+            f"{mode} "
+            + ("tensor-core products" if f64_products(nyg, nxg, mode)
+               else str(window_warps(nyg, nxg, mode)))
+            + f" ({kernel_smem_bytes(nyg, nxg, mode)} bytes a block)"
             for mode in ("f32", "f64"))
         print(f"build: {name} window {nyg}x{nxg}: warps to a set of J "
               f"windows {sets}")

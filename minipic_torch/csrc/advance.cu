@@ -110,12 +110,29 @@
 // f64 mode (decks with precision "f64"; the JAX package's exact f64
 // Esirkepov deposit, whatever the deck's deposit asks): the f32 mode's code
 // instantiated on R = double.  Particles, field and J windows, shapes, the
-// fold, the Boris push (1.0 / sqrt), the move, the displacement and the
-// warp's shuffle trees are all double; its own entry point
-// (minipic_advance_f64) takes double constants.  One block per SM is asked
-// of the compiler (the double registers); the six double field windows and
-// the warps' eight private J sets take 240 bytes a cell of shared memory
-// and the staging 99 KB (160 KB a block at the headline's 16^2 window; 72
+// fold, the Boris push (1.0 / sqrt), the move and the displacement are all
+// double; its own entry point (minipic_advance_f64) takes double constants.
+// One block per SM is asked of the compiler (the double registers).  At
+// windows of at most 16^2 (every 8x8-tile deck's: P.products, which the
+// wrapper sets, ops/advance.f64_products; the template's PRODUCTS) the
+// deposit runs on the tensor cores, as the int8 one does.  Each current is
+// a sum over particles of outer products of 1-D factors (jx = a_y x a_x,
+// jy = r_y x r_x, jz = lz0 x rz0 + lz1 x rz1, rz0 = r_x), so a slab's share
+// of a window is A B with A[row][k] particle k's row factor (zero off its
+// support) and B[k][col] its column factor, K = 32, 32 and 64.  Each lane
+// writes its particle's at most 4 rows and 4 columns of a round's four
+// operands into the warp's areas (ProdStage; two rounds a slab), clipped
+// to the window; the warp runs mma.sync m16n8k16 f64 on them (M = the 16
+// rows; N = the 8-column tiles that the slab's supports reach, a
+// warp-uniform skip) and keeps its sums in registers (24 doubles a lane)
+// across its whole walk of the bucket; at the end the block adds the
+// warps' sums in warp order (0, 1, ...), so J is the same from launch to
+// launch.  Every operand and sum is IEEE double; only the order of J's
+// additions differs from the plain version's.  Shared memory: the six
+// field windows and one J set, 72 bytes a cell, and 18 KB of operands a
+// warp (162 KB a block at 16^2).  Wider f64 windows (the laser decks'
+// 20^2) keep the f32 mode's deposit in double: the warps' private J sets
+// and staging, 240 bytes a cell and 99 KB, or past that shared sets (72
 // bytes a cell, one set and no staging, at the widest windows).
 //
 // What bounds it on this card.  Per particle it moves about 44 bytes of HBM
@@ -131,7 +148,14 @@
 // the int8 products (minipic_torch/probe_atomics.py --variants).  Not
 // HBM but instruction issue and shared memory, at 2 blocks (16 warps) per
 // SM, which both its 128 registers and its 107 KB of shared memory a block
-// allow.
+// allow.  The f64 mode moves twice the bytes, 2.65 ms a step at the
+// headline.  At the headline's state after 300 steps (a slab's particles
+// spread over its tile, as in a long run) it takes 13.4 ms there, where
+// the staged per-base sums it replaced took 22.1-22.6: ~7.0 without its
+// deposit (the push, latency-bound at one block, 8 warps, per SM), the
+// rest the products (each slab's dense 16 x 32 operands, mostly zeros,
+// read from shared memory and multiplied: 16 m16n8k16 a slab) and the
+// operand stores.
 //
 // Numerics.  Build with --fmad=false and without --use_fast_math: a
 // multiply-add contracted at one site and not at another breaks the
@@ -156,6 +180,7 @@ struct AdvanceParamsT {
   int periodic;         // 1: periodic box (fold and wrap); 0: open walls
   int win_warps;        // f32, f64: warps to a set of J windows (1, 2, 4, 8)
   int fused;            // 1: own watermark, prefix sums, wmax (see Layout)
+  int products;         // f64: 1 for the tensor-core deposit (see f64 mode)
   R h;                  // push half-kick q/m dt/2 (int8: times 1/S^2)
   R dtdx, dtdy;         // dt/dx, dt/dy
   R q;                  // species charge
@@ -626,6 +651,122 @@ struct Stage {
   }
 };
 
+// f64 x f64 -> f64: c += A (16 x 16, row) B (16 x 8, col).  Lane (g, t)
+// = (lane / 4, lane % 4) holds A[g + 8 (i % 2)][t + 4 (i / 2)] in a[i],
+// B[t + 4 i][g] in b[i] and C[g + 8 (i / 2)][2 t + i % 2] in c[i].  Of
+// sm_90's f64 shapes m8n8k4, m16n8k4, m16n8k8 and m16n8k16 the last gave
+// B1 its least time on an H100 (the headline's state after 300 steps: 13.4
+// ms; m8n8k4 14.6).
+constexpr int kProdK = 16;
+__device__ __forceinline__ void mma_f64(double c[4], const double a[8],
+                                        const double b[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// The f64 mode's tensor-core deposit (PRODUCTS) takes windows of at most
+// kProdCells rows and columns: a warp keeps each current's sums as two C
+// tiles of 16 rows x 8 columns.
+constexpr int kProdCells = 16;
+// One warp's operand areas, seen from one lane (particle k = lane of each
+// slab): rows A0 and A1 [row][k], columns B0 and B1 [col][k], kProdLd
+// doubles a row or column (32 particles and a pad: each fragment load of
+// the warp reads rows (columns) g and particles 4 q + t, and each half
+// warp's 16 loads fall on 16 distinct bank pairs).  Each slab writes a
+// lane's at most 4 rows (or columns) of its column k, clipped to the
+// window, and clears those of its last slab that it does not overwrite,
+// so an area is zero wherever no particle of the slab has an element.
+constexpr int kProdLd = 36;
+constexpr int kProdArea = kProdCells * kProdLd;
+
+__host__ __device__ constexpr int prod_stage_bytes() {
+  return 4 * kProdArea * (int)sizeof(double);
+}
+
+struct ProdStage {
+  double* a[2];
+  double* b[2];
+  int k;
+
+  __device__ ProdStage(double* p, int lane)
+      : a{p, p + kProdArea}, b{p + 2 * kProdArea, p + 3 * kProdArea},
+        k(lane) {}
+
+  // v[j] (or zero, with clear) at row (column) first + j < n of column k
+  // of m.
+  __device__ __forceinline__ void put(double* m, const double v[4],
+                                      int first, int n, bool clear) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = first + j;
+      if (r >= 0 && r < n) m[r * kProdLd + k] = clear ? 0.0 : v[j];
+    }
+  }
+
+  // acc0 += A0 B0 and acc1 += A1 B1 over the slab's 32 particles (k-steps
+  // of kProdK), on the C tiles j (the window's 16 rows x columns 8 j ..
+  // 8 j + 7; acc[j]) set in COLS; (a0, b0) and (a1, b1) index a and b.
+  template <unsigned COLS>
+  __device__ __forceinline__ void products_on(int a0, int b0,
+                                              double acc0[2][4], int a1,
+                                              int b1,
+                                              double acc1[2][4]) const {
+    constexpr int kq = kProdK / 4;
+    const int g = k >> 2, t = k & 3;
+#pragma unroll
+    for (int kb = 0; kb < 32; kb += kProdK) {
+      double fa0[2 * kq], fa1[2 * kq];
+#pragma unroll
+      for (int i = 0; i < 2 * kq; ++i) {
+        const int at = (g + 8 * (i & 1)) * kProdLd + kb + 4 * (i >> 1) + t;
+        fa0[i] = a[a0][at];
+        fa1[i] = a[a1][at];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (!(COLS >> j & 1u)) continue;
+        double fb0[kq], fb1[kq];
+#pragma unroll
+        for (int i = 0; i < kq; ++i) {
+          const int at = (8 * j + g) * kProdLd + kb + 4 * i + t;
+          fb0[i] = b[b0][at];
+          fb1[i] = b[b1][at];
+        }
+        mma_f64(acc0[j], fa0, fb0);
+        mma_f64(acc1[j], fa1, fb1);
+      }
+    }
+  }
+
+  // products_on the column tiles marked in `cols` (a warp-uniform mask of
+  // 1, 2 or 3; 0 for none): one branch a slab, and no work issued for a
+  // column tile that no support reaches.
+  __device__ __forceinline__ void products(int a0, int b0,
+                                           double acc0[2][4], int a1,
+                                           int b1, double acc1[2][4],
+                                           unsigned cols) const {
+    if (cols == 1u) products_on<1u>(a0, b0, acc0, a1, b1, acc1);
+    if (cols == 2u) products_on<2u>(a0, b0, acc0, a1, b1, acc1);
+    if (cols == 3u) products_on<3u>(a0, b0, acc0, a1, b1, acc1);
+  }
+};
+
+// The 8-column tiles of [0, n) that columns first .. first + 3 of the
+// warp's depositing lanes reach, as a mask (warp-uniform; 0 for none).
+__device__ __forceinline__ unsigned prod_tiles(bool dep, int first, int n) {
+  const int lo = max(__reduce_min_sync(kFull, dep ? first : n), 0);
+  const int hi = min(__reduce_max_sync(kFull, dep ? first + 3 : -1), n - 1);
+  unsigned m = 0u;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (lo <= 8 * i + 7 && hi >= 8 * i && lo <= hi) m |= 1u << i;
+  return m;
+}
+
 // One stage of reduce16: lanes 2*HALF apart swap half of their remaining
 // 2*HALF values and add the other half.
 template <int HALF, typename R>
@@ -790,7 +931,7 @@ template <typename R>
 constexpr int kMinBlocks = sizeof(R) == 4 ? 2 : 1;
 
 template <int ORDER, bool QUANT, int NP, bool PERIODIC, bool SHARED,
-          typename R>
+          typename R, bool PRODUCTS = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<R>)
 advance_kernel(AdvanceParamsT<R> P,
                const R* __restrict__ x, const R* __restrict__ y,
@@ -809,6 +950,8 @@ advance_kernel(AdvanceParamsT<R> P,
                R* __restrict__ wmax) {
   static_assert(!QUANT || sizeof(R) == 4, "the int8 mode is float only");
   static_assert(!(QUANT && SHARED), "the int8 mode has its own one set");
+  static_assert(!PRODUCTS || (sizeof(R) == 8 && !QUANT && !SHARED),
+                "the tensor-core f64 deposit keeps one set of its own");
   constexpr int NT = 2 * NP;  // column tiles of 8
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // The block's max displacement: float's as its bits (non-negative floats
@@ -832,8 +975,9 @@ advance_kernel(AdvanceParamsT<R> P,
   R* f_bz = f_by + nwin;
   // J: nsets sets of (jx, jy, jz) windows, warps w * win_warps .. (w + 1) *
   // win_warps - 1 adding to set w (SHARED; else a set per warp); QUANT: one
-  // set, jx and jy int32.
-  const int nsets = QUANT ? 1 : (SHARED ? kWarps / P.win_warps : kWarps);
+  // set, jx and jy int32; PRODUCTS: one set.
+  const int nsets =
+      QUANT || PRODUCTS ? 1 : (SHARED ? kWarps / P.win_warps : kWarps);
   R* s_jx = f_bz + nwin;  // set 0
   R* s_jy = s_jx + nwin;
   R* s_jz = s_jy + nwin;
@@ -857,6 +1001,18 @@ advance_kernel(AdvanceParamsT<R> P,
       accx[n][e] = accy[n][e] = 0;
       accz[n][e] = 0.0f;
     }
+  // PRODUCTS: this warp's operand areas (after the one set) and its sums of
+  // jx, jy, jz as mma_f64's C fragments [column tile][element].
+  const ProdStage pst(reinterpret_cast<double*>(s_jz + nwin) +
+                          warp * (prod_stage_bytes() / 8),
+                      lane);
+  double pacc[3][2][4];
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pacc[n][j][e] = 0.0;
 
   const int t = blockIdx.x;
   const size_t fbase = (size_t)t * nwin;
@@ -873,11 +1029,10 @@ advance_kernel(AdvanceParamsT<R> P,
   }
   for (int i = 3 * nwin + threadIdx.x; i < 3 * nsets * nwin; i += blockDim.x)
     s_jx[i] = R(0);  // the other sets
-  if (QUANT) {
+  if (QUANT || PRODUCTS) {
     unsigned* words = reinterpret_cast<unsigned*>(s_jz + nwin);
-    for (int i = threadIdx.x; i < kWarps * Stage<NP>::kBytes / 4;
-         i += blockDim.x)
-      words[i] = 0u;
+    const int n = kWarps * (QUANT ? Stage<NP>::kBytes : prod_stage_bytes());
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) words[i] = 0u;
   }
   if (threadIdx.x == 0) {
     s_dmax = 0;
@@ -934,6 +1089,9 @@ advance_kernel(AdvanceParamsT<R> P,
     int row0 = 0, col0 = 0;
     Operands ops;      // QUANT
     R v[3][16];        // f32 and f64 modes: jx, jy, jz terms
+    // PRODUCTS: the rows a_y, r_y, lz0, lz1 and the columns a_x, r_x (=
+    // rz0), rz1 of the terms.
+    R fr[4][4], fc[3][4];
     if (!live) {
       if (s < count32) {
         xo[k] = x0;
@@ -1071,20 +1229,68 @@ advance_kernel(AdvanceParamsT<R> P,
             rz0[i] = r_x[i];
             rz1[i] = R(0.5) * s0x + third * dsx;
           }
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
+          if constexpr (PRODUCTS) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              v[0][j * 4 + i] = a_y[j] * a_x[i];
-              v[1][j * 4 + i] = r_y[j] * r_x[i];
-              v[2][j * 4 + i] = lz0[j] * rz0[i] + lz1[j] * rz1[i];
+              fr[0][i] = a_y[i];
+              fr[1][i] = r_y[i];
+              fr[2][i] = lz0[i];
+              fr[3][i] = lz1[i];
+              fc[0][i] = a_x[i];
+              fc[1][i] = r_x[i];
+              fc[2][i] = rz1[i];
             }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                v[0][j * 4 + i] = a_y[j] * a_x[i];
+                v[1][j * 4 + i] = r_y[j] * r_x[i];
+                v[2][j * 4 + i] = lz0[j] * rz0[i] + lz1[j] * rz1[i];
+              }
+          }
         }
       }
     }
     if (!kDeposit) continue;
 
-    if constexpr (QUANT) {
+    if constexpr (PRODUCTS) {
+      // Two rounds over the four areas: jx += a_y . a_x and jy += r_y .
+      // r_x; then jz += lz0 . rz0 + lz1 . rz1 (rz0 = r_x, still in B1),
+      // on the column tiles that the slab's supports reach.  A lane's
+      // elements of one slab share their rows (columns), so the second
+      // round overwrites the first's; the last slab's are cleared first
+      // where this one does not overwrite them.
+      if (!__any_sync(kFull, live)) continue;
+      const bool moved_r = last_live && (!live || row0 != last_row0);
+      const bool moved_c = last_live && (!live || col0 != last_col0);
+      for (int n = 0; n < 2; ++n) {
+        if (moved_r) pst.put(pst.a[n], fr[n], last_row0, nyg, true);
+        if (moved_c) pst.put(pst.b[n], fc[n], last_col0, nxg, true);
+      }
+      last_live = live;
+      last_row0 = row0;
+      last_col0 = col0;
+      const unsigned cols = prod_tiles(live, col0, nxg);
+      if (live) {
+        for (int n = 0; n < 2; ++n) {
+          pst.put(pst.a[n], fr[n], row0, nyg, false);
+          pst.put(pst.b[n], fc[n], col0, nxg, false);
+        }
+      }
+      __syncwarp();
+      pst.products(0, 0, pacc[0], 1, 1, pacc[1], cols);
+      __syncwarp();
+      if (live) {
+        pst.put(pst.a[0], fr[2], row0, nyg, false);
+        pst.put(pst.a[1], fr[3], row0, nyg, false);
+        pst.put(pst.b[0], fc[2], col0, nxg, false);
+      }
+      __syncwarp();
+      pst.products(0, 1, pacc[2], 1, 0, pacc[2], cols);
+      __syncwarp();
+    } else if constexpr (QUANT) {
       // Stage this lane's operand elements (only lane k writes particle
       // k's), run the slab's products.
       if (!__any_sync(kFull, live)) continue;
@@ -1128,6 +1334,23 @@ advance_kernel(AdvanceParamsT<R> P,
         }
       }
   }
+  if constexpr (PRODUCTS && kDeposit) {
+    // The same for the f64 sums, as double windows [3][nwin].
+    __syncwarp();
+    double* const own = pst.a[0];
+    const int grp = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = grp + 8 * (e >> 1), c = 8 * j + 2 * tq + (e & 1);
+        if (r < nyg && c < nxg) {
+#pragma unroll
+          for (int n = 0; n < 3; ++n)
+            own[n * nwin + r * nxg + c] = pacc[n][j][e];
+        }
+      }
+  }
   for (int s = count32 + threadIdx.x; s < P.capacity; s += blockDim.x) {
     const size_t k = pbase + s;
     xo[k] = x[k];
@@ -1151,9 +1374,9 @@ advance_kernel(AdvanceParamsT<R> P,
   }
   __syncthreads();
   // The block's J: int8, the warps' sums (warp 0, 1, ...) and the int32
-  // adds of particles outside int8; f32 and f64, the sets summed in a fixed
-  // order (set 0, then 1, ...).  Raw: written out; fused: kept in set 0
-  // for the prefix sums.
+  // adds of particles outside int8; f64 PRODUCTS, the warps' sums (warp 0,
+  // 1, ...); f32 and f64, the sets summed in a fixed order (set 0, then 1,
+  // ...).  Raw: written out; fused: kept in set 0 for the prefix sums.
   const unsigned char* const stages =
       reinterpret_cast<const unsigned char*>(s_jz + nwin);
   for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
@@ -1175,6 +1398,24 @@ advance_kernel(AdvanceParamsT<R> P,
       } else {
         jxo[fbase + i] = (float)sx * P.cjx;
         jyo[fbase + i] = (float)sy * P.cjy;
+        jzo[fbase + i] = sz;
+      }
+    } else if constexpr (PRODUCTS) {
+      R sx = R(0), sy = R(0), sz = R(0);
+      for (int wp = 0; wp < kWarps; ++wp) {
+        const R* const o = reinterpret_cast<const R*>(
+            stages + wp * prod_stage_bytes());
+        sx = wp == 0 ? o[i] : sx + o[i];
+        sy = wp == 0 ? o[nwin + i] : sy + o[nwin + i];
+        sz = wp == 0 ? o[2 * nwin + i] : sz + o[2 * nwin + i];
+      }
+      if (P.fused) {
+        s_jx[i] = sx;
+        s_jy[i] = sy;
+        s_jz[i] = sz;
+      } else {
+        jxo[fbase + i] = sx;
+        jyo[fbase + i] = sy;
         jzo[fbase + i] = sz;
       }
     } else {
@@ -1245,10 +1486,13 @@ advance_kernel(AdvanceParamsT<R> P,
 }
 
 // Dynamic shared memory of one block: six field windows and three J
-// windows for each set (kWarps / win_warps sets; int8 one) of `real` bytes
-// a cell, and the staging: int8's operands, or with private sets (f32,
-// f64 at win_warps 1) each warp's terms.
-size_t smem_bytes(bool quant, int np, int nwin, size_t real, int win_warps) {
+// windows for each set (kWarps / win_warps sets; int8 and f64 products
+// one) of `real` bytes a cell, and the staging: int8's or the f64
+// products' operands, or with private sets (f32, f64 at win_warps 1) each
+// warp's terms.
+size_t smem_bytes(bool quant, int np, int nwin, size_t real, int win_warps,
+                  bool products = false) {
+  if (products) return 9 * nwin * real + (size_t)kWarps * prod_stage_bytes();
   const int nsets = quant ? 1 : kWarps / win_warps;
   const size_t stage = quant ? (size_t)kWarps * stage_bytes(np)
                              : (win_warps == 1 ? (size_t)kWarps * kTerms *
@@ -1260,7 +1504,7 @@ size_t smem_bytes(bool quant, int np, int nwin, size_t real, int win_warps) {
 bool win_warps_ok(int w) { return w == 1 || w == 2 || w == 4 || w == 8; }
 
 template <int ORDER, bool QUANT, int NP, bool PERIODIC, bool SHARED,
-          typename R>
+          typename R, bool PRODUCTS = false>
 cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
                    const R* px, const R* py, const R* pz, const R* w,
                    const int* counts, const int* ox, const int* oy,
@@ -1269,8 +1513,10 @@ cudaError_t launch(const AdvanceParamsT<R>& P, const R* x, const R* y,
                    R* pzo, R* jx, R* jy, R* jz, R* dmax, R* wmax,
                    cudaStream_t stream) {
   const int nwin = (P.tile_nx + 2 * P.guard) * (P.tile_ny + 2 * P.guard);
-  const size_t smem = smem_bytes(QUANT, NP, nwin, sizeof(R), P.win_warps);
-  auto* kernel = advance_kernel<ORDER, QUANT, NP, PERIODIC, SHARED, R>;
+  const size_t smem =
+      smem_bytes(QUANT, NP, nwin, sizeof(R), P.win_warps, PRODUCTS);
+  auto* kernel =
+      advance_kernel<ORDER, QUANT, NP, PERIODIC, SHARED, R, PRODUCTS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1354,6 +1600,11 @@ cudaError_t launch_finish(int num_tiles, int nwin, R q, R* jx, R* jy,
                    : (!Q && P.win_warps > 1                                 \
                           ? launch<O, Q, N, false, !Q>(MINIPIC_ARGS)        \
                           : launch<O, Q, N, false, false>(MINIPIC_ARGS)))
+#define MINIPIC_LAUNCH_PRODUCTS(O)                                          \
+  return (int)(P.periodic ? launch<O, false, 1, true, false, double, true>( \
+                                MINIPIC_ARGS)                               \
+                          : launch<O, false, 1, false, false, double, true>( \
+                                MINIPIC_ARGS))
 
 // Plain C entry point (bound with ctypes).  Returns the CUDA error code of
 // the launch (0 on success); launches on `stream`, allocates nothing.  The
@@ -1376,6 +1627,7 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nxg = P.tile_nx + 2 * P.guard;
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
+  if (P.products) return (int)cudaErrorInvalidValue;
   if (!quant) {
     if (!win_warps_ok(P.win_warps)) return (int)cudaErrorInvalidValue;
     if (order == 1) MINIPIC_LAUNCH(1, false, 1);
@@ -1391,7 +1643,9 @@ extern "C" int minipic_advance(int order, int quant, AdvanceParams P,
   return (int)cudaErrorInvalidValue;
 }
 
-// The f64 mode: the same kernel on double particles, windows and constants.
+// The f64 mode: the same kernel on double particles, windows and constants;
+// P.products 1 takes the tensor-core deposit (windows of at most kProdCells
+// rows and columns; P.win_warps is not read).
 extern "C" int minipic_advance_f64(int order, AdvanceParams64 P,
                                    const double* x, const double* y,
                                    const double* px, const double* py,
@@ -1406,11 +1660,20 @@ extern "C" int minipic_advance_f64(int order, AdvanceParams64 P,
                                    double* dmax, double* wmax,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P.products) {
+    if (P.tile_nx + 2 * P.guard > kProdCells ||
+        P.tile_ny + 2 * P.guard > kProdCells)
+      return (int)cudaErrorInvalidValue;
+    if (order == 1) MINIPIC_LAUNCH_PRODUCTS(1);
+    if (order == 2) MINIPIC_LAUNCH_PRODUCTS(2);
+    return (int)cudaErrorInvalidValue;
+  }
   if (!win_warps_ok(P.win_warps)) return (int)cudaErrorInvalidValue;
   if (order == 1) MINIPIC_LAUNCH(1, false, 1);
   if (order == 2) MINIPIC_LAUNCH(2, false, 1);
   return (int)cudaErrorInvalidValue;
 }
+#undef MINIPIC_LAUNCH_PRODUCTS
 #undef MINIPIC_LAUNCH
 #undef MINIPIC_ARGS
 
@@ -1438,17 +1701,17 @@ extern "C" int minipic_advance_finish_f64(int num_tiles, const double* dmax_t,
 }
 
 // Resident blocks per SM of the periodic kernel that minipic_advance (mode
-// 0 f32, 1 int8) or minipic_advance_f64 (mode 2) would launch for this
-// window at win_warps warps to a set of J windows (the occupancy
-// calculator's answer), or -1 on error.
+// 0 f32, 1 int8) or minipic_advance_f64 (mode 2; 3 with P.products) would
+// launch for this window at win_warps warps to a set of J windows (the
+// occupancy calculator's answer), or -1 on error.
 extern "C" int minipic_advance_blocks_per_sm(int order, int mode, int nyg,
                                              int nxg, int win_warps) {
   const int np = nxg <= 16 ? 1 : (nxg <= 32 ? 2 : 4);
   const bool quant = mode == 1;
   if (!quant && !win_warps_ok(win_warps)) return -1;
   const size_t smem = smem_bytes(quant, np, nyg * nxg,
-                                 mode == 2 ? sizeof(double) : sizeof(float),
-                                 win_warps);
+                                 mode >= 2 ? sizeof(double) : sizeof(float),
+                                 win_warps, mode == 3);
   int blocks = -1;
   cudaError_t err = cudaErrorInvalidValue;
 #define MINIPIC_OCC(O, Q, N, R)                                               \
@@ -1465,6 +1728,16 @@ extern "C" int minipic_advance_blocks_per_sm(int order, int mode, int nyg,
   if (mode == 0 && order == 2) MINIPIC_OCC(2, false, 1, float);
   if (mode == 2 && order == 1) MINIPIC_OCC(1, false, 1, double);
   if (mode == 2 && order == 2) MINIPIC_OCC(2, false, 1, double);
+  if (mode == 3) {
+    auto* k = order == 1
+                  ? &advance_kernel<1, false, 1, true, false, double, true>
+                  : &advance_kernel<2, false, 1, true, false, double, true>;
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
+                                                          smem);
+  }
   if (quant && order == 1 && np == 1) MINIPIC_OCC(1, true, 1, float);
   if (quant && order == 1 && np == 2) MINIPIC_OCC(1, true, 2, float);
   if (quant && order == 1 && np == 4) MINIPIC_OCC(1, true, 4, float);

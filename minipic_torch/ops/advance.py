@@ -9,8 +9,9 @@ implementations of one function, ``advance_tiles``:
 
 * ``csrc/advance.cu`` — the hand-written CUDA kernel, launched for CUDA
   tensors (one thread block per tile; the int8 deposit as products on the
-  tensor cores, the f32 and f64 deposits into per-warp J windows, see the
-  note in that file);
+  tensor cores, the f64 deposit at windows up to 16^2 as f64 products on
+  them (``f64_products``), the f32 and wider f64 deposits into per-warp J
+  windows, see the note in that file);
 * ``advance_plain`` — the same arithmetic as plain torch ops, over each
   particle's 3-point support.  ``advance_tiles`` takes it only for CPU
   tensors; ``chip_smoke.py`` holds the kernel against it on the card.
@@ -46,12 +47,19 @@ absolute at the headline deck), int8 jx/jy cell for cell (integer sums,
 exact in any order), int8 jz to its f32 summation order (the kernel's runs
 on the tensor cores with each row factor in three bf16 words), and f32- and
 f64-mode J to their summation order (shuffle trees, per-warp windows and a
-fixed-order sum of them; atomics lane by lane and in shared windows).
+fixed-order sum of them; atomics lane by lane and in shared windows; f64 up
+to 16^2: double products on the tensor cores, a slab's 32 particles at a
+time, the warps' sums added in warp order).
 
 Modes (``resolve_mode``): "int8" and "f32" take float32 particles and
 fields; "f64", every deck of precision "f64", takes float64 ones and is the
 f32 mode's arithmetic in double: the exact Esirkepov deposit that the JAX
-package's f64 runs take (its XLA branch), whatever the deck's deposit.
+package's f64 runs take (its XLA branch), whatever the deck's deposit.  Its
+J terms are outer products of 1-D factors (jx = a_y x a_x, jy = r_y x r_x,
+jz = lz0 x rz0 + lz1 x rz1), so at windows up to 16^2 (``f64_products``)
+the kernel sums them as f64 matrix products on the tensor cores (counted
+``advance.f64_products``): the same terms, their additions in another
+order; positions and momenta are those of the other deposits.
 
 ``fused_push_deposit`` is the step's advance: the JAX wrapper's
 ``pallas_call`` and what it applies after it (the uniform q*max(w) scale of
@@ -90,6 +98,19 @@ _SMEM_LIMIT = 232448
 _WARPS = 8
 _WIN_WARPS = (1, 2, 4, 8)
 _STAGE_VALUES = 48 * 33
+# The f64 tensor-core deposit: the widest window it takes (kProdCells), and
+# one warp's operand areas (four of 16 rows x 36 doubles: prod_stage_bytes).
+_PRODUCT_CELLS = 16
+_PRODUCT_STAGE = 4 * 16 * 36 * 8
+
+
+def f64_products(nyg: int, nxg: int, mode: str) -> bool:
+    """Whether B1 deposits through the f64 tensor-core products: the f64
+    mode at windows of at most 16 x 16 cells (the headline's and every
+    8x8-tile deck's), whose sums a warp keeps in registers as two C tiles
+    of 16 x 8 a current.  Wider f64 windows (the laser decks' 20^2) and the
+    float modes keep their deposits (``window_warps``)."""
+    return mode == "f64" and nyg <= _PRODUCT_CELLS and nxg <= _PRODUCT_CELLS
 
 
 def kernel_smem_bytes(nyg: int, nxg: int, mode: str,
@@ -101,12 +122,16 @@ def kernel_smem_bytes(nyg: int, nxg: int, mode: str,
     each warp's staging of its lanes' terms (6,336 bytes a warp in f32,
     12,672 in f64); int8: one set, and each of its 8 warps' operand
     staging (9 KB of rows, 3 KB per pair of 8-column tiles: 1, 2 or 4
-    pairs)."""
+    pairs).  The f64 tensor-core deposit (``f64_products``; taken when
+    `win_warps` is not given): one set, and each warp's four operand areas
+    (18,432 bytes a warp): 162 KB a block at 16^2."""
     cells = nyg * nxg
     if mode == "int8":
         pairs = 1 if nxg <= 16 else (2 if nxg <= 32 else 4)
         return 36 * cells + _WARPS * (9216 + 3072 * pairs)
     if win_warps is None:
+        if f64_products(nyg, nxg, mode):
+            return 8 * 9 * cells + _WARPS * _PRODUCT_STAGE
         win_warps = window_warps(nyg, nxg, mode)
     real = 8 if mode == "f64" else 4
     stage = _WARPS * _STAGE_VALUES if win_warps == 1 else 0
@@ -119,7 +144,9 @@ def window_warps(nyg: int, nxg: int, mode: str) -> int:
     memory (8 where none does: the wrapper then refuses the window).  With
     1 each warp adds to its own windows without atomics (f32 up to 1,514
     cells, f64 up to 546: every deck's window with particles, 16^2 and
-    20^2); shared sets add with atomics.  int8 keeps its one set (8)."""
+    20^2); shared sets add with atomics.  int8 keeps its one set (8).  The
+    f64 windows that ``f64_products`` takes keep no such sets (the kernel
+    does not read this there)."""
     if mode == "int8":
         return _WARPS
     for w in _WIN_WARPS:
@@ -157,7 +184,7 @@ def resolve_mode(deposit: str, qw0: float, tile_ny: int, tile_nx: int,
 
 
 _INT_PARAMS = ("num_tiles", "capacity", "tile_nx", "tile_ny", "guard",
-               "periodic", "win_warps", "fused")
+               "periodic", "win_warps", "fused", "products")
 _REAL_PARAMS = ("h", "dtdx", "dtdy", "q", "grid_nx", "grid_ny", "inv_nx",
                 "inv_ny", "half_x", "half_y", "cjx", "cjy", "cz", "czq",
                 "S")
@@ -181,7 +208,8 @@ class AdvanceParams64(ctypes.Structure):
                 + [(n, ctypes.c_double) for n in _REAL_PARAMS])
 
 
-# Each mode's real type, and its code in minipic_advance_blocks_per_sm.
+# Each mode's real type, and its code in minipic_advance_blocks_per_sm (3:
+# the f64 tensor-core deposit).
 MODE_DTYPES = {"f32": torch.float32, "int8": torch.float32,
                "f64": torch.float64}
 _MODE_CODES = {"f32": 0, "int8": 1, "f64": 2}
@@ -512,8 +540,9 @@ class AdvanceKernel:
         """Resident blocks per SM of the periodic kernel launched for this
         window, at the J window sets it takes (``window_warps``): the CUDA
         occupancy calculator's answer, from registers and shared memory."""
+        code = 3 if f64_products(nyg, nxg, mode) else _MODE_CODES[mode]
         n = self._load().minipic_advance_blocks_per_sm(
-            order, _MODE_CODES[mode], nyg, nxg, window_warps(nyg, nxg, mode))
+            order, code, nyg, nxg, window_warps(nyg, nxg, mode))
         if n < 0:
             raise RuntimeError("advance kernel: occupancy query failed")
         return n
@@ -581,13 +610,15 @@ class AdvanceKernel:
                              "may use")
         lib = self._load()
         fused = counts is None
+        products = f64_products(nyg, nxg, mode)
         k = _constants(qm=qm, q=q, order=order, tile_ny=tile_ny,
                        tile_nx=tile_nx, dt=dt, dx=dx, dy=dy, grid=grid,
                        mode=mode)
         params = (AdvanceParams64 if mode == "f64" else AdvanceParams)(
             num_tiles=T, capacity=cap, tile_nx=tile_nx, tile_ny=tile_ny,
             guard=g, periodic=int(grid is not None),
-            win_warps=window_warps(nyg, nxg, mode), fused=int(fused), **k)
+            win_warps=window_warps(nyg, nxg, mode), fused=int(fused),
+            products=int(products), **k)
         outs = tuple(torch.empty_like(a) for a in p[:5])
         js = tuple(torch.empty((T, nyg, nxg), dtype=real, device=dev)
                    for _ in range(3))
@@ -610,6 +641,8 @@ class AdvanceKernel:
             raise RuntimeError(f"advance kernel launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
+        if products:
+            trace.count("advance.f64_products")
         return outs, js, dmax, wmax
 
 

@@ -19,11 +19,14 @@ copies (``VARIANTS``; by default ``no-deposit``):
   to the real kernel is the deposit's cost;
 * ``no-staging``, ``no-jz-products``, ``no-int8-products`` drop one part of
   the int8 deposit (the staging stores, the bf16 jz products, the int8
-  jx/jy products); ``checked-gather`` takes the bounds-checked gather for
-  every particle;
-* other forms of the f32 and f64 deposit into private J windows (the
-  headline's): ``staged`` takes the staged sums for every slab (the
-  kernel: past kMaxPasses = 3 lanes a base), ``passes`` the passes by
+  jx/jy products); ``no-f64-products`` drops the f64 tensor-core deposit's
+  products (its mma.sync and fragment loads; the operand stores stay);
+  ``checked-gather`` takes the bounds-checked gather for every particle;
+* other forms of the deposit into private J windows, which the f32 mode
+  takes and the f64 mode only at windows wider than 16^2 (at the
+  headline's, f64 copies of these keep the tensor-core products unchanged):
+  ``staged`` takes the staged sums for every slab (the kernel: past
+  kMaxPasses = 3 lanes a base), ``passes`` the passes by
   rank for every slab, and ``passes-nostage`` does that without the
   staging area in shared memory (only that copy may drop it: it never
   stages); ``stage-only`` stages every slab's terms and adds none of
@@ -131,6 +134,9 @@ VARIANTS = {
     "no-int8-products": ((
         "      if (__any_sync(kFull, prod)) st.int8_products(lane, accx, accy);"
         "\n", ""),),
+    "no-f64-products": (
+        ("      pst.products(0, 0, pacc[0], 1, 1, pacc[1], cols);\n", ""),
+        ("      pst.products(0, 1, pacc[2], 1, 0, pacc[2], cols);\n", "")),
     "checked-gather": (("      if (min(iyi, iyh) + g >= 1 &&",
                         "      if (false && min(iyi, iyh) + g >= 1 &&"),),
     "contiguous": (_CONTIGUOUS,),

@@ -247,7 +247,8 @@ def test_kernel_wrapper_checks_inputs_before_building():
 
 
 @pytest.mark.parametrize("name", ["no-staging", "no-jz-products",
-                                  "no-int8-products", "checked-gather",
+                                  "no-int8-products", "no-f64-products",
+                                  "checked-gather",
                                   "contiguous", "trees", "all-groups",
                                   "carry", "staged", "passes",
                                   "passes-nostage", "stage-only"])
@@ -854,10 +855,14 @@ def test_float_warp_window_decomposition_matches_plain(layout, mode):
 def test_every_deck_window_takes_private_j_windows(name):
     """Every deck with particles has a window (16^2 or 20^2) that fits a
     set of J windows and a staging area for each warp, in f32 and in f64:
-    no atomic in its deposit.  (reference_pulse, 29^2, has no particles.)"""
+    no atomic in its deposit.  In f64 the 16^2 windows deposit through the
+    tensor-core products instead (one set and each warp's operand areas);
+    the 20^2 ones keep the private sets.  (reference_pulse, 29^2, has no
+    particles.)"""
     from minipic_torch.decks import standard
     from minipic_torch.headline import headline_deck
-    from minipic_torch.ops.advance import kernel_smem_bytes, window_warps
+    from minipic_torch.ops.advance import (f64_products, kernel_smem_bytes,
+                                           window_warps)
 
     deck = headline_deck() if name == "headline" else standard.make(name).deck
     nyg, nxg = deck.tile_ny + 2 * deck.guard, deck.tile_nx + 2 * deck.guard
@@ -867,8 +872,79 @@ def test_every_deck_window_takes_private_j_windows(name):
     assert (nyg, nxg) in ((16, 16), (20, 20))
     for mode, real in (("f32", 4), ("f64", 8)):
         assert window_warps(nyg, nxg, mode) == 1, (mode, nyg, nxg)
-        assert kernel_smem_bytes(nyg, nxg, mode) == real * (
-            nyg * nxg * 30 + 8 * 48 * 33)
+        private = real * (nyg * nxg * 30 + 8 * 48 * 33)
+        assert kernel_smem_bytes(nyg, nxg, mode, 1) == private
+        if f64_products(nyg, nxg, mode):
+            assert (mode, nyg) == ("f64", 16)
+            assert kernel_smem_bytes(nyg, nxg, mode) == \
+                8 * 9 * nyg * nxg + 8 * 4 * 16 * 36 * 8
+        else:
+            assert (mode, nyg) != ("f64", 16)
+            assert kernel_smem_bytes(nyg, nxg, mode) == private
+
+
+@pytest.mark.parametrize("name", ["headline"] + sorted(
+    __import__("minipic_torch.decks.standard", fromlist=["CASES"]).CASES))
+def test_f64_products_take_every_16_window_of_a_named_deck(name):
+    """The route of each named deck's window, in every mode: the f64
+    tensor-core deposit at 16^2 (the headline and every 8x8-tile deck, as
+    ``--precision f64`` runs them), the private sets at the laser decks'
+    20^2, never in f32 or int8."""
+    from minipic_torch.decks import standard
+    from minipic_torch.headline import headline_deck
+    from minipic_torch.ops.advance import f64_products
+
+    deck = headline_deck() if name == "headline" else standard.make(name).deck
+    nyg, nxg = deck.tile_ny + 2 * deck.guard, deck.tile_nx + 2 * deck.guard
+    want = nyg <= 16 and nxg <= 16
+    assert want == (deck.tile_nx == 8 and deck.guard == 4) or \
+        name == "reference_pulse"
+    assert f64_products(nyg, nxg, "f64") == want
+    assert not f64_products(nyg, nxg, "f32")
+    assert not f64_products(nyg, nxg, "int8")
+
+
+def test_f64_product_layout_fits_a_block():
+    """Every window the f64 products take (at most 16 rows and columns:
+    the accumulators' 2 x 2 tiles of 8 x 8) fits a block's shared memory
+    with its one set and eight warps' operand areas; one more row or
+    column leaves the route."""
+    from minipic_torch.ops.advance import (_SMEM_LIMIT, f64_products,
+                                           kernel_smem_bytes, window_warps)
+
+    for nyg in range(4, 19):
+        for nxg in range(4, 19):
+            takes = f64_products(nyg, nxg, "f64")
+            assert takes == (nyg <= 16 and nxg <= 16)
+            smem = kernel_smem_bytes(nyg, nxg, "f64")
+            if takes:
+                assert smem == 72 * nyg * nxg + 8 * 18432 <= _SMEM_LIMIT
+            else:
+                assert smem == kernel_smem_bytes(
+                    nyg, nxg, "f64", window_warps(nyg, nxg, "f64"))
+    assert kernel_smem_bytes(16, 16, "f64") == 165888
+
+
+def test_f64_product_constants_mirror_the_kernel():
+    """ops/advance.py's widest product window and operand bytes a warp are
+    csrc/advance.cu's kProdCells and prod_stage_bytes() (four areas of
+    kProdCells x kProdLd doubles), and the products flag follows fused in
+    the parameter struct."""
+    import re
+
+    from minipic_torch.ops import advance
+    from minipic_torch.ops._build import CSRC
+
+    src = (CSRC / "advance.cu").read_text()
+    cells = int(re.search(r"constexpr int kProdCells = (\d+);", src)[1])
+    ld = int(re.search(r"constexpr int kProdLd = (\d+);", src)[1])
+    assert "return 4 * kProdArea * (int)sizeof(double);" in src
+    assert "constexpr int kProdArea = kProdCells * kProdLd;" in src
+    assert cells == advance._PRODUCT_CELLS
+    assert advance._PRODUCT_STAGE == 4 * cells * ld * 8
+    assert ld % 16 == 4  # the half warps' fragment loads: distinct banks
+    names = [n for n, _ in advance.AdvanceParams64._fields_]
+    assert names[names.index("fused") + 1] == "products"
 
 
 @pytest.mark.parametrize("n,mode,want", [

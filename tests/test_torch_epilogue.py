@@ -101,7 +101,8 @@ def test_running_sum_adds_in_order(dim):
 def test_fused_push_deposit_on_the_cpu_is_the_plain_sequence(mode):
     """On the CPU fused_push_deposit is advance_plain over the live
     watermark and the torch epilogue, bit for bit, and counts no fused
-    epilogue (the counter counts the card's fused launches)."""
+    epilogue and no f64 products (the counters count the card's
+    launches)."""
     dtype = torch.float64 if mode == "f64" else torch.float32
     p, ft, kw = edge_case_buckets("cpu", cap=256, n_live=180, dtype=dtype,
                                   graded=True)
@@ -113,6 +114,7 @@ def test_fused_push_deposit_on_the_cpu_is_the_plain_sequence(mode):
         trace.disable()
     _, counters = trace.drain()
     assert "advance.fused_epilogue" not in counters
+    assert "advance.f64_products" not in counters
     raw_out, raw_js, raw_d = advance_plain(p, ft, live_watermark(p.w),
                                            mode=mode, **kw)
     want_js, want_d = torch_epilogue(raw_js, raw_d, p.w, q=kw["q"],

@@ -84,12 +84,13 @@ def test_kernel_matches_plain_on_the_card(cuda, order, mode):
     torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0)
 
 
-def _lattice(p, every=0):
+def _lattice(p, every=0, reach=3.9):
     """`p` with its 700 live particles per tile put in lattice order (11 to
     a cell, consecutive slots in one cell, so a warp's lanes share few
-    bases); with `every`, each every-th of them moved 3.6-3.9 cells below
-    and left of its tile, into the window-edge fold (centre cell at guard
-    row and column 0), where q0+q1 leaves int8."""
+    bases); with `every`, each every-th of them moved `reach` - 0.3 to
+    `reach` cells below and left of its tile: at the default, into the
+    window-edge fold of guard 4 (centre cell at guard row and column 0),
+    where q0+q1 leaves int8."""
     dev = p.x.device
     T, cap = p.x.shape
     s = torch.arange(cap, device=dev)[None, :].expand(T, cap)
@@ -99,8 +100,8 @@ def _lattice(p, every=0):
     y = (t // 4) * 8 + (cell // 8) % 8 + 0.5
     if every:
         edge = (s % every == 0)
-        x = torch.where(edge, (t % 4) * 8 - 3.9 + 0.3 * p.x / 32, x)
-        y = torch.where(edge, (t // 4) * 8 - 3.9 + 0.3 * p.y / 32, y)
+        x = torch.where(edge, (t % 4) * 8 - reach + 0.3 * p.x / 32, x)
+        y = torch.where(edge, (t // 4) * 8 - reach + 0.3 * p.y / 32, y)
     live = p.w > 0
     return p._replace(
         x=torch.where(live, torch.remainder(x.float(), 32), p.x),
@@ -207,6 +208,33 @@ def test_no_atomics_probe_pushes_alike_and_deposits_nothing(cuda, tmp_path,
     assert torch.equal(dv, dk)
     for j in jv:
         assert not bool(j.any())
+
+
+@pytest.mark.parametrize("variant", ["no-deposit", "no-f64-products"])
+def test_f64_probe_copies_push_alike_and_deposit_nothing(cuda, tmp_path,
+                                                         variant):
+    """The probe's copies of the f64 tensor-core deposit (at the headline's
+    16^2 window): without the deposit, or without its products (the
+    operands still staged), the same particles and displacements as the
+    kernel, and all-zero J."""
+    from minipic_torch.probe_atomics import variant_source
+
+    src = tmp_path / f"advance_{variant}.cu"
+    src.write_text(variant_source(variant))
+    p, ft = _inputs(cuda)
+    p, ft = _double(p), _double(ft)
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32), mode="f64")
+    pv, jv, dv = AdvanceKernel(src)(p, ft, counts, **kw)
+    pk, jk, dk = advance_kernel(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(pv, pk):
+        assert torch.equal(a, b)
+    assert torch.equal(dv, dk)
+    for j, want in zip(jv, jk):
+        assert not bool(j.any()) and bool(want.any())
 
 
 # ----------------------------------------------------------------------
@@ -896,6 +924,98 @@ def test_f64_kernel_matches_plain_on_the_card(cuda, order, boundary):
     torch.testing.assert_close(dk, dp, rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("boundary,layout", [
+    ("periodic", "lattice"), ("periodic", "shuffled"), ("periodic", "edge"),
+    ("periodic", "guard2"), ("open", "shuffled")])
+@pytest.mark.parametrize("order", [1, 2])
+def test_f64_products_match_plain_on_the_card(cuda, order, boundary,
+                                              layout):
+    """B1's f64 mode at the headline's 16^2 window, where its deposit runs
+    as f64 products on the tensor cores (counted ``advance.f64_products``
+    once a launch): positions and momenta within 2 ulp of each channel's
+    scale of the plain version's, dead slots untouched, J within 1e-12 of
+    its peak, the displacements to 1e-12; and two launches equal bit for
+    bit, J too (the warps' sums add in warp order).  Lattice order (slabs
+    over few cells), random slots, bases at and past the window's edge
+    (every 16th particle 3.6-3.9 cells off its tile), a 12^2 window
+    (guard 2: rows and columns past it unused), and the open walls with
+    particles leaving through them."""
+    from minipic_torch import trace
+    from minipic_torch.ops.advance import f64_products
+
+    g = 2 if layout == "guard2" else 4
+    if boundary == "periodic":
+        p, ft = _inputs(cuda, g=g)
+        if layout in ("lattice", "edge"):
+            p = _lattice(p, 16 if layout == "edge" else 0)
+        grid = (32, 32)
+    else:
+        p, ft = _open_inputs(cuda, 8, 4, 512)
+        grid = None
+    p, ft = _double(p), _double(ft)
+    assert f64_products(8 + 2 * g, 8 + 2 * g, "f64")
+    counts = live_watermark(p.w)
+    kw = dict(qm=-1.0, q=-1.0, order=order, tile_ny=8, tile_nx=8,
+              origins=_origins(cuda, 4, 4), g=g, dt=0.035, dx=0.1, dy=0.1,
+              grid=grid, mode="f64")
+    n0 = advance_kernel.launches
+    trace.drain()
+    trace.enable()
+    try:
+        pk, jk, dk = advance_tiles(p, ft, counts, **kw)
+    finally:
+        trace.disable()
+    assert trace.drain()[1]["advance.f64_products"] == 1
+    assert advance_kernel.launches == n0 + 1
+    again = advance_tiles(p, ft, counts, **kw)
+    pp, jp, dp = advance_plain(p, ft, counts, **kw)
+    torch.cuda.synchronize()
+    live = p.w > 0
+    for name, a, b, old in zip("x y px py pz".split(), pk, pp, p):
+        assert _ulps(a[live], b[live]) <= 2, name
+        assert torch.equal(a[~live], old[~live]), name
+    for name, a, b in zip(("jx", "jy", "jz"), jk, jp):
+        assert bool(b.abs().max() > 0), name
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-12 * float(b.abs().max()))
+    torch.testing.assert_close(dk, dp, rtol=1e-12, atol=0)
+    for a, b in zip(tuple(pk) + tuple(jk) + (dk,),
+                    tuple(again[0]) + tuple(again[1]) + (again[2],)):
+        assert torch.equal(a, b)
+
+
+def test_f64_products_count_only_their_launches(cuda):
+    """``advance.f64_products`` counts the f64 launches at a 16^2 window,
+    raw and fused, and nothing else: not int8 or f32 at the same window,
+    nor f64 at a 36^2 window (2 warps to a set of J windows)."""
+    from minipic_torch import trace
+    from minipic_torch.ops.advance import f64_products
+
+    p, ft = _inputs(cuda)
+    kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
+              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              grid=(32, 32))
+    pw, fw, kww = _wide_inputs(cuda, 36)
+    assert not f64_products(36, 36, "f64")
+    counts = live_watermark(p.w)
+    trace.drain()
+    trace.enable()
+    try:
+        for mode in ("int8", "f32"):
+            advance_tiles(p, ft, counts, mode=mode, **kw)
+            advance_kernel.fused(p, ft, mode=mode, **kw)
+        advance_tiles(_double(pw), _double(fw), live_watermark(pw.w),
+                      mode="f64", **kww)
+        none = dict(trace.drain()[1])
+        advance_tiles(_double(p), _double(ft), counts, mode="f64", **kw)
+        advance_kernel.fused(_double(p), _double(ft), mode="f64", **kw)
+    finally:
+        trace.disable()
+    torch.cuda.synchronize()
+    assert "advance.f64_products" not in none
+    assert trace.drain()[1]["advance.f64_products"] == 2
+
+
 def _rebin_pair(name, p, dev):
     """(kernel call, plain call) of one re-bin kernel on the stale buckets
     `p` (4x4 tiles of 3072 slots); the in-place kernels work on copies."""
@@ -1104,20 +1224,25 @@ def test_float_kernel_j_equals_the_warp_window_emulation(cuda, layout,
     the card from the
     plain version's particles (which equal the kernel's): one base a slab,
     lattice order at 11 a cell (slabs over three cells, 5-12 bases), random
-    slots and window-edge supports."""
+    slots and window-edge supports.  f64 at guard 6 (20^2 windows, the
+    laser decks' size): its 16^2 windows take the tensor-core products."""
+    from minipic_torch.ops.advance import f64_products
     from minipic_torch.testing import (float_deposit_terms, sum_warp_windows,
                                        warp_adds)
 
-    p, ft = _inputs(cuda)
+    g = 6 if mode == "f64" else 4
+    nw = 8 + 2 * g
+    assert not f64_products(nw, nw, mode)
+    p, ft = _inputs(cuda, g=g)
     if layout == "one-base":
         p = _one_base(p)
     elif layout != "shuffled":
-        p = _lattice(p, 16 if layout == "edge" else 0)
+        p = _lattice(p, 16 if layout == "edge" else 0, reach=g - 0.1)
     if mode == "f64":
         p, ft = _double(p), _double(ft)
     counts = live_watermark(p.w)
     kw = dict(qm=-1.0, q=-1.0, order=2, tile_ny=8, tile_nx=8,
-              origins=_origins(cuda, 4, 4), g=4, dt=0.035, dx=0.1, dy=0.1,
+              origins=_origins(cuda, 4, 4), g=g, dt=0.035, dx=0.1, dy=0.1,
               grid=(32, 32), mode=mode)
     pk, jk, _ = advance_tiles(p, ft, counts, **kw)
     pp, _, _ = advance_plain(p, ft, counts, **kw)
@@ -1126,9 +1251,9 @@ def test_float_kernel_j_equals_the_warp_window_emulation(cuda, layout,
     n_few = n_many = 0
     for t in range(live.shape[0]):
         adds, a, b = warp_adds(live[t], row0[t], col0[t], v[t],
-                               int(counts[t]), 16, 16)
+                               int(counts[t]), nw, nw)
         n_few, n_many = n_few + a, n_many + b
-        want = sum_warp_windows(adds, 16, 16, 1, v.dtype)
+        want = sum_warp_windows(adds, nw, nw, 1, v.dtype)
         for n in range(3):
             assert (jk[n][t].cpu().numpy() == want[n]).all(), (t, n)
     assert (n_few if layout == "one-base" else n_many) > 0

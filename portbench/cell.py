@@ -19,9 +19,10 @@ round-robin over the cell's cards.  The harness holds every state it makes
 or judges in natural tile order (bucket t is tile t, row-major); a mesh
 simulation keeps its buckets in its storage order
 (``storage_permutation()``), so the inputs go in through that permutation
-and what the check reads comes out through it.  The inputs are the
-benchmark's own (``inputs.py``); the reference (``reference/``) imports
-nothing of the program.
+and what the check reads comes out through it.  A deck may have no
+species (fields only), or a moving window (judged on one device).  The
+inputs are the benchmark's own (``inputs.py``); the reference
+(``reference/``) imports nothing of the program.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from torch.profiler import record_function
 from . import inputs
 from .reference import compare as cmp
 from .reference import step as ref_step
+from .reference import window as ref_window
 from .trace import TraceSummary, breakdown, events_of, summarize
 
 ROOT = Path(__file__).resolve().parent
@@ -47,10 +49,37 @@ BENCHMARK = ROOT.parent / "BENCHMARK.json"
 # Steps after the window within which a check waits for a natural re-bin
 # before it forces one.
 _REBIN_WAIT = 100
+# Steps whose live counts the window keeps on the device before it sums
+# them.  Each count holds a block of the allocator (512 bytes): past this
+# many steps the harness's own memory (8 MB) no longer grows with the
+# window's steps, so a window of tens of thousands of short steps reads the
+# same peak in every run; a shorter window holds all its counts.
+_LIVE_FOLD = 16384
 # The workload's ``layout``: the program's simulation that runs the deck.
 LAYOUTS = ("single", "sharded", "balanced")
 # The type of a deck's stated precision.
 PRECISION = {"f32": torch.float32, "f64": torch.float64}
+# The steps a workload's ``judge`` may name (``judged_steps``).
+JUDGE_KINDS = ("last", "rebin", "capacity", "shift", "start")
+
+
+def check_cell(deck: dict, workload: dict) -> None:
+    """Refuse at load what a run could not judge: an unknown judge kind, a
+    re-bin or a capacity change awaited on a deck without particles, a
+    shift on a deck without a moving window, a moving window laid over a
+    mesh."""
+    for kind in workload["judge"]:
+        if kind not in JUDGE_KINDS:
+            raise ValueError(f"judge {kind!r}: one of {JUDGE_KINDS}")
+        if kind in ("rebin", "capacity") and not deck["species"]:
+            raise ValueError(f"judge {kind!r} waits for particles: the "
+                             "deck has no species")
+        if kind == "shift" and not deck.get("moving_window"):
+            raise ValueError("judge 'shift' needs a moving window")
+    if (deck.get("moving_window")
+            and workload.get("layout", "single") != "single"):
+        raise ValueError("the harness judges a moving window on one device "
+                         "only")
 
 
 def load_json(path: Path) -> dict:
@@ -173,6 +202,7 @@ class Sim:
         layout = workload.get("layout", "single")
         if layout not in LAYOUTS:
             raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
+        check_cell(deck, workload)
         pdeck = build_deck(deck)
         self.total_steps = pdeck.total_steps
         self._types = FieldState, ParticleState, SimState
@@ -270,6 +300,13 @@ class Sim:
                             for p in state.species)
         return species, tuple(state.fields), float(state.drift)
 
+    def clock(self, state):
+        """(step, window_x0) of a one-device state of a moving window, read
+        to the host; None for any other deck."""
+        if not self.deck.get("moving_window"):
+            return None
+        return int(state.step), int(state.window_x0)
+
     def live_counts(self) -> List[float]:
         """Each species' live particles now, over every shard."""
         shards = ([self.sim.state.species] if self.perm is None
@@ -342,9 +379,10 @@ def drive(sim: Sim, seconds: float, i: int, on_step=None,
     """Step through ``run_step`` for `seconds` (and at least `min_steps`
     steps), numbering from `i + 1` and restarting the deck past its last
     step when the cell says so.  No synchronize but the one that closes it;
-    the live counts stay on the device until then.  `on_step(k)` is called
-    before step k of the window (k from 0)."""
-    lives = []
+    the live counts stay on the device until then, summed every _LIVE_FOLD
+    steps.  `on_step(k)` is called before step k of the window (k from
+    0)."""
+    lives, live_sum = [], 0
     total = sim.total_steps
     restart = sim.workload["restart"] == "deck"
     prev = diag = None
@@ -362,6 +400,9 @@ def drive(sim: Sim, seconds: float, i: int, on_step=None,
         prev, changes = sim.held(), sim.sim.capacity_changes
         diag = sim.step(i)
         lives.append(diag.shard_live)
+        if len(lives) == _LIVE_FOLD:
+            live_sum = live_sum + torch.cat(lives).sum()
+            lives = []
         if sim.periodic:
             expect += sim.expected_live()
         n += 1
@@ -370,7 +411,9 @@ def drive(sim: Sim, seconds: float, i: int, on_step=None,
             break
     sim.sync()
     wall = time.perf_counter() - t0
-    live = float(torch.cat(lives).sum())
+    if lives:
+        live_sum = live_sum + torch.cat(lives).sum()
+    live = float(live_sum)
     passes = " ".join(
         f"{(b[0] - a[0]) * 1e3 / total:.3f} ({(b[1] - a[1]) * 1e3 / total:.3f})"
         for a, b in zip(marks, marks[1:]))
@@ -420,7 +463,8 @@ def reference_of(sim: Sim, prev, deck: dict,
     dtype = PRECISION[deck["precision"]] if dtype is None else dtype
     species, fields, drift = sim.natural(prev)
     return ref_step.step(species, fields, drift, deck,
-                         cmp.expected_modes(deck), dtype=dtype)
+                         cmp.expected_modes(deck), dtype=dtype,
+                         clock=sim.clock(prev))
 
 
 def judged_steps(sim: Sim, last: Judged, next_i: int, config: dict):
@@ -432,6 +476,9 @@ def judged_steps(sim: Sim, last: Judged, next_i: int, config: dict):
       _REBIN_WAIT steps without one);
     * ``capacity``: the first step after that in which the capacity policy
       changes the buckets (within a deck's steps; none may come);
+    * ``shift``: the first step after that which shifts the moving window,
+      as the reference's predicate has it from the state stepped from (a
+      step that should shift and does not is the one judged);
     * ``start``: the first step from the cell's inputs: after the window's
       own restart from the kept state where the cell restarts, else from
       the inputs made again.  The reference steps from the inputs made
@@ -473,6 +520,14 @@ def judged_steps(sim: Sim, last: Judged, next_i: int, config: dict):
                 rec = None
                 print(f"check: no capacity change in {sim.total_steps + 1} "
                       "steps", file=sys.stderr)
+        elif kind == "shift":
+            for _ in range(sim.total_steps + 1):
+                rec = one()
+                if ref_window.shift_now(*sim.clock(rec.prev), sim.deck):
+                    break
+            else:
+                raise RuntimeError(f"no window shift in "
+                                   f"{sim.total_steps + 1} steps")
         elif kind == "start":
             sim.hold(None)  # freed before the inputs are made again
             sim.restart(None if restart else sim.make_initial(config))

@@ -2,8 +2,10 @@
 tile-bucket layout the program takes, and the initial fields.
 
 A frozen copy of the port's quiet-start loader (``_load_buckets`` of
-``minipic_torch/particles/species.py``, its weight and count modes) and of
-the laser init (``gaussian_laser_x`` of ``minipic_torch/fields/init.py``),
+``minipic_torch/particles/species.py``, its weight and count modes: here
+``lattice_buckets``, which the moving window's injection in
+``reference/window.py`` also takes) and of the field inits
+(``gaussian_laser_x`` and ``pulse_x`` of ``minipic_torch/fields/init.py``),
 with the density profiles that configuration files name.  It imports
 nothing of the program: the program and the reference are handed the same
 tensors.
@@ -77,25 +79,20 @@ def _lattice_factors(ppc: int) -> Tuple[int, int]:
     return a, ppc // a  # (per-x, per-y)
 
 
-def load_species(sp: dict, deck: dict, capacity: int,
-                 gen: torch.Generator, dtype, device) -> Tuple[torch.Tensor,
-                                                               ...]:
-    """(x, y, px, py, pz, w), each [tiles, capacity], for species entry
-    `sp` of configuration deck `deck`; slots past ppc * tile cells are
-    empty (all zero)."""
-    nx, ny = deck["nx"], deck["ny"]
+def lattice_buckets(sp: dict, deck: dict, trow: torch.Tensor,
+                    tcol: torch.Tensor, x_abs_offset: float, dtype, device,
+                    draw: Callable) -> Tuple[torch.Tensor, ...]:
+    """(x, y, px, py, pz, w), each [B, ppc * tile cells], of species entry
+    `sp` on the lattice of the tiles at (trow, tcol) ([B, 1] each, tile
+    coordinates in the deck's frame); the density sees x + x_abs_offset
+    (cells).  ``draw(axis, shape)`` gives the unit normals of momentum axis
+    0, 1 or 2, called only for an axis with a thermal spread, in axis
+    order.  A count-loaded bucket comes live-compacted."""
     nxt, nyt = deck["tile_nx"], deck["tile_ny"]
-    tile_cols, tiles = nx // nxt, (nx // nxt) * (ny // nyt)
-    dx, dy = deck["box_x"] / nx, deck["box_y"] / ny
+    dx, dy = deck["box_x"] / deck["nx"], deck["box_y"] / deck["ny"]
     ppc = sp["ppc"]
     ppc_x, ppc_y = _lattice_factors(ppc)
     per_tile = ppc * nxt * nyt
-    if per_tile > capacity:
-        raise ValueError(f"capacity {capacity} < ppc * tile cells "
-                         f"{per_tile}")
-    t = torch.arange(tiles, device=device)
-    tcol = (t % tile_cols).to(dtype)[:, None]
-    trow = (t // tile_cols).to(dtype)[:, None]
     slots = torch.arange(per_tile, device=device)
     l = slots % ppc_x
     m = (slots // ppc_x) % ppc_y
@@ -108,7 +105,8 @@ def load_species(sp: dict, deck: dict, capacity: int,
     if density is None:
         n = torch.ones_like(x)
     else:
-        n = torch.as_tensor(density(x * dx, y * dy), dtype=dtype,
+        x_abs = x + x_abs_offset
+        n = torch.as_tensor(density(x_abs * dx, y * dy), dtype=dtype,
                             device=device)
     count = sp.get("load_mode", "weight") == "count" and density is not None
     if count:
@@ -119,25 +117,51 @@ def load_species(sp: dict, deck: dict, capacity: int,
         w = torch.where(keep, n_max * (dx * dy / ppc), torch.zeros_like(n))
     else:
         w = n * (dx * dy / ppc)
-    shape = (tiles, per_tile)
-    spread = [sp.get("uth", 0.0) if sp.get(k) is None else sp[k]
-              for k in ("uth_x", "uth_y", "uth_z")]
+    shape = (trow.shape[0], per_tile)
     moms = []
-    for uth, drift in zip(spread, (sp.get("ux", 0.0), sp.get("uy", 0.0),
-                                   sp.get("uz", 0.0))):
+    for axis, (uth, drift) in enumerate(zip(
+            thermal_spread(sp), (sp.get("ux", 0.0), sp.get("uy", 0.0),
+                                 sp.get("uz", 0.0)))):
         if uth <= 0:
             moms.append(torch.full(shape, drift, dtype=dtype, device=device))
         else:
-            moms.append(torch.randn(shape, generator=gen, dtype=dtype,
-                                    device=device) * uth + drift)
+            moms.append(draw(axis, shape) * uth + drift)
     chans = [x, y, *moms, w]
     if count:
         order = torch.sort((w <= 0).to(torch.int8), dim=1,
                            stable=True).indices
         chans = [torch.gather(a, 1, order) for a in chans]
+    return tuple(a.to(dtype) for a in chans)
+
+
+def thermal_spread(sp: dict) -> Tuple[float, float, float]:
+    """The species' thermal spread along x, y and z."""
+    return tuple(sp.get("uth", 0.0) if sp.get(k) is None else sp[k]
+                 for k in ("uth_x", "uth_y", "uth_z"))
+
+
+def load_species(sp: dict, deck: dict, capacity: int,
+                 gen: torch.Generator, dtype, device) -> Tuple[torch.Tensor,
+                                                               ...]:
+    """(x, y, px, py, pz, w), each [tiles, capacity], for species entry
+    `sp` of configuration deck `deck`; slots past ppc * tile cells are
+    empty (all zero)."""
+    tile_cols = deck["nx"] // deck["tile_nx"]
+    tiles = tile_cols * (deck["ny"] // deck["tile_ny"])
+    per_tile = sp["ppc"] * deck["tile_nx"] * deck["tile_ny"]
+    if per_tile > capacity:
+        raise ValueError(f"capacity {capacity} < ppc * tile cells "
+                         f"{per_tile}")
+    t = torch.arange(tiles, device=device)
+    tcol = (t % tile_cols).to(dtype)[:, None]
+    trow = (t // tile_cols).to(dtype)[:, None]
+
+    def draw(axis, shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+    chans = lattice_buckets(sp, deck, trow, tcol, 0.0, dtype, device, draw)
     pad = capacity - per_tile
-    return tuple(torch.nn.functional.pad(a.to(dtype), (0, pad))
-                 for a in chans)
+    return tuple(torch.nn.functional.pad(a, (0, pad)) for a in chans)
 
 
 def _gaussian_laser_x(deck: dict, a0: float, k0: float, x_center: float,
@@ -152,9 +176,26 @@ def _gaussian_laser_x(deck: dict, a0: float, k0: float, x_center: float,
     return {"ey": prof, "bz": prof}
 
 
+def _pulse_x(deck: dict, amplitude: float, modes: int, center: float,
+             tau: float) -> Dict[str, Callable]:
+    """The reference's Test 3: Ey = Bz = A sin(kx x) cos^2((x - xc) / tau
+    pi / 2) on |x - xc| <= tau, 0 elsewhere, kx = modes 2 pi / box_x."""
+    kx = modes * 2.0 * math.pi / deck["box_x"]
+
+    def ey(x, y):
+        u = (x - center) / tau
+        env = torch.where(torch.abs(u) <= 1.0,
+                          torch.cos(u * math.pi * 0.5) ** 2,
+                          torch.zeros_like(u))
+        return amplitude * torch.sin(kx * x) * env
+
+    return {"ey": ey, "bz": ey}
+
+
 FIELD_INITS: Dict[str, Callable[..., Dict[str, Callable]]] = {
     "zeros": lambda deck: {},
     "gaussian_laser_x": _gaussian_laser_x,
+    "pulse_x": _pulse_x,
 }
 
 

@@ -34,6 +34,9 @@ The numbers compared (``compare``):
   harness adds to it, for a periodic deck, the window's live particles
   summed over its steps against the inputs' count less what re-bins
   dropped and counted (``cell.check``).
+
+A deck without species pairs nothing: its particle numbers read 0, and the
+fields and the field energy decide.
 """
 from __future__ import annotations
 
@@ -251,9 +254,9 @@ def compare(prod: Produced, ref: Result, deck: dict) -> Dict[str, float]:
                     for p in prod.species)
     live_off = max(0, abs(prod.live - (ref.live - prod.overflow)) - excused)
     return {
-        "x_gap": max(d["pos"] for d in per),
-        "p_gap": max(d["p"] for d in per),
-        "w_gap": max(d["w"] for d in per),
+        "x_gap": max((d["pos"] for d in per), default=0.0),
+        "p_gap": max((d["p"] for d in per), default=0.0),
+        "w_gap": max((d["w"] for d in per), default=0.0),
         "field_gap": field_gap,
         "energy_gap": energy_gap,
         "momentum_gap": momentum_gap,

@@ -18,9 +18,13 @@ simulation.py``):
 4. the drift trigger: accumulated drift + this step's largest displacement
    against guard - shape reach - 2 CFL steps; on a re-bin every live
    particle belongs to the tile of floor(position / tile) (else to the
-   bucket it came from);
+   bucket it came from); a deck without species never re-bins and keeps
+   its drift;
 5. the diagnostics: field energy after the update, each species' kinetic
-   energy and momentum after the push (float64).
+   energy and momentum after the push (float64);
+6. in a moving window, when the step shifts it (``window.py``; the shift
+   also forces the re-bin), the fields and particles shifted and the
+   leading tile column injected, after the diagnostics.
 
 The gather, push and shape arithmetic is a frozen copy of the port's plain
 advance (``advance_plain`` of ``minipic_torch/ops/advance.py``), in the same
@@ -89,7 +93,7 @@ def geometry(deck: dict) -> Geometry:
 def drift_threshold(deck: dict) -> float:
     """Accumulated drift (cells) past which the step re-bins."""
     geo = geometry(deck)
-    order = max(sp["shape_order"] for sp in deck["species"])
+    order = max((sp["shape_order"] for sp in deck["species"]), default=1)
     reach = 1.0 if order == 1 else 1.5
     return geo.guard - reach - 2.0 * geo.dt / min(geo.dx, geo.dy)
 
@@ -432,11 +436,20 @@ class Result(NamedTuple):
 
 
 def step(species: Tuple[Flat, ...], fields, drift: float, deck: dict,
-         modes: Tuple[str, ...], dtype=torch.float32) -> Result:
+         modes: Tuple[str, ...], dtype=torch.float32,
+         clock: Optional[Tuple[int, int]] = None) -> Result:
     """One reference step from the live particles of each species (with the
     buckets they sit in), the fields and the accumulated drift.  `modes` is
-    each species' deposit ("int8", "f32" or "f64")."""
+    each species' deposit ("int8", "f32" or "f64").  A moving window needs
+    `clock`, the (step, window_x0) of the state stepped from."""
+    from . import window  # window.py takes this module's Flat and tiles
+
     geo = geometry(deck)
+    shifted = False
+    if deck.get("moving_window"):
+        if clock is None:
+            raise ValueError("a moving window's step needs its clock")
+        shifted = window.shift_now(clock[0], clock[1], deck)
     fields = tuple(f.to(dtype) for f in fields)
     pushed, jsum, disp = [], None, None
     for sp, mode, p in zip(deck["species"], modes, species):
@@ -450,18 +463,27 @@ def step(species: Tuple[Flat, ...], fields, drift: float, deck: dict,
     moms = [momentum(p, sp["mass"]) for p, sp in zip(pushed, deck["species"])]
     if not geo.periodic:
         pushed = [kill_at_walls(p, geo) for p in pushed]
-    # The program keeps the drift in float32 and adds each step's
-    # displacement in its own type, so a float64 deck's drift is float64.
-    dtype_drift = torch.promote_types(torch.float32, disp.dtype)
-    drift_now = (torch.tensor(drift, dtype=dtype_drift, device=disp.device)
-                 + disp.to(dtype_drift))
-    thr = torch.tensor(drift_threshold(deck), dtype=dtype_drift)
-    rebinned = bool(drift_now.cpu() > thr)
+    if disp is None:
+        drift_now, rebinned = float(drift), False
+    else:
+        # The program keeps the drift in float32 and adds each step's
+        # displacement in its own type, so a float64 deck's drift is
+        # float64.
+        dtype_drift = torch.promote_types(torch.float32, disp.dtype)
+        drift_now = (torch.tensor(drift, dtype=dtype_drift,
+                                  device=disp.device) + disp.to(dtype_drift))
+        thr = torch.tensor(drift_threshold(deck), dtype=dtype_drift)
+        rebinned = shifted or bool(drift_now.cpu() > thr)
+        drift_now = float(drift_now)
+    energy = float(field_energy(fields, geo))
+    live = sum(int(p.x.shape[0]) for p in pushed)
+    if shifted:
+        pushed, fields = window.shift(tuple(pushed), fields, deck, geo,
+                                      clock[1] + geo.tile_nx, dtype)
     return Result(
-        species=tuple(pushed), fields=fields,
-        field_energy=float(field_energy(fields, geo)), kinetic=kin,
+        species=tuple(pushed), fields=fields, field_energy=energy,
+        kinetic=kin,
         momentum=tuple(tuple(float(v) for v in m) for m, _ in moms),
         momentum_abs=tuple(tuple(float(v) for v in a) for _, a in moms),
-        live=sum(int(p.x.shape[0]) for p in pushed), rebinned=rebinned,
-        drift=0.0 if rebinned else float(drift_now),
-        drift_now=float(drift_now))
+        live=live, rebinned=rebinned,
+        drift=0.0 if rebinned else drift_now, drift_now=drift_now)

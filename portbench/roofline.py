@@ -1,6 +1,7 @@
-"""The yardstick of the advance: the least time the card could take for one
-step's gather, push, move and deposit, from the state's sizes alone, so the
-count is the same whatever implements it.
+"""The yardsticks of the advance and of the fields: the least time the card
+could take for one step's gather, push, move and deposit, or for one step's
+field update, from the state's sizes alone, so the count is the same
+whatever implements it.
 
 Peaks are the published ones of one NVIDIA H100 SXM (data sheet, dense
 rates, at its 700 W limit): 3.35 TB/s of HBM3, 67 TFLOP/s of float32 and
@@ -51,3 +52,15 @@ def advance_least_s(live_by_order, nx: int, ny: int, width: int) -> float:
     live = sum(live_by_order.values())
     return max(advance_bytes(live, nx, ny, width) / HBM_BYTES_PER_S,
                advance_flops(live_by_order) / FLOPS[width])
+
+
+def fields_bytes(nx: int, ny: int, width: int, species: bool) -> float:
+    """Bytes one step's field update must move: E and B (six components)
+    each read and written once over the grid, and where the deck has
+    species J's three components read once."""
+    return width * nx * ny * (12.0 + (3.0 if species else 0.0))
+
+
+def fields_least_s(nx: int, ny: int, width: int, species: bool) -> float:
+    """Bytes over bandwidth: the update is a few operations a byte."""
+    return fields_bytes(nx, ny, width, species) / HBM_BYTES_PER_S

@@ -197,3 +197,20 @@ def test_busy_time_is_each_cards_union_averaged_over_the_cards():
                     cards=[0])
     assert one.busy_us == 30.0 and one.busy_by_card == ((0, 30.0),)
     assert one.idle_gaps == ()
+
+
+@pytest.mark.parametrize("steps", [14, 10])
+def test_the_window_sums_its_live_counts_in_folds(headline_small, steps,
+                                                   monkeypatch):
+    """The window keeps at most _LIVE_FOLD live counts on the device (past
+    the fold its own memory no longer grows with its steps) and sums them
+    all: a window of a multiple of the fold and one past it count every
+    step."""
+    monkeypatch.setattr(cell, "_LIVE_FOLD", 7)
+    workload, config = headline_small
+    sim = cell.Sim(cell.deck_dict(config, workload), config, workload, 3,
+                   "cpu")
+    win = cell.drive(sim, 0.0, 0, min_steps=steps)
+    assert win.steps == steps
+    assert win.live_sum == sim.n_inputs * steps
+    assert win.live_off == 0
